@@ -1,0 +1,37 @@
+"""Device selection and the numerics every entry point pins.
+
+Counterpart of ``video_features_tpu/parallel/devices.py``: ``--device_ids``
+index the visible CUDA devices and ``--cpu`` selects the CPU. A run
+without ``--cpu`` on a host without CUDA is an error, never a silent
+fallback to the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def pin_fp32() -> None:
+    """fp32 means fp32: cuBLAS matmuls and cuDNN convolutions off TF32
+    (cuDNN's default is TF32, which the JAX reference's fp32 patch conv
+    does not use)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(cfg) -> torch.device:
+    """``cuda:<device_ids[0]>``, or the CPU when ``cfg.cpu``."""
+    if cfg.cpu:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible; pass --cpu to run on the CPU"
+        )
+    ids = list(cfg.device_ids or [0])
+    count = torch.cuda.device_count()
+    bad = [i for i in ids if i < 0 or i >= count]
+    if bad:
+        raise ValueError(
+            f"device_ids {bad} out of range: only {count} CUDA devices visible"
+        )
+    return torch.device("cuda", ids[0])

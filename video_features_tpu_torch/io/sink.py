@@ -1,0 +1,94 @@
+"""Output sink: what happens to an extracted feature dict.
+
+Counterpart of ``video_features_tpu/io/sink.py``: features are printed
+with max/mean/min stats, or saved as ``<stem>_<key>.npy`` /
+``<stem>_<key>.pkl`` (``<stem>.<ext>`` with ``output_direct``); the meta
+keys ``fps`` and ``timestamps_ms`` are never saved. Same file names as
+the JAX package, so either package's output can ``--resume`` the other's.
+"""
+
+from __future__ import annotations
+
+import os
+import pathlib
+import pickle
+import threading
+import uuid
+from typing import Dict, List
+
+import numpy as np
+
+META_KEYS = ("fps", "timestamps_ms")
+_SUFFIX = {"save_numpy": "npy", "save_pickle": "pkl"}
+
+
+def output_file_name(name: str, key: str, on_extraction: str, output_direct: bool) -> str:
+    """``<stem>_<key>.<ext>``; '/' in a key (CLIP-ViT-B/32) becomes '-'."""
+    suffix = _SUFFIX[on_extraction]
+    if output_direct:
+        return f"{name}.{suffix}"
+    return f"{name}_{key.replace('/', '-')}.{suffix}"
+
+
+def expected_output_files(
+    feature_keys, video_path: str, output_path: str, on_extraction: str,
+    output_direct: bool = False,
+) -> List[str]:
+    """The files a successful save would write: the ``--resume`` probe.
+    Empty for ``print``, which writes nothing and always recomputes."""
+    if on_extraction not in _SUFFIX:
+        return []
+    name = pathlib.Path(video_path).stem
+    return list(dict.fromkeys(
+        os.path.join(output_path, output_file_name(name, key, on_extraction, output_direct))
+        for key in feature_keys
+    ))
+
+
+def action_on_extraction(
+    feats_dict: Dict[str, np.ndarray],
+    video_path: str,
+    output_path: str,
+    on_extraction: str,
+    output_direct: bool = False,
+) -> List[str]:
+    """Print or save every non-meta key; returns warnings (empty values)."""
+    name = pathlib.Path(video_path).stem
+    warnings: List[str] = []
+    for key, value in feats_dict.items():
+        if key in META_KEYS:
+            continue
+        value = np.asarray(value)
+        if on_extraction == "print":
+            print(key)
+            print(value)
+            print(f"max: {value.max():.8f}; mean: {value.mean():.8f}; min: {value.min():.8f}")
+            print()
+        elif on_extraction in _SUFFIX:
+            fpath = os.path.join(
+                output_path, output_file_name(name, key, on_extraction, output_direct)
+            )
+            os.makedirs(os.path.dirname(fpath), exist_ok=True)
+            if len(value) == 0:
+                msg = f"the value is empty for {key} @ {fpath}"
+                print(f"Warning: {msg}")
+                warnings.append(msg)
+            # write a uniquely named tmp file, then rename: a run killed
+            # mid-save leaves no truncated file for --resume to trust
+            tmp = f"{fpath}.{os.getpid()}-{threading.get_ident()}-{uuid.uuid4().hex[:8]}.tmp"
+            try:
+                with open(tmp, "wb") as f:
+                    if on_extraction == "save_numpy":
+                        np.save(f, value)
+                    else:
+                        pickle.dump(value, f)
+                os.replace(tmp, fpath)
+            except BaseException:
+                try:
+                    os.unlink(tmp)
+                except OSError:
+                    pass
+                raise
+        else:
+            raise NotImplementedError(f"on_extraction: {on_extraction} is not implemented")
+    return warnings

@@ -1,0 +1,101 @@
+"""Video decode and the ``fix_N`` / ``uni_N`` frame samplers, with cv2.
+
+Counterpart of ``video_features_tpu/io/video.py`` (``probe``,
+``read_frames_at_indices``, ``extract_frames``) on its cv2 backend: the
+same frame-exact sequential decode, so both packages sample the same
+bytes from the same file.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Tuple
+
+import cv2
+import numpy as np
+
+# declared fps below this is absent fps (hostile headers declare ~1e-10)
+MIN_SANE_FPS = 1e-3
+DEFAULT_FPS = 25.0
+
+
+class CorruptVideoError(RuntimeError):
+    """The input cannot be decoded into the frames its sampler needs."""
+
+
+def probe(path: str) -> Tuple[float, int]:
+    """(fps, frame_count) from the container's metadata; fps is 0.0 and
+    the count 0 where they are absent or insane."""
+    cap = cv2.VideoCapture(str(path))
+    try:
+        if not cap.isOpened():
+            raise CorruptVideoError(f"cannot open video: {path}")
+        fps = cap.get(cv2.CAP_PROP_FPS) or 0.0
+        count = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    finally:
+        cap.release()
+    fps = float(fps) if math.isfinite(fps) and fps >= MIN_SANE_FPS else 0.0
+    if count < 0 or count > 10 ** 9:
+        count = 0
+    return fps, count
+
+
+def read_frames_at_indices(path: str, indices) -> Dict[int, np.ndarray]:
+    """{index: RGB uint8 HWC frame} for the wanted indices, by sequential
+    decode up to the largest (seeks can land off by frames); indices past
+    the decodable end are absent."""
+    need = sorted(set(int(i) for i in indices))
+    got: Dict[int, np.ndarray] = {}
+    if not need:
+        return got
+    wanted = set(need)
+    cap = cv2.VideoCapture(str(path))
+    try:
+        if not cap.isOpened():
+            raise CorruptVideoError(f"cannot open video: {path}")
+        for i in range(need[-1] + 1):
+            if not cap.grab():
+                break
+            if i in wanted:
+                ok, frame = cap.retrieve()
+                if ok:
+                    got[i] = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+    finally:
+        cap.release()
+    return got
+
+
+def extract_frames(path: str, method: str) -> Tuple[List[np.ndarray], float, List[float]]:
+    """``fix_<fps>`` / ``uni_<N>``: frames at ``linspace(1, n - 2, k)``
+    (first and last frames skipped, as the reference does). Returns (RGB
+    frames, source fps, timestamps_ms)."""
+    ext, *params = method.split("_")
+    fps, frame_cnt = probe(path)
+    fps = fps or DEFAULT_FPS
+    if frame_cnt < 3:
+        raise CorruptVideoError(
+            f"video too short for sampling: {frame_cnt} of {frame_cnt} "
+            f"declared frames, sampler needs 3: {path}"
+        )
+    if ext == "fix":
+        samples_num = int(frame_cnt / fps * int(params[0]))
+    elif ext == "uni":
+        samples_num = int(params[0])
+    else:
+        raise NotImplementedError(f"extract method {ext!r} is not supported")
+    samples_ix = np.linspace(1, frame_cnt - 2, max(samples_num, 1)).astype(int)
+    got = read_frames_at_indices(path, samples_ix)
+    if not got:
+        raise CorruptVideoError(
+            f"no frames decoded (0 of {frame_cnt} declared frames): {path}"
+        )
+    # duplicate indices (short videos) reuse one frame; indices past the
+    # decodable end repeat the last decoded one
+    last_seen = None
+    frames = []
+    for ix in samples_ix:
+        if ix in got:
+            last_seen = got[ix]
+        frames.append(last_seen if last_seen is not None else next(iter(got.values())))
+    mspf = 1000.0 / fps
+    return frames, fps, [float(ix) * mspf for ix in samples_ix]
