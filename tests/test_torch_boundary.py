@@ -72,18 +72,22 @@ def test_every_module_imports_without_jax():
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
-def test_cli_without_cpu_needs_cuda(monkeypatch, sample_video, tmp_path):
+@pytest.mark.parametrize("args", [
+    ["--feature_type", "CLIP-ViT-B/32", "--extract_method", "uni_3"],
+    ["--feature_type", "i3d", "--flow_type", "pwc"],
+    ["--feature_type", "pwc"],
+], ids=["clip", "i3d", "pwc"])
+def test_cli_without_cpu_needs_cuda(monkeypatch, sample_video, tmp_path, args):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main([
-            "--feature_type", "CLIP-ViT-B/32", "--allow_random_init",
-            "--video_paths", sample_video, "--extract_method", "uni_3",
+            *args, "--allow_random_init", "--video_paths", sample_video,
             "--output_path", str(tmp_path / "out"), "--tmp_path", str(tmp_path / "tmp"),
         ])
 
 
 def test_kernel_build_is_keyed_by_source_and_needs_nvcc(monkeypatch, tmp_path):
-    assert kernels.sources() == ["flash_attention"]
+    assert kernels.sources() == ["flash_attention", "local_correlation"]
     lib = kernels.library_path("flash_attention")
     assert lib.parent == kernels.BUILD_DIR and lib == kernels.library_path("flash_attention")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

@@ -44,9 +44,14 @@ class BaseExtractor:
         self._device_state: Dict[torch.device, Any] = {}
         pin_fp32()
 
+    def feature_keys(self) -> List[str]:
+        """The keys a feature dict carries, whose files ``--resume`` probes
+        (i3d overrides this with its streams)."""
+        return [self.feature_type]
+
     def _already_done(self, entry) -> bool:
         files = expected_output_files(
-            [self.feature_type], video_path_of(entry), self.output_path,
+            self.feature_keys(), video_path_of(entry), self.output_path,
             self.config.on_extraction, self.config.output_direct,
         )
         return bool(files) and all(os.path.exists(f) for f in files)

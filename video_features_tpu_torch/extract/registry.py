@@ -11,4 +11,12 @@ def build_extractor(cfg: ExtractionConfig, external_call: bool = False):
         from video_features_tpu_torch.models.clip.extract_clip import ExtractCLIP
 
         return ExtractCLIP(cfg, external_call)
+    if cfg.feature_type == "pwc":
+        from video_features_tpu_torch.models.pwc.extract_pwc import ExtractPWC
+
+        return ExtractPWC(cfg, external_call)
+    if cfg.feature_type == "i3d":
+        from video_features_tpu_torch.models.i3d.extract_i3d import ExtractI3D
+
+        return ExtractI3D(cfg, external_call)
     raise ValueError(f"unknown feature_type: {cfg.feature_type}")

@@ -1,4 +1,5 @@
-"""The video list: ``--file_with_video_paths`` or ``--video_paths``.
+"""The video list (``--file_with_video_paths`` or ``--video_paths``) and
+the sliding-window slices of I3D's stacks.
 
 Counterpart of ``video_features_tpu/io/paths.py``.
 """
@@ -9,6 +10,13 @@ import os
 from typing import List, Tuple, Union
 
 PathEntry = Union[str, Tuple[str, str]]
+
+
+def form_slices(size: int, stack_size: int, step_size: int) -> List[Tuple[int, int]]:
+    """(start, end) windows of ``stack_size`` frames every ``step_size``
+    over ``size`` frames; the ragged tail is dropped."""
+    full_stack_num = (size - stack_size) // step_size + 1
+    return [(i * step_size, i * step_size + stack_size) for i in range(full_stack_num)]
 
 
 def form_list_from_user_input(cfg) -> List[PathEntry]:

@@ -1,15 +1,15 @@
-"""Video decode and the ``fix_N`` / ``uni_N`` frame samplers, with cv2.
+"""Video decode and the frame samplers, with cv2.
 
 Counterpart of ``video_features_tpu/io/video.py`` (``probe``,
-``read_frames_at_indices``, ``extract_frames``) on its cv2 backend: the
-same frame-exact sequential decode, so both packages sample the same
-bytes from the same file.
+``read_frames_at_indices``, ``extract_frames``, ``stream_frames``) on its
+cv2 backend: the same frame-exact sequential decode, so both packages
+sample the same bytes from the same file.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import cv2
 import numpy as np
@@ -99,3 +99,45 @@ def extract_frames(path: str, method: str) -> Tuple[List[np.ndarray], float, Lis
         frames.append(last_seen if last_seen is not None else next(iter(got.values())))
     mspf = 1000.0 / fps
     return frames, fps, [float(ix) * mspf for ix in samples_ix]
+
+
+def stream_frames(
+    path: str, extraction_fps: Optional[float] = None
+) -> Iterator[Tuple[np.ndarray, float]]:
+    """Yield (RGB uint8 HWC frame, timestamp_ms) by sequential decode.
+
+    With ``extraction_fps``, output frame k is source frame
+    ``round(k * src_fps / extraction_fps)``: a source frame repeats when
+    upsampling and is grabbed but never converted when skipped. The
+    source fps is the container's, or 25.0 where it is absent."""
+    cap = cv2.VideoCapture(str(path))
+    try:
+        if not cap.isOpened():
+            raise CorruptVideoError(f"cannot open video: {path}")
+        fps = cap.get(cv2.CAP_PROP_FPS) or 0.0
+        src_fps = float(fps) if math.isfinite(fps) and fps >= MIN_SANE_FPS else DEFAULT_FPS
+        if extraction_fps is None:
+            i = 0
+            while True:
+                ok, frame = cap.read()
+                if not ok:
+                    return
+                yield cv2.cvtColor(frame, cv2.COLOR_BGR2RGB), i * 1000.0 / src_fps
+                i += 1
+        out_k, src_i, frame = 0, -1, None
+        while True:
+            target = int(round(out_k * src_fps / extraction_fps))
+            fresh = False
+            while src_i < target:
+                if not cap.grab():
+                    return
+                fresh, src_i = True, src_i + 1
+            if fresh:
+                ok, bgr = cap.retrieve()
+                if not ok:
+                    return
+                frame = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+            yield frame, out_k * 1000.0 / extraction_fps
+            out_k += 1
+    finally:
+        cap.release()

@@ -62,3 +62,14 @@ def random_init_fallback(config, model_name: str, expected: str) -> None:
         "Pass --weights_path, or --allow_random_init to run with random "
         "weights (meaningless features; tests/benchmarks only)."
     )
+
+
+def load_checked(model: torch.nn.Module, sd, model_name: str) -> None:
+    """``model.load_state_dict(sd)``, where a checkpoint may lack only
+    BatchNorm's ``num_batches_tracked`` counters (eval never reads them)."""
+    res = model.load_state_dict(sd, strict=False)
+    bad = res.unexpected_keys + [
+        k for k in res.missing_keys if not k.endswith("num_batches_tracked")
+    ]
+    if bad:
+        raise ValueError(f"{model_name} state dict does not fit the model, e.g. {bad[:5]}")

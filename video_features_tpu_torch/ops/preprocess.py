@@ -1,7 +1,8 @@
-"""Host preprocessing: the PIL resize / center-crop / normalise chain.
+"""Preprocessing: the host PIL resize / center-crop / normalise chain, and
+the I3D input maps (``scale_to_1_1``, ``flow_to_uint8``).
 
-Counterpart of the host half of ``video_features_tpu/ops/preprocess.py``;
-its output is byte-identical (both bottom out in the same PIL calls).
+Counterpart of ``video_features_tpu/ops/preprocess.py``; the PIL chain's
+output is byte-identical (both bottom out in the same PIL calls).
 """
 
 from __future__ import annotations
@@ -9,6 +10,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
 from PIL import Image
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -64,3 +66,16 @@ def normalize_chw(img: np.ndarray, mean: Sequence[float], std: Sequence[float]) 
     mean = np.asarray(mean, np.float32).reshape(-1, 1, 1)
     std = np.asarray(std, np.float32).reshape(-1, 1, 1)
     return (img - mean) / std
+
+
+def scale_to_1_1(x):
+    """[0, 255] -> [-1, 1] (tensor or array)."""
+    return 2.0 * x / 255.0 - 1.0
+
+
+def flow_to_uint8(flow: torch.Tensor, bound: float = 20.0) -> torch.Tensor:
+    """Clamp flow to [-bound, bound] and quantise it to the uint8 grid,
+    kept as float (the reference's Clamp -> ToUInt8). ``torch.round``
+    rounds half to even, as ``jnp.round`` does; exactly +bound maps to
+    256.0, as in the reference."""
+    return torch.round(128.0 + 255.0 / (2 * bound) * flow.clamp(-bound, bound))
