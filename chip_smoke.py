@@ -9,7 +9,9 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, and time the kernel, the plain version, one
    PyTorch library call computing the same function (a yardstick only,
-   never called by the port) and the least time the card could take;
+   never called by the port) and the least time the card could take,
+   with that bound's share of the kernel's time (K1 also at L=65, one
+   row past a KV tile, and at d=128);
 4. the CLIP path through the port's CLI: CLIP-ViT-B/32 at full width
    (768 wide, 12 layers, 12 heads, 224 px, patch 32, 512-d), ``uni_12``,
    ``--attn flash``, seeded random weights, on 4 synthetic clips; checks
@@ -46,9 +48,13 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by
+# type. fp32 work has a faster route than the CUDA cores' 67 TFLOP/s: three
+# TF32 tensor-core products (big*big + big*small + small*big) at 495 TFLOP/s
+# give fp32 accuracy at 165 TFLOP/s, so that is the fp32 operations term
+# of every bound, whichever unit a kernel uses
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 
 # kernel vs plain version on the same inputs: fp32 differs only in the
 # order of its sums; bf16 outputs are rounded to bf16 (one ulp near 1 is
@@ -69,6 +75,20 @@ LAYERS = 12
 PAIRS = 64
 CORR_LEVELS = [(2, 32, 64, 96), (3, 64, 32, 48), (4, 96, 16, 24), (5, 128, 8, 12),
                (6, 196, 4, 6)]
+# K1's cases in phase 3: (shape, dtype, kv_len); the first is the main path
+ATTENTION_CASES = [
+    ((16, 12, 50, 64), torch.float32, None),  # the main path: B/32, uni_12
+    ((16, 12, 197, 64), torch.float32, None),  # B/16
+    ((16, 12, 50, 64), torch.float32, 37),  # ragged KV
+    ((16, 12, 50, 64), torch.bfloat16, None),
+    ((16, 12, 65, 64), torch.float32, None),  # one row past a KV tile: two stages
+    ((16, 12, 197, 128), torch.float32, None),  # d=128, the most shared memory
+]
+# K2's cases in phase 3: (label, shape, dtype); the levels are the main path
+CORRELATION_CASES = [(f"level {lvl}", (PAIRS, c, h, w), torch.float32)
+                     for lvl, c, h, w in CORR_LEVELS]
+CORRELATION_CASES += [("ragged", (PAIRS, 32, 67, 121), torch.float32),
+                      ("level 2 bf16", (PAIRS, 32, 64, 96), torch.bfloat16)]
 I3D_VIDEOS = 2
 I3D_CLIP_FRAMES = 129  # 2 stacks of 64 + 1 frames at step 64
 I3D_STACKS = 2
@@ -177,14 +197,8 @@ def check_flash_attention(device):
         flash_attention_reference,
     )
 
-    cases = [
-        ((16, 12, 50, 64), torch.float32, None),  # the main path: B/32, uni_12
-        ((16, 12, 197, 64), torch.float32, None),  # B/16
-        ((16, 12, 50, 64), torch.float32, 37),  # ragged KV
-        ((16, 12, 50, 64), torch.bfloat16, None),
-    ]
     main = None
-    for i, (shape, dtype, kv_len) in enumerate(cases):
+    for i, (shape, dtype, kv_len) in enumerate(ATTENTION_CASES):
         rng = np.random.default_rng(i)
         q, k, v = (
             torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
@@ -204,20 +218,31 @@ def check_flash_attention(device):
         bound_ms, bound_by = attention_bound(shape, dtype, kv_len)
         traced = device_kernels(lambda: flash_attention(q, k, v, kv_len=kv_len), iters=20)
         device_ms = sum(ms for name, (ms, _) in traced.items() if "flash_attention" in name)
+        # every kernel SDPA launches, on the device
+        library_device_ms = sum(ms for ms, _ in device_kernels(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), iters=20).values())
         print(
             f"flash_attention {shape} {str(dtype)[6:]} kv_len={kv_len}: "
             f"max_abs_err {err:.3e} (tol {tol:g}); kernel {ms * 1e3:.2f} us, "
             f"kernel on the device {device_ms * 1e3:.2f} us (profiler), "
             f"plain {plain_ms * 1e3:.2f} us, sdpa {library_ms * 1e3:.2f} us, "
-            f"bound {bound_ms * 1e3:.2f} us ({bound_by})"
+            f"sdpa on the device {library_device_ms * 1e3:.2f} us (profiler), "
+            f"bound {bound_ms * 1e3:.2f} us ({bound_by}), "
+            f"{bound_share(bound_ms, device_ms or ms)} of the bound"
         )
         if not err <= tol:
             raise AssertionError(f"flash_attention disagrees with its plain version: {err}")
         if main is None:
             main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=library_ms,
-                        device_ms=device_ms or None)
+                        device_ms=device_ms or None,
+                        library_device_ms=library_device_ms or None)
     return main
+
+
+def bound_share(bound_ms: float, ms: float) -> str:
+    """The bound as a share of the kernel's time (1 = at the bound)."""
+    return f"{bound_ms / ms:.3f}" if ms > 0 else "not measured"
 
 
 def correlation_bound(shape, dtype):
@@ -236,14 +261,14 @@ def check_local_correlation(device):
     volumes on the I3D main path (times and bounds summed over the five
     levels, the largest error of the five)."""
     from video_features_tpu_torch.ops.correlation import local_correlation_reference
-    from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
+    from video_features_tpu_torch.ops.correlation_kernel import (
+        launch_shape,
+        local_correlation_kernel,
+    )
 
-    cases = [(f"level {lvl}", (PAIRS, c, h, w), torch.float32) for lvl, c, h, w in CORR_LEVELS]
-    cases += [("ragged", (PAIRS, 32, 67, 121), torch.float32),
-              ("level 2 bf16", (PAIRS, 32, 64, 96), torch.bfloat16)]
     stack = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, device_ms=0.0)
     bounds = []  # (ms, what sets it) of each main-path level
-    for i, (label, shape, dtype) in enumerate(cases):
+    for i, (label, shape, dtype) in enumerate(CORRELATION_CASES):
         rng = np.random.default_rng(100 + i)
         f1, f2 = (
             torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
@@ -259,11 +284,15 @@ def check_local_correlation(device):
         bound_ms, bound_by = correlation_bound(shape, dtype)
         traced = device_kernels(lambda: local_correlation_kernel(f1, f2), iters=20)
         device_ms = sum(ms for name, (ms, _) in traced.items() if "local_correlation" in name)
+        tile = launch_shape(*shape, f1.element_size())
         print(
             f"local_correlation {label} {shape} {str(dtype)[6:]}: max_abs_err {err:.3e} "
             f"(tol {tol:g}); kernel {ms * 1e3:.2f} us, kernel on the device "
             f"{device_ms * 1e3:.2f} us (profiler), plain {plain_ms * 1e3:.2f} us, "
-            f"bound {bound_ms * 1e3:.2f} us ({bound_by})"
+            f"bound {bound_ms * 1e3:.2f} us ({bound_by}), "
+            f"{bound_share(bound_ms, device_ms or ms)} of the bound; {tile.staging} staging, tile "
+            f"{tile.tile_h}x{tile.tile_w}, {tile.splits} channel groups, chunk {tile.chunk}, "
+            f"tiles {tile.tiles}, {tile.threads} threads, {tile.smem_bytes} B shared"
         )
         if not err <= tol:
             raise AssertionError(f"local_correlation disagrees with its plain version: {err}")
@@ -278,7 +307,8 @@ def check_local_correlation(device):
     bound_ms, bound_by = sum(b for b, _ in bounds), max(bounds)[1]
     print(f"local_correlation, one stack's five levels (fp32): kernel {stack['ms'] * 1e3:.2f} us, "
           f"on the device {stack['device_ms'] * 1e3:.2f} us, plain {stack['plain_ms'] * 1e3:.2f} "
-          f"us, bound {bound_ms * 1e3:.2f} us")
+          f"us, bound {bound_ms * 1e3:.2f} us, "
+          f"{bound_share(bound_ms, stack['device_ms'] or stack['ms'])} of the bound")
     return dict(max_abs_err=stack["max_abs_err"], ms=stack["ms"], plain_ms=stack["plain_ms"],
                 bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None, device_ms=stack["device_ms"] or None)

@@ -21,6 +21,8 @@ from video_features_tpu_torch.ops.attention import (
     online_softmax_step,
 )
 from video_features_tpu_torch.ops.flash_attention import (
+    BLOCK_K,
+    BLOCK_Q,
     flash_attention,
     flash_attention_reference,
 )
@@ -97,6 +99,25 @@ def test_single_block():
     np.testing.assert_allclose(out.numpy(), ref, atol=FP32_ATOL)
 
 
+@pytest.mark.parametrize("length", [50, 65], ids=["L50", "L65"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_plain_at_kernel_tiles_matches_jax(length, dtype):
+    """The plain version at the kernel's 64-row KV tiles: one tile at L=50,
+    a full tile and a 1-row tile at L=65 (the KV tile edge)."""
+    assert (BLOCK_Q, BLOCK_K) == (64, 64)
+    q, k, v = _qkv(8, n=1, h=2, lq=length, lk=length, d=32)
+    fused = np.asarray(jax_attn.attention(*map(jnp.asarray, (q, k, v))))
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    pallas = np.asarray(jax_flash(*(jnp.asarray(a).astype(jdt) for a in (q, k, v)),
+                                  block_q=BLOCK_Q, block_k=BLOCK_K, interpret=True),
+                        dtype=np.float32)
+    out = flash_attention(*_t(q, k, v, dtype=dtype))
+    assert out.dtype == dtype and out.shape == (1, 2, length, 32)
+    atol = FP32_ATOL if dtype == torch.float32 else BF16_ATOL
+    np.testing.assert_allclose(out.float().numpy(), pallas, atol=atol)
+    np.testing.assert_allclose(out.float().numpy(), fused, atol=atol)
+
+
 def test_online_softmax_step_matches_jax():
     q, k, v = _qkv(4, lq=8, lk=12, d=16)
     rng = np.random.default_rng(5)
@@ -124,11 +145,13 @@ def test_rejects_bad_kv_len_and_non_cpu_tensors():
 
 @pytest.fixture
 def cuda_device():
+    """The card, decided when the test runs (never at import)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     return torch.device("cuda", 0)
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize(
     "shape,dtype,kv_len,atol",
     [
@@ -136,6 +159,15 @@ def cuda_device():
         ((16, 12, 197, 64), torch.float32, None, 1e-5),
         ((16, 12, 50, 64), torch.float32, 37, 1e-5),
         ((16, 12, 50, 64), torch.bfloat16, None, 1e-2),
+        ((4, 12, 64, 64), torch.float32, None, 1e-5),  # exactly one KV tile
+        ((4, 12, 65, 64), torch.float32, None, 1e-5),  # two tiles, the second 1 row
+        ((4, 12, 65, 64), torch.bfloat16, 65, 1e-2),
+        ((4, 12, 130, 64), torch.float32, 70, 1e-5),  # tiles past kv_len skipped
+        ((4, 12, 50, 32), torch.float32, None, 1e-5),
+        ((4, 12, 197, 32), torch.bfloat16, None, 1e-2),
+        ((4, 12, 50, 128), torch.float32, None, 1e-5),
+        ((4, 12, 197, 128), torch.float32, None, 1e-5),  # two stages, 169 KB shared
+        ((4, 12, 197, 128), torch.bfloat16, None, 1e-2),
     ],
 )
 def test_kernel_matches_plain_on_card(cuda_device, shape, dtype, kv_len, atol):
@@ -150,3 +182,16 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, dtype, kv_len, atol):
     assert flash_attention.launches == before + 1
     ref = flash_attention_reference(q, k, v, kv_len=kv_len)
     assert (out.float() - ref.float()).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
+def test_kernel_shapes_in_turns_on_card(cuda_device):
+    """Two KV stages (L=197) take more shared memory than one (L=50): the
+    larger, the smaller and the larger again all run."""
+    rng = np.random.default_rng(9)
+    for shape in [(2, 12, 197, 64), (2, 12, 50, 64), (2, 12, 197, 64)]:
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(cuda_device)
+                   for _ in range(3))
+        out = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert (out - flash_attention_reference(q, k, v)).abs().max().item() <= FP32_ATOL

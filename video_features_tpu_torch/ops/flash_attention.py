@@ -19,9 +19,10 @@ import torch
 from video_features_tpu_torch.ops import kernels
 from video_features_tpu_torch.ops.attention import blockwise_attention
 
-# the kernel's tiles (csrc/flash_attention.cu kBlockQ / kBlockK)
-BLOCK_Q = 16
-BLOCK_K = 32
+# the kernel's tiles (csrc/flash_attention.cu kBlockQ / kBlockK): 4 warps
+# of 16 query rows, 64-row KV tiles
+BLOCK_Q = 64
+BLOCK_K = 64
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
@@ -37,6 +38,13 @@ def flash_attention_reference(
     """The kernel's arithmetic in plain torch: the online softmax over
     ``block_k``-row KV tiles, fp32 state, p rounded to v's dtype."""
     return blockwise_attention(q, k, v, block_size=block_k, kv_len=kv_len)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned: the kernel stages rows with 16-byte
+    copies."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,10 +101,10 @@ def flash_attention(
         raise ValueError(f"kv_len must be in [1, {Lk}], got {kv_len}")
     if N * H * -(-Lq // BLOCK_Q) > _INT_MAX or max(Lq, Lk) * d > _INT_MAX:
         raise ValueError(f"flash_attention shapes too large: q {tuple(q.shape)}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     fn = _forward_fn()
-    with torch.cuda.device(q.device):
+    with kernels.on_device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             N * H, Lq, Lk, limit, d, _DTYPES[q.dtype], d ** -0.5,

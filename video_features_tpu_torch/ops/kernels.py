@@ -14,6 +14,7 @@ The wrappers (e.g. ``ops/flash_attention.py``) pass pointers from
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,6 +25,8 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
+
+import torch
 
 PACKAGE_ROOT = pathlib.Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_ROOT / "csrc"
@@ -94,6 +97,14 @@ def build_all() -> Dict[str, float]:
     names = sources()
     with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
         return dict(zip(names, pool.map(timed, names)))
+
+
+def on_device(device):
+    """The context that makes ``device`` current: none when it already is,
+    which saves a device switch per launch."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def load(name: str) -> ctypes.CDLL:
