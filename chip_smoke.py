@@ -30,9 +30,31 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
 6. the PWC path through the port's CLI: ``--feature_type pwc
    --batch_size 8`` on a 60-frame clip; checks the (59, 2, 240, 320) flow
    and K2's launch count (8 windows x 5 levels);
-7. a ``kernels`` JSON line, then the ``ok`` JSON line last.
+7. the I3D + RAFT path through the port's CLI: ``--feature_type i3d
+   --flow_type raft`` at full width (RAFT with 20 iterations), default
+   64/64 stacks, on the clips of phase 5: 64 pairs a stack at 256x341
+   padded to 256x344; checks the ``_rgb``/``_flow`` .npy files, that K1
+   and K2 launch 0 times, and an 11-frame stack's RAFT flow, uint8 flow
+   levels and features on the card against the port on the CPU; prints
+   the warm videos/s split into host and forward, one stack's top device
+   kernels, RAFT's stages on that stack (encoders, volume, lookup,
+   update convolutions, upsampling) with their shares, and each update
+   convolution alone with its top kernel;
+8. the RAFT path: ``--feature_type raft --batch_size 8`` on a 330x250
+   clip of 30 frames (padded to 336x256 and unpadded); checks the
+   (29, 2, 250, 330) flow and prints warm videos/s;
+9. the ResNet-50 path: ``--feature_type resnet50 --batch_size 16`` on a
+   60-frame clip; checks the (60, 2048) features, card vs CPU on a
+   16-frame clip, and prints warm videos/s and one forward's kernels;
+10. the R(2+1)D-18 path: ``--feature_type r21d_rgb`` on a 64-frame clip;
+    checks the (4, 512) features, card vs CPU on a 16-frame clip, and
+    prints warm videos/s and one forward's kernels;
+11. a ``kernels`` JSON line, then the ``ok`` JSON line last.
 
-Every launch count is read from a run that starts with all counts at 0.
+Phases 7-10 launch no hand-written kernel: RAFT, ResNet and R(2+1)D
+reach no ``pallas_call`` in the JAX package. Every launch count is read
+from a run that starts with all counts at 0, and each of phases 4-10
+prints its wall time.
 """
 
 from __future__ import annotations
@@ -95,6 +117,18 @@ I3D_STACKS = 2
 STACK = 64
 PWC_CLIP_FRAMES = 60
 PWC_BATCH = 8
+# RAFT card vs CPU: the shortest stack I3D takes (10 flows), at the main
+# path's 256x341 (padded to 256x344)
+RAFT_COMPARE_FRAMES = 11
+RAFT_CLIP = (30, 330, 250)  # frames, width, height: neither side a multiple of 8
+RAFT_BATCH = 8
+RESNET_CLIP_FRAMES = 60
+RESNET_BATCH = 16
+R21D_CLIP_FRAMES = 64  # 4 stacks of 16
+SHORT_CLIP_FRAMES = 16
+# ResNet-50 and R(2+1)D-18 features card vs CPU, relative L2 of fp32 sums
+# in other orders through ~50 and ~37 convolutions
+CNN_FEATURE_RTOL = 1e-3
 # I3D features, relative L2 error of fp32 sums in other orders through
 # ~60 convolutions (and, card vs CPU, PWC's ~50): features are a mean of
 # small activations under random weights, so the check is relative
@@ -300,18 +334,22 @@ def check_local_correlation(device):
             stack["max_abs_err"] = max(stack["max_abs_err"], err)
             stack["ms"] += ms
             stack["plain_ms"] += plain_ms
-            stack["device_ms"] += device_ms
+            # a level the profiler caught no device time of leaves the sum unmeasured
+            if stack["device_ms"] is not None:
+                stack["device_ms"] = stack["device_ms"] + device_ms if device_ms else None
             bounds.append((bound_ms, bound_by))
     # five launches one after another: their least time is the sum of
     # theirs, set by what sets the largest
     bound_ms, bound_by = sum(b for b, _ in bounds), max(bounds)[1]
+    on_device = (f"{stack['device_ms'] * 1e3:.2f} us" if stack["device_ms"] is not None
+                 else "not measured (a level has no device time in its trace)")
     print(f"local_correlation, one stack's five levels (fp32): kernel {stack['ms'] * 1e3:.2f} us, "
-          f"on the device {stack['device_ms'] * 1e3:.2f} us, plain {stack['plain_ms'] * 1e3:.2f} "
+          f"on the device {on_device}, plain {stack['plain_ms'] * 1e3:.2f} "
           f"us, bound {bound_ms * 1e3:.2f} us, "
           f"{bound_share(bound_ms, stack['device_ms'] or stack['ms'])} of the bound")
     return dict(max_abs_err=stack["max_abs_err"], ms=stack["ms"], plain_ms=stack["plain_ms"],
                 bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, device_ms=stack["device_ms"] or None)
+                library_ms=None, device_ms=stack["device_ms"])
 
 
 def synth_clips(root: str):
@@ -323,6 +361,23 @@ def synth_clips(root: str):
 def read_features(out_dir: str):
     files = sorted(glob.glob(os.path.join(out_dir, "**", "*.npy"), recursive=True))
     return {os.path.basename(f): np.load(f) for f in files}
+
+
+def warm_split(ex, clips, device):
+    """(host s, forward s) of a built extractor over ``clips``, after one
+    warm-up pass: ``prepare`` (decode and host preprocessing) and
+    ``forward`` (H2D, models, D2H). For the flow extractors ``prepare``
+    is a lazy stream, so their decode falls in ``forward``."""
+    model = ex.warmup(device)
+    ex(device=device)  # cuDNN, cuBLAS and allocator set-up
+    prep = fwd = 0.0
+    for clip in clips:
+        t0 = time.perf_counter()
+        payload = ex.prepare(clip)
+        t1 = time.perf_counter()
+        ex.forward(model, payload)  # ends in a copy to the host
+        prep, fwd = prep + t1 - t0, fwd + time.perf_counter() - t1
+    return prep, fwd
 
 
 def run_main_path(root: str):
@@ -381,55 +436,57 @@ def run_main_path(root: str):
         feature_type="CLIP-ViT-B/32", video_paths=clips, extract_method=f"uni_{FRAMES}",
         attn="flash", allow_random_init=True), external_call=True)
     device = torch.device("cuda", torch.cuda.current_device())
-    model = ex.warmup(device)
-    ex(device=device)  # first forward: cuBLAS and allocator set-up
-    prep = fwd = 0.0
-    for clip in clips:
-        t0 = time.perf_counter()
-        payload = ex.prepare(clip)
-        t1 = time.perf_counter()
-        ex.forward(model, payload)  # ends in a copy to the host
-        prep, fwd = prep + t1 - t0, fwd + time.perf_counter() - t1
+    prep, fwd = warm_split(ex, clips, device)
     warm = prep + fwd
     print(f"main path (--attn flash, warm extractor): {N_VIDEOS / warm:.3f} videos/s, "
           f"{warm / N_VIDEOS * 1e3:.2f} ms/video = host decode + preprocess "
           f"{prep / N_VIDEOS * 1e3:.2f} ms + forward (H2D, model, D2H) {fwd / N_VIDEOS * 1e3:.2f} ms")
+    model, payload = ex.warmup(device), ex.prepare(clips[-1])
     print_top_kernels(device_kernels(lambda: ex.forward(model, payload)), fwd / N_VIDEOS * 1e3,
                       "one forward on the device")
     return launches
 
 
 def print_top_kernels(traced, wall_ms: float, label: str, top: int = 8, mark: str = ""):
-    """One forward's device time by kernel from a profiler trace."""
+    """One forward's device time by kernel from a profiler trace, against
+    the wall time of the same forward run without the profiler. Where the
+    traced busy time exceeds that wall, the profiler's own cost per kernel
+    shows, and the idle share is not measured."""
     busy = sum(ms for ms, _ in traced.values())
     if not busy:
         print(f"{label}: the profiler recorded no device time (not measured)")
         return
     marked = sum(ms for name, (ms, _) in traced.items() if mark and mark in name)
-    print(f"{label}: {busy:.3f} ms busy of {wall_ms:.3f} ms wall (idle share "
-          f"{1 - busy / wall_ms:.3f})" + (f"; {mark} {marked:.4f} ms ({marked / busy:.1%})"
-                                           if mark else "") + "; by kernel:")
+    idle = (f"idle share {1 - busy / wall_ms:.3f}" if busy <= wall_ms
+            else "idle share not measured: the trace's busy time exceeds the wall")
+    launches = sum(n for _, n in traced.values())
+    print(f"{label}: {busy:.3f} ms busy of {wall_ms:.3f} ms wall ({idle}), "
+          f"{launches:g} launches" + (f"; {mark} {marked:.4f} ms ({marked / busy:.1%})"
+                                      if mark else "") + "; by kernel:")
     for name, (ms, n) in sorted(traced.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"  {ms:.4f} ms ({ms / busy:.1%}) x{n:g} {name[:90]}")
 
 
-def stack_streams(models, stack, corr_method="auto"):
-    """One stack (65, H, W, 3) through both streams, step by step as
-    ``ExtractI3D.forward`` runs it: (flow, its cropped uint8 levels, rgb
-    features, flow features), each as numpy."""
+def stack_streams(ex, models, stack, corr_method="auto"):
+    """One stack (S+1, H, W, 3) through both streams, step by step as
+    ``ExtractI3D.forward`` runs it, with ``ex``'s flow net (PWC with the
+    cost volume ``corr_method`` picks; RAFT on the padded stack): (flow,
+    its cropped uint8 levels, rgb features, flow features), as numpy."""
     from video_features_tpu_torch.models.i3d.extract_i3d import center_crop, rgb_chain
     from video_features_tpu_torch.ops.preprocess import flow_to_uint8, scale_to_1_1
 
-    pwc = models["pwc"]
-    pwc.corr_method = corr_method
+    pwc = models.get("pwc")
+    if pwc is not None:
+        pwc.corr_method = corr_method
     try:
         with torch.inference_mode():
-            flow = pwc(stack[None])
+            flow = ex.flow(models, stack[None])
             levels = flow_to_uint8(center_crop(flow))
             f_rgb, _ = models["rgb"](rgb_chain(stack[None, :-1]))
             f_flow, _ = models["flow"](scale_to_1_1(levels))
     finally:
-        pwc.corr_method = "auto"
+        if pwc is not None:
+            pwc.corr_method = "auto"
     return tuple(t.cpu().numpy() for t in (flow, levels, f_rgb, f_flow))
 
 
@@ -492,7 +549,8 @@ def run_i3d_path(root: str, device):
     models = ex.warmup(device)
     frames, fps, stamps = ex.prepare(clips[0])
     stack = torch.from_numpy(np.stack(frames[: STACK + 1])).to(device)
-    compare_stack(stack_streams(models, stack), stack_streams(models, stack, corr_method="plain"),
+    compare_stack(stack_streams(ex, models, stack),
+                  stack_streams(ex, models, stack, corr_method="plain"),
                   "one stack on the card, K2 vs the plain cost volume")
 
     clip65 = synth_video(os.path.join(root, "i3d65.mp4"), n_frames=STACK + 1, seed=9)
@@ -501,8 +559,8 @@ def run_i3d_path(root: str, device):
     (card,) = ex65(device=device)
     (cpu,) = ex65(device=torch.device("cpu"))
     stack65 = torch.from_numpy(np.stack(ex65.prepare(clip65)[0]))
-    card_steps = stack_streams(ex65.warmup(device), stack65.to(device))
-    cpu_steps = stack_streams(ex65.warmup(torch.device("cpu")), stack65)
+    card_steps = stack_streams(ex65, ex65.warmup(device), stack65.to(device))
+    cpu_steps = stack_streams(ex65, ex65.warmup(torch.device("cpu")), stack65)
     compare_stack(card_steps, cpu_steps,
                   "one 65-frame clip, step by step, the card vs the port on the CPU")
     rgb_err, flow_err = rel_l2(card["rgb"], cpu["rgb"]), rel_l2(card["flow"], cpu["flow"])
@@ -512,14 +570,7 @@ def run_i3d_path(root: str, device):
     if not (rgb_err <= I3D_FEATURE_RTOL and flow_err <= flow_tol):
         raise AssertionError(f"card and CPU features disagree: rgb {rgb_err}, flow {flow_err}")
 
-    ex(device=device)  # warm: cuDNN and allocator set-up
-    prep = fwd = 0.0
-    for clip in clips:
-        t0 = time.perf_counter()
-        payload = ex.prepare(clip)
-        t1 = time.perf_counter()
-        ex.forward(models, payload)  # ends in a copy to the host
-        prep, fwd = prep + t1 - t0, fwd + time.perf_counter() - t1
+    prep, fwd = warm_split(ex, clips, device)
     warm = prep + fwd
     print(f"I3D path (warm extractor): {I3D_VIDEOS / warm:.3f} videos/s, "
           f"{warm / I3D_VIDEOS * 1e3:.2f} ms/video = host decode + resize "
@@ -565,6 +616,238 @@ def run_pwc_path(root: str):
     return launches
 
 
+def no_kernel_launches(label: str) -> None:
+    """The paths without a hand-written kernel launch none."""
+    from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
+    from video_features_tpu_torch.ops.flash_attention import flash_attention
+
+    k1, k2 = flash_attention.launches, local_correlation_kernel.launches
+    print(f"{label}: flash_attention launches {k1}, local_correlation launches {k2}")
+    if k1 or k2:
+        raise AssertionError(f"{label} launched a kernel it does not use: K1 {k1}, K2 {k2}")
+
+
+def raft_stages(raft, stack, device):
+    """Device ms of RAFT's stages on one padded stack (1, S+1, H, W, 3),
+    each from CUDA events around back-to-back calls of that stage alone:
+    the encoders, the volume and its pyramid, one iteration's lookup and
+    update convolutions (x ``raft.iters``), and the final mask and
+    upsampling; and of each convolution of the update block alone, at its
+    input on this stack (x ``raft.iters``). The lookup and update run at
+    the zero-flow coordinates. Returns ({stage: ms}, {conv: ms}, {conv: (module, its
+    input)}); no profiler runs here, so nothing perturbs the times."""
+    from video_features_tpu_torch.models.raft import model as rm
+
+    with torch.inference_mode():
+        _, T, H, W, _ = stack.shape
+        x = (2.0 * (stack[0] / 255.0) - 1.0).permute(0, 3, 1, 2).contiguous()
+        fmap = raft.fnet(x)
+        pyramid = rm.build_corr_pyramid(fmap[:-1], fmap[1:])
+        cnet = raft.cnet(x[:-1])
+        net, inp = torch.split(cnet, [rm.HIDDEN_DIM, rm.CONTEXT_DIM], dim=1)
+        net, inp = torch.tanh(net), torch.relu(inp)
+        coords = rm.coords_grid(T - 1, H // 8, W // 8, device=device)
+        corr = rm.lookup_corr(pyramid, coords)
+        flow = torch.zeros_like(coords)
+        stages = {
+            "fnet": time_ms(lambda: raft.fnet(x), iters=3, warmup=1),
+            "cnet": time_ms(lambda: raft.cnet(x[:-1]), iters=3, warmup=1),
+            "volume": time_ms(lambda: rm.build_corr_pyramid(fmap[:-1], fmap[1:]),
+                              iters=5, warmup=1),
+            "lookup": raft.iters * time_ms(lambda: rm.lookup_corr(pyramid, coords),
+                                           iters=10, warmup=2),
+            "update": raft.iters * time_ms(lambda: raft.update_block(net, inp, corr, flow),
+                                           iters=5, warmup=1),
+            "upsample": time_ms(lambda: rm.upsample_flow(
+                flow, 0.25 * raft.update_block.mask(net)), iters=5, warmup=1),
+        }
+        inputs = {}
+
+        def keep_input(name):
+            def hook(mod, args, out):
+                inputs[name] = (mod, args[0])  # returns None: the output stays
+            return hook
+
+        hooks = [m.register_forward_hook(keep_input(name))
+                 for name, m in raft.update_block.named_modules()
+                 if isinstance(m, torch.nn.Conv2d)]
+        try:
+            raft.update_block(net, inp, corr, flow)
+        finally:
+            for h in hooks:
+                h.remove()
+        convs = {name: raft.iters * time_ms(lambda mod=mod, arg=arg: mod(arg), iters=5, warmup=1)
+                 for name, (mod, arg) in inputs.items()}
+    return stages, convs, inputs
+
+
+def run_i3d_raft_path(root: str, device):
+    """Phase 7: I3D + RAFT, the slice's main path."""
+    from video_features_tpu_torch import cli
+    from video_features_tpu_torch.config import ExtractionConfig
+    from video_features_tpu_torch.extract.registry import build_extractor
+    from video_features_tpu_torch.models.raft.extract_raft import InputPadder
+    from video_features_tpu_torch.utils.synth import synth_video
+
+    clips = [synth_video(os.path.join(root, f"i3d_raft{i}.mp4"), n_frames=I3D_CLIP_FRAMES,
+                         seed=i) for i in range(I3D_VIDEOS)]
+    out = os.path.join(root, "i3d_raft_out")
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(["--feature_type", "i3d", "--flow_type", "raft", "--allow_random_init",
+              "--on_extraction", "save_numpy", "--output_path", out,
+              "--tmp_path", os.path.join(root, "tmp"), "--video_paths", *clips])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    no_kernel_launches("I3D + RAFT path")
+    feats = read_features(out)
+    want = sorted(f"i3d_raft{i}_{s}.npy" for i in range(I3D_VIDEOS) for s in ("rgb", "flow"))
+    if sorted(feats) != want:
+        raise AssertionError(f"expected {want}, got {sorted(feats)}")
+    for name, f in feats.items():
+        if f.shape != (I3D_STACKS, 1024) or not np.isfinite(f).all():
+            raise AssertionError(f"{name}: shape {f.shape}, finite {np.isfinite(f).all()}")
+    print(f"I3D + RAFT path (--feature_type i3d --flow_type raft, cold CLI run, model build "
+          f"included): {I3D_VIDEOS} videos in {wall:.3f} s, {I3D_VIDEOS / wall:.3f} videos/s")
+
+    ex = build_extractor(ExtractionConfig(feature_type="i3d", flow_type="raft",
+                                          video_paths=clips, allow_random_init=True),
+                         external_call=True)
+    models = ex.warmup(device)
+    frames, fps, stamps = ex.prepare(clips[0])
+    short = torch.from_numpy(np.stack(frames[:RAFT_COMPARE_FRAMES]))
+    t0 = time.perf_counter()
+    cpu_steps = stack_streams(ex, ex.warmup(torch.device("cpu")), short)
+    cpu_s = time.perf_counter() - t0
+    compare_stack(stack_streams(ex, models, short.to(device)), cpu_steps,
+                  f"one {RAFT_COMPARE_FRAMES}-frame stack (RAFT {RAFT_COMPARE_FRAMES - 1} pairs "
+                  f"at {tuple(cpu_steps[0].shape[2:4])}), the card vs the port on the CPU "
+                  f"({cpu_s:.1f} s there)")
+
+    prep, fwd = warm_split(ex, clips, device)
+    warm = prep + fwd
+    print(f"I3D + RAFT path (warm extractor): {I3D_VIDEOS / warm:.3f} videos/s, "
+          f"{warm / I3D_VIDEOS * 1e3:.2f} ms/video = host decode + resize "
+          f"{prep / I3D_VIDEOS * 1e3:.2f} ms + forward (H2D, RAFT, 2x I3D, D2H) "
+          f"{fwd / I3D_VIDEOS * 1e3:.2f} ms, {I3D_STACKS} stacks each")
+    one = (frames[: STACK + 1], fps, stamps[: STACK + 1])
+    t0 = time.perf_counter()
+    for _ in range(3):
+        ex.forward(models, one)  # ends in a copy to the host
+    one_ms = (time.perf_counter() - t0) * 1e3 / 3
+
+    stack = torch.from_numpy(np.stack(frames[: STACK + 1])).to(device)[None]
+    stack = InputPadder(stack.shape[-3:-1]).pad_tensor(stack)
+    stages, convs, conv_inputs = raft_stages(models["raft"], stack, device)
+    traced = device_kernels(lambda: ex.forward(models, one))
+    print_top_kernels(traced, one_ms, "one I3D + RAFT stack's forward on the device (wall: "
+                      "the mean of 3 calls)", top=12)
+    total = sum(stages.values())
+    print(f"RAFT's stages on one stack ({STACK} pairs at {tuple(stack.shape[2:4])}, "
+          f"{models['raft'].iters} iterations; CUDA events, each stage alone): "
+          f"{total:.3f} ms in all, {one_ms:.3f} ms wall for the whole stack's forward:")
+    for name, ms in stages.items():
+        print(f"  {name} {ms:.3f} ms ({ms / total:.1%} of RAFT, {ms / one_ms:.1%} of the "
+              f"stack's wall)")
+    groups = {}
+    for name, ms in convs.items():
+        group = name.split(".")[0]  # encoder, gru, flow_head
+        groups[group] = groups.get(group, 0.0) + ms
+    print(f"the update block's convolutions alone, x{models['raft'].iters}: " + ", ".join(
+        f"{g} {ms:.3f} ms ({ms / one_ms:.1%} of the stack's wall)" for g, ms in groups.items()))
+    with torch.inference_mode():
+        for name, ms in sorted(convs.items(), key=lambda kv: -kv[1]):
+            mod, arg = conv_inputs[name]
+            k = device_kernels(lambda mod=mod, arg=arg: mod(arg))
+            top = max(k.items(), key=lambda kv: kv[1][0])[0] if k else "not measured"
+            print(f"  {name} {tuple(mod.weight.shape)} {ms:.3f} ms; its top kernel {top[:70]}")
+    return stages
+
+
+def run_raft_path(root: str, device):
+    """Phase 8: standalone RAFT on a clip whose sides are not multiples of 8."""
+    from video_features_tpu_torch import cli
+    from video_features_tpu_torch.config import ExtractionConfig
+    from video_features_tpu_torch.extract.registry import build_extractor
+    from video_features_tpu_torch.utils.synth import synth_video
+
+    n, w, h = RAFT_CLIP
+    clip = synth_video(os.path.join(root, "raft.mp4"), n_frames=n, width=w, height=h, seed=6)
+    out = os.path.join(root, "raft_out")
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(["--feature_type", "raft", "--batch_size", str(RAFT_BATCH), "--allow_random_init",
+              "--on_extraction", "save_numpy", "--output_path", out,
+              "--tmp_path", os.path.join(root, "tmp"), "--video_paths", clip])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    no_kernel_launches("RAFT path")
+    (flow,) = read_features(out).values()
+    shape = (n - 1, 2, h, w)
+    if flow.shape != shape or not np.isfinite(flow).all():
+        raise AssertionError(f"raft flow: shape {flow.shape} (expected {shape}), "
+                             f"finite {np.isfinite(flow).all()}")
+    ex = build_extractor(ExtractionConfig(feature_type="raft", video_paths=[clip],
+                                          batch_size=RAFT_BATCH, allow_random_init=True),
+                         external_call=True)
+    prep, fwd = warm_split(ex, [clip], device)
+    print(f"RAFT path (--feature_type raft --batch_size {RAFT_BATCH}, {w}x{h} padded to "
+          f"{-(-h // 8) * 8}x{-(-w // 8) * 8}): flow {flow.shape}, |flow| max "
+          f"{np.abs(flow).max():.3f}; cold CLI run {wall:.3f} s; warm {1 / (prep + fwd):.3f} "
+          f"videos/s, {(prep + fwd) * 1e3:.2f} ms/video (decode interleaved with the forward)")
+
+
+def run_cnn_path(root: str, device, feature_type: str, n_frames: int, want, batch_size=1):
+    """Phases 9-10: a frame or clip CNN through the CLI, card vs CPU on a
+    short clip, and warm videos/s."""
+    from video_features_tpu_torch import cli
+    from video_features_tpu_torch.config import ExtractionConfig
+    from video_features_tpu_torch.extract.registry import build_extractor
+    from video_features_tpu_torch.utils.synth import synth_video
+
+    clip = synth_video(os.path.join(root, f"{feature_type}.mp4"), n_frames=n_frames, seed=7)
+    out = os.path.join(root, f"{feature_type}_out")
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(["--feature_type", feature_type, "--batch_size", str(batch_size),
+              "--allow_random_init", "--on_extraction", "save_numpy", "--output_path", out,
+              "--tmp_path", os.path.join(root, "tmp"), "--video_paths", clip])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    no_kernel_launches(f"{feature_type} path")
+    (feats,) = read_features(out).values()
+    if feats.shape != want or not np.isfinite(feats).all():
+        raise AssertionError(f"{feature_type}: shape {feats.shape} (expected {want}), "
+                             f"finite {np.isfinite(feats).all()}")
+
+    def extractor(clips):
+        return build_extractor(ExtractionConfig(feature_type=feature_type, video_paths=clips,
+                                                batch_size=batch_size, allow_random_init=True),
+                               external_call=True)
+
+    short = synth_video(os.path.join(root, f"{feature_type}_short.mp4"),
+                        n_frames=SHORT_CLIP_FRAMES, seed=8)
+    ex = extractor([short])
+    (card,) = ex(device=device)
+    (cpu,) = ex(device=torch.device("cpu"))
+    err = rel_l2(card[feature_type], cpu[feature_type])
+    print(f"{feature_type}: {SHORT_CLIP_FRAMES}-frame clip {card[feature_type].shape}, card vs "
+          f"the port on the CPU rel_l2 {err:.3e} (tol {CNN_FEATURE_RTOL:g})")
+    if not err <= CNN_FEATURE_RTOL:
+        raise AssertionError(f"{feature_type}: card and CPU features disagree: {err}")
+
+    ex = extractor([clip])
+    prep, fwd = warm_split(ex, [clip], device)
+    print(f"{feature_type} path (--batch_size {batch_size}, {n_frames}-frame 320x240 "
+          f"clip): features {feats.shape}; cold CLI run {wall:.3f} s; warm "
+          f"{1 / (prep + fwd):.3f} videos/s, {(prep + fwd) * 1e3:.2f} ms/video = host decode + "
+          f"preprocess {prep * 1e3:.2f} ms + forward (H2D, model, D2H) {fwd * 1e3:.2f} ms")
+    model = ex.warmup(device)
+    payload = ex.prepare(clip)
+    print_top_kernels(device_kernels(lambda: ex.forward(model, payload)), fwd * 1e3,
+                      f"one {feature_type} video's forward on the device")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -585,9 +868,24 @@ def main() -> int:
     k1 = check_flash_attention(device)
     k2 = check_local_correlation(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        k1_launches = run_main_path(root)
-        k2_launches = run_i3d_path(root, device)
-        run_pwc_path(root)
+        phases = [
+            ("CLIP", lambda: run_main_path(root)),
+            ("I3D + PWC", lambda: run_i3d_path(root, device)),
+            ("PWC", lambda: run_pwc_path(root)),
+            ("I3D + RAFT", lambda: run_i3d_raft_path(root, device)),
+            ("RAFT", lambda: run_raft_path(root, device)),
+            ("ResNet-50", lambda: run_cnn_path(
+                root, device, "resnet50", RESNET_CLIP_FRAMES, (RESNET_CLIP_FRAMES, 2048),
+                RESNET_BATCH)),
+            ("R(2+1)D-18", lambda: run_cnn_path(
+                root, device, "r21d_rgb", R21D_CLIP_FRAMES, (R21D_CLIP_FRAMES // 16, 512))),
+        ]
+        results = {}
+        for name, phase in phases:
+            t0 = time.perf_counter()
+            results[name] = phase()
+            print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        k1_launches, k2_launches = results["CLIP"], results["I3D + PWC"]
 
     records = [
         {

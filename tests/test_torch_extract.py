@@ -145,7 +145,7 @@ def test_short_video_is_corrupt(tmp_path):
 @pytest.mark.parametrize(
     "kw,match",
     [
-        (dict(feature_type="resnet18"), "feature_type"),
+        (dict(feature_type="vggish"), "feature_type"),
         (dict(extract_method="uni_x"), "extract_method"),
         (dict(attn="ring"), "attn"),
         (dict(tmp_path="./output"), "same path"),

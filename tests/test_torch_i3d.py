@@ -198,11 +198,12 @@ def test_short_video_upsamples_to_65_frames(tmp_path):
 @pytest.mark.parametrize(
     "kw,match",
     [
-        (dict(flow_type="raft"), "RAFT.*ROADMAP"),
+        (dict(flow_type="farneback"), "unknown flow_type"),
         (dict(flow_type="flow"), "from disk.*ROADMAP"),
         (dict(stack_size=9), "shorter than 10"),
         (dict(streams=["depth"]), "streams"),
         (dict(batch_size=0), "batch_size"),
+        (dict(show_pred=True), "show_pred is not ported yet for i3d"),
     ],
 )
 def test_sanity_check_rejects(kw, match):

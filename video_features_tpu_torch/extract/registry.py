@@ -3,7 +3,11 @@
 
 from __future__ import annotations
 
-from video_features_tpu_torch.config import CLIP_FEATURE_TYPES, ExtractionConfig
+from video_features_tpu_torch.config import (
+    CLIP_FEATURE_TYPES,
+    RESNET_FEATURE_TYPES,
+    ExtractionConfig,
+)
 
 
 def build_extractor(cfg: ExtractionConfig, external_call: bool = False):
@@ -11,6 +15,18 @@ def build_extractor(cfg: ExtractionConfig, external_call: bool = False):
         from video_features_tpu_torch.models.clip.extract_clip import ExtractCLIP
 
         return ExtractCLIP(cfg, external_call)
+    if cfg.feature_type in RESNET_FEATURE_TYPES:
+        from video_features_tpu_torch.models.resnet.extract_resnet import ExtractResNet
+
+        return ExtractResNet(cfg, external_call)
+    if cfg.feature_type == "r21d_rgb":
+        from video_features_tpu_torch.models.r21d.extract_r21d import ExtractR21D
+
+        return ExtractR21D(cfg, external_call)
+    if cfg.feature_type == "raft":
+        from video_features_tpu_torch.models.raft.extract_raft import ExtractRAFT
+
+        return ExtractRAFT(cfg, external_call)
     if cfg.feature_type == "pwc":
         from video_features_tpu_torch.models.pwc.extract_pwc import ExtractPWC
 

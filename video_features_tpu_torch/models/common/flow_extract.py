@@ -1,4 +1,4 @@
-"""Shared runtime of the pairwise optical-flow extractors (PWC so far).
+"""Shared runtime of the pairwise optical-flow extractors (RAFT, PWC).
 
 Counterpart of the serial loop of
 ``video_features_tpu/models/common/flow_extract.py::PairwiseFlowExtractor``
@@ -7,7 +7,10 @@ them on the target grid), each optionally PIL-resized to ``--side_size``,
 as raw [0, 255] float32; windows of B+1 frames share their boundary frame
 so each window gives B flow pairs (B = ``--batch_size``). The tail window
 is filled by repeating its last frame, so every window has one shape, and
-the surplus pairs are dropped.
+the surplus pairs are dropped. A subclass's padder (built from the
+first frame's shape) pads each window before the model and unpads the
+flow after it: RAFT's replicate padding to multiples of 8; none for PWC,
+whose /64 stretch is part of its forward.
 
 Output: ``{<feature_type>: (T-1, 2, H, W), fps, timestamps_ms}``, flow at
 the frames' resolution.
@@ -31,10 +34,21 @@ from video_features_tpu_torch.models.common.weights import (
 from video_features_tpu_torch.ops.preprocess import pil_resize
 
 
+class NullPadder:
+    """No host-side padding (PWC)."""
+
+    def pad(self, x: np.ndarray) -> np.ndarray:
+        return x
+
+    def unpad(self, x):
+        return x
+
+
 class PairwiseFlowExtractor(BaseExtractor):
     """Subclasses set ``checkpoint`` (what ``--weights_path`` should
     hold) and implement ``_model()`` (the module),
-    ``_convert_state_dict(sd)`` and ``_init_weights(model)``."""
+    ``_convert_state_dict(sd)`` and ``_init_weights(model)``, and
+    optionally ``_make_padder(shape)``."""
 
     checkpoint = ""
 
@@ -52,6 +66,9 @@ class PairwiseFlowExtractor(BaseExtractor):
     @staticmethod
     def _init_weights(model):
         raise NotImplementedError
+
+    def _make_padder(self, shape):
+        return NullPadder()
 
     def _build(self, device: torch.device) -> torch.nn.Module:
         model = self._model()
@@ -81,13 +98,13 @@ class PairwiseFlowExtractor(BaseExtractor):
         )
         return frames, fps, path
 
-    def _window(self, model: torch.nn.Module, batch: List[np.ndarray]) -> List[np.ndarray]:
+    def _window(self, model: torch.nn.Module, batch: List[np.ndarray], padder) -> List[np.ndarray]:
         """One B+1-frame window -> its (2, H, W) flows, surplus pairs cut."""
         n_pairs = len(batch) - 1
-        window = batch + [batch[-1]] * (self.batch_size + 1 - len(batch))
+        window = padder.pad(np.stack(batch + [batch[-1]] * (self.batch_size + 1 - len(batch))))
         device = next(model.parameters()).device
         with torch.inference_mode():
-            flow = model(torch.from_numpy(np.stack(window)).to(device))
+            flow = padder.unpad(model(torch.from_numpy(window).to(device)))
         return list(flow[:n_pairs].permute(0, 3, 1, 2).cpu().numpy())
 
     def forward(self, model: torch.nn.Module, payload) -> Dict[str, np.ndarray]:
@@ -95,15 +112,18 @@ class PairwiseFlowExtractor(BaseExtractor):
         flows: List[np.ndarray] = []
         timestamps_ms: List[float] = []
         batch: List[np.ndarray] = []
+        padder = None
         for frame, ts in frames:
             timestamps_ms.append(ts)
+            if padder is None:
+                padder = self._make_padder(frame.shape[:2])
             batch.append(frame)
             # B+1 frames make B pairs; the boundary frame carries over
             if len(batch) - 1 == self.batch_size:
-                flows.extend(self._window(model, batch))
+                flows.extend(self._window(model, batch, padder))
                 batch = [batch[-1]]
         if len(batch) > 1:
-            flows.extend(self._window(model, batch))
+            flows.extend(self._window(model, batch, padder))
         if not timestamps_ms:
             raise CorruptVideoError(f"no frames decoded from {path}")
         return {

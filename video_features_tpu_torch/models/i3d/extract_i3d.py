@@ -1,5 +1,6 @@
 """I3D two-stream extractor: RGB and optical-flow Kinetics features over
-sliding stacks of frames, with flow computed on the fly by PWC-Net.
+sliding stacks of frames, with flow computed on the fly by PWC-Net or
+RAFT (``--flow_type``).
 
 Counterpart of the serial, single-device path of
 ``video_features_tpu/models/i3d/extract_i3d.py``. Per video: frames are
@@ -12,16 +13,21 @@ time, the last group zero-padded to that size and its surplus rows cut:
 
 - rgb: the first ``stack_size`` frames -> floor-offset center crop 224 ->
   [-1, 1] -> I3D-rgb;
-- flow: PWC-Net over the ``stack_size`` consecutive pairs (the CUDA cost
-  volume at each of its 5 levels) -> crop 224 -> clamp to [-20, 20] and
-  quantise to uint8 levels -> [-1, 1] -> I3D-flow.
+- flow: the flow model over the ``stack_size`` consecutive pairs of each
+  stack -> crop 224 -> clamp to [-20, 20] and quantise to uint8 levels ->
+  [-1, 1] -> I3D-flow. PWC-Net runs at the frames' resolution (the CUDA
+  cost volume at each of its 5 levels). RAFT runs on the stack
+  replicate-padded to multiples of 8 (``InputPadder.pad_tensor``, on
+  the device), and its flow is kept at the padded resolution into the crop,
+  as the reference does: a 256x341 stack runs at 256x344, and the crop
+  starts at column 60 of the padded flow, column 59 of the image.
 
 Weights: ``--weights_path`` is a directory holding any of ``i3d_rgb.pt``,
-``i3d_flow.pt`` and ``pwc_net_sintel.pt``; a missing file is an error
-unless ``--allow_random_init``. Output: ``{rgb: (S, 1024), flow: (S,
-1024), fps, timestamps_ms}``, saved as ``<stem>_rgb.npy`` and
-``<stem>_flow.npy``. RAFT, flow read from disk and ``--show_pred`` are
-not ported yet (``config.py`` refuses them).
+``i3d_flow.pt``, ``raft-sintel.pth`` and ``pwc_net_sintel.pt``; a missing
+file is an error unless ``--allow_random_init``. Output: ``{rgb: (S,
+1024), flow: (S, 1024), fps, timestamps_ms}``, saved as
+``<stem>_rgb.npy`` and ``<stem>_flow.npy``. Flow read from disk and
+``--show_pred`` are not ported yet (``config.py`` refuses them).
 """
 
 from __future__ import annotations
@@ -46,6 +52,10 @@ from video_features_tpu_torch.models.i3d.model import init_weights as i3d_init
 from video_features_tpu_torch.models.pwc import convert as pwc_convert
 from video_features_tpu_torch.models.pwc.model import PWCNet
 from video_features_tpu_torch.models.pwc.model import init_weights as pwc_init
+from video_features_tpu_torch.models.raft import convert as raft_convert
+from video_features_tpu_torch.models.raft.extract_raft import InputPadder
+from video_features_tpu_torch.models.raft.model import RAFT
+from video_features_tpu_torch.models.raft.model import init_weights as raft_init
 from video_features_tpu_torch.ops.preprocess import flow_to_uint8, pil_resize, scale_to_1_1
 from video_features_tpu_torch.ops.window import pad_batch
 
@@ -54,7 +64,8 @@ CENTRAL_CROP_SIZE = 224
 DEFAULT_STACK_SIZE = 64
 DEFAULT_STEP_SIZE = 64
 # checkpoint file names looked up under --weights_path (a directory)
-WEIGHT_FILES = {"rgb": "i3d_rgb.pt", "flow": "i3d_flow.pt", "pwc": "pwc_net_sintel.pt"}
+WEIGHT_FILES = {"rgb": "i3d_rgb.pt", "flow": "i3d_flow.pt", "raft": "raft-sintel.pth",
+                "pwc": "pwc_net_sintel.pt"}
 
 
 def center_crop(x: torch.Tensor, crop: int = CENTRAL_CROP_SIZE) -> torch.Tensor:
@@ -70,7 +81,7 @@ def rgb_chain(stack_tail: torch.Tensor) -> torch.Tensor:
 
 
 def flow_chain(flow: torch.Tensor) -> torch.Tensor:
-    """PWC flow -> I3D-flow input: crop, clamp and quantise, scale."""
+    """Flow -> I3D-flow input: crop, clamp and quantise, scale."""
     return scale_to_1_1(flow_to_uint8(center_crop(flow)))
 
 
@@ -81,6 +92,7 @@ class ExtractI3D(BaseExtractor):
         self.stack_size = int(self.config.stack_size or DEFAULT_STACK_SIZE)
         self.step_size = int(self.config.step_size or DEFAULT_STEP_SIZE)
         self.stack_batch = max(int(self.config.batch_size or 1), 1)
+        self.flow_type = self.config.flow_type
 
     def feature_keys(self) -> List[str]:
         return list(self.streams)  # <stem>_rgb.npy / <stem>_flow.npy
@@ -103,6 +115,8 @@ class ExtractI3D(BaseExtractor):
         """The stream's I3D or the flow net, with weights or seeded init."""
         if kind == "pwc":
             model, convert, init = PWCNet(), pwc_convert.convert_state_dict, pwc_init
+        elif kind == "raft":
+            model, convert, init = RAFT(), raft_convert.convert_state_dict, raft_init
         else:
             model, convert, init = I3D(IN_CHANNELS[kind]), i3d_convert.convert_state_dict, i3d_init
         path = self._weights_file(kind)
@@ -117,7 +131,7 @@ class ExtractI3D(BaseExtractor):
         return model
 
     def _build(self, device: torch.device) -> Dict[str, torch.nn.Module]:
-        kinds = self.streams + (["pwc"] if "flow" in self.streams else [])
+        kinds = self.streams + ([self.flow_type] if "flow" in self.streams else [])
         return {kind: self._model(kind).to(device).eval() for kind in kinds}
 
     # --- host: decode and resize -------------------------------------------
@@ -154,6 +168,13 @@ class ExtractI3D(BaseExtractor):
         return frames, fps, timestamps_ms
 
     # --- device --------------------------------------------------------------
+    def flow(self, models: Dict[str, torch.nn.Module], stacks: torch.Tensor) -> torch.Tensor:
+        """(B, S+1, H, W, 3) stacks -> (B, S, H', W', 2) flow: PWC's at
+        (H, W); RAFT's at its padded grid, which the crop then reads."""
+        if self.flow_type == "raft":
+            stacks = InputPadder(stacks.shape[-3:-1]).pad_tensor(stacks)
+        return models[self.flow_type](stacks)
+
     def forward(self, models: Dict[str, torch.nn.Module], payload) -> Dict[str, np.ndarray]:
         frames, fps, timestamps_ms = payload
         device = next(models[self.streams[0]].parameters()).device
@@ -169,7 +190,7 @@ class ExtractI3D(BaseExtractor):
                     if stream == "rgb":
                         f, _ = models["rgb"](rgb_chain(x[:, :-1]))
                     else:
-                        f, _ = models["flow"](flow_chain(models["pwc"](x)))
+                        f, _ = models["flow"](flow_chain(self.flow(models, x)))
                     feats[stream].append(f[: len(chunk)].cpu().numpy())
         out: Dict[str, np.ndarray] = {
             s: (np.concatenate(v).astype(np.float32) if v

@@ -1,5 +1,6 @@
-"""Preprocessing: the host PIL resize / center-crop / normalise chain, and
-the I3D input maps (``scale_to_1_1``, ``flow_to_uint8``).
+"""Preprocessing: the host PIL resize / center-crop / normalise chain
+(``imagenet_preprocess`` for ResNet), and the I3D input maps
+(``scale_to_1_1``, ``flow_to_uint8``).
 
 Counterpart of ``video_features_tpu/ops/preprocess.py``; the PIL chain's
 output is byte-identical (both bottom out in the same PIL calls).
@@ -15,6 +16,11 @@ from PIL import Image
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+# R(2+1)D's Kinetics-400 statistics
+KINETICS_MEAN = (0.43216, 0.394666, 0.37645)
+KINETICS_STD = (0.22803, 0.22145, 0.216989)
 
 
 def pil_resize(
@@ -66,6 +72,19 @@ def normalize_chw(img: np.ndarray, mean: Sequence[float], std: Sequence[float]) 
     mean = np.asarray(mean, np.float32).reshape(-1, 1, 1)
     std = np.asarray(std, np.float32).reshape(-1, 1, 1)
     return (img - mean) / std
+
+
+def imagenet_preprocess(
+    img: np.ndarray,
+    resize_size: int = 256,
+    crop_size: int = 224,
+    mean: Sequence[float] = IMAGENET_MEAN,
+    std: Sequence[float] = IMAGENET_STD,
+) -> np.ndarray:
+    """torchvision's Resize -> CenterCrop -> ToTensor -> Normalize on an
+    RGB uint8 HWC frame -> CHW float32."""
+    img = pil_center_crop(pil_resize(img, resize_size), crop_size)
+    return normalize_chw(to_float_chw(img), mean, std)
 
 
 def scale_to_1_1(x):
