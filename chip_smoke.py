@@ -49,12 +49,24 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
 10. the R(2+1)D-18 path: ``--feature_type r21d_rgb`` on a 64-frame clip;
     checks the (4, 512) features, card vs CPU on a 16-frame clip, and
     prints warm videos/s and one forward's kernels;
-11. a ``kernels`` JSON line, then the ``ok`` JSON line last.
+11. the VGGish path: ``--feature_type vggish`` on four 60 s stereo
+    44.1 kHz wavs and one of 600 s (``utils/synth.py::synth_wav``);
+    checks the (62, 128) and (624, 128) embeddings, card vs CPU on one
+    60 s wav, and prints warm videos/s split into host (read, resample,
+    log-mel) and forward, and the 600 s forward's kernels and idle share;
+12. the run contract on the CLIP path (full width, ``uni_12``, ``--attn
+    flash``, 8 clips): ``--decode_workers 0`` against 2 (features within
+    1e-6, 96 K1 launches each; cold and warm videos/s), ``--fault_inject
+    prepare:error:3`` recovered to 8/8 done with the clean features, and
+    ``--strict`` exiting nonzero on a corrupt clip recorded failed and
+    permanent while the good clips' files are written;
+13. a ``kernels`` JSON line, then the ``ok`` JSON line last.
 
-Phases 7-10 launch no hand-written kernel: RAFT, ResNet and R(2+1)D
-reach no ``pallas_call`` in the JAX package. Every launch count is read
-from a run that starts with all counts at 0, and each of phases 4-10
-prints its wall time.
+Every CLI run of phases 4-11 passes ``--strict``, so a video that fails
+in isolation fails its phase. Phases 7-11 launch no hand-written kernel:
+RAFT, ResNet, R(2+1)D and VGGish reach no ``pallas_call`` in the JAX
+package. Every launch count is read from a run that starts with all
+counts at 0, and each of phases 4-12 prints its wall time.
 """
 
 from __future__ import annotations
@@ -126,6 +138,19 @@ RESNET_CLIP_FRAMES = 60
 RESNET_BATCH = 16
 R21D_CLIP_FRAMES = 64  # 4 stacks of 16
 SHORT_CLIP_FRAMES = 16
+# VGGish: four 60 s stereo 44.1 kHz wavs and one of 600 s; a clip gives
+# ((16 kHz samples - 400) // 160 + 1) // 96 examples of 0.96 s
+VGGISH_SECONDS = (60.0, 60.0, 60.0, 60.0, 600.0)
+VGGISH_RATE = 44100
+VGGISH_EXAMPLES = {60.0: 62, 600.0: 624}
+# VGGish embeddings card vs CPU, relative L2 of fp32 sums in other orders
+# through 6 convolutions and 3 Linears (TF32 off)
+VGGISH_RTOL = 1e-3
+# the run contract on the CLIP path: 8 clips; the same clip through the
+# same kernels in another loop gives the same features up to launch-order
+# effects, none of which exist in a fixed-shape fp32 forward
+CONTRACT_VIDEOS = 8
+CONTRACT_ATOL = 1e-6
 # ResNet-50 and R(2+1)D-18 features card vs CPU, relative L2 of fp32 sums
 # in other orders through ~50 and ~37 convolutions
 CNN_FEATURE_RTOL = 1e-3
@@ -389,7 +414,7 @@ def run_main_path(root: str):
 
     def argv(attn, out, *extra):
         return ["--feature_type", "CLIP-ViT-B/32", "--extract_method", f"uni_{FRAMES}",
-                "--attn", attn, "--allow_random_init", "--on_extraction", "save_numpy",
+                "--attn", attn, "--allow_random_init", "--on_extraction", "save_numpy", "--strict",
                 "--output_path", os.path.join(root, out), "--tmp_path",
                 os.path.join(root, "tmp"), "--video_paths", *extra]
 
@@ -524,7 +549,7 @@ def run_i3d_path(root: str, device):
     reset_counts()
     t0 = time.perf_counter()
     cli.main(["--feature_type", "i3d", "--flow_type", "pwc", "--allow_random_init",
-              "--on_extraction", "save_numpy", "--output_path", out,
+              "--on_extraction", "save_numpy", "--strict", "--output_path", out,
               "--tmp_path", os.path.join(root, "tmp"), "--video_paths", *clips])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -596,7 +621,7 @@ def run_pwc_path(root: str):
     reset_counts()
     t0 = time.perf_counter()
     cli.main(["--feature_type", "pwc", "--batch_size", str(PWC_BATCH), "--allow_random_init",
-              "--on_extraction", "save_numpy", "--output_path", out,
+              "--on_extraction", "save_numpy", "--strict", "--output_path", out,
               "--tmp_path", os.path.join(root, "tmp"), "--video_paths", clip])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -695,7 +720,7 @@ def run_i3d_raft_path(root: str, device):
     reset_counts()
     t0 = time.perf_counter()
     cli.main(["--feature_type", "i3d", "--flow_type", "raft", "--allow_random_init",
-              "--on_extraction", "save_numpy", "--output_path", out,
+              "--on_extraction", "save_numpy", "--strict", "--output_path", out,
               "--tmp_path", os.path.join(root, "tmp"), "--video_paths", *clips])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -777,7 +802,7 @@ def run_raft_path(root: str, device):
     reset_counts()
     t0 = time.perf_counter()
     cli.main(["--feature_type", "raft", "--batch_size", str(RAFT_BATCH), "--allow_random_init",
-              "--on_extraction", "save_numpy", "--output_path", out,
+              "--on_extraction", "save_numpy", "--strict", "--output_path", out,
               "--tmp_path", os.path.join(root, "tmp"), "--video_paths", clip])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -810,8 +835,9 @@ def run_cnn_path(root: str, device, feature_type: str, n_frames: int, want, batc
     reset_counts()
     t0 = time.perf_counter()
     cli.main(["--feature_type", feature_type, "--batch_size", str(batch_size),
-              "--allow_random_init", "--on_extraction", "save_numpy", "--output_path", out,
-              "--tmp_path", os.path.join(root, "tmp"), "--video_paths", clip])
+              "--allow_random_init", "--on_extraction", "save_numpy", "--strict",
+              "--output_path", out, "--tmp_path", os.path.join(root, "tmp"),
+              "--video_paths", clip])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     no_kernel_launches(f"{feature_type} path")
@@ -848,6 +874,180 @@ def run_cnn_path(root: str, device, feature_type: str, n_frames: int, want, batc
                       f"one {feature_type} video's forward on the device")
 
 
+def vggish_host_split(path: str):
+    """(read, resample, log-mel) seconds of the host frontend on one wav."""
+    from video_features_tpu_torch.io.audio import read_wav, resample, to_mono
+    from video_features_tpu_torch.models.vggish.mel import SAMPLE_RATE, waveform_to_examples
+
+    t0 = time.perf_counter()
+    data, rate = read_wav(path)
+    t1 = time.perf_counter()
+    mono = resample(to_mono(data), rate, SAMPLE_RATE)
+    t2 = time.perf_counter()
+    waveform_to_examples(mono, SAMPLE_RATE)
+    return t1 - t0, t2 - t1, time.perf_counter() - t2
+
+
+def run_vggish_path(root: str, device):
+    """Phase 11: VGGish through the CLI on four 60 s wavs and one of 600 s."""
+    from video_features_tpu_torch import cli
+    from video_features_tpu_torch.config import ExtractionConfig
+    from video_features_tpu_torch.extract.registry import build_extractor
+    from video_features_tpu_torch.utils.synth import synth_wav
+
+    wavs = [synth_wav(os.path.join(root, f"audio{i}.wav"), seconds=sec, sample_rate=VGGISH_RATE,
+                      channels=2, seed=i) for i, sec in enumerate(VGGISH_SECONDS)]
+    out = os.path.join(root, "vggish_out")
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(["--feature_type", "vggish", "--allow_random_init", "--on_extraction", "save_numpy",
+              "--strict", "--output_path", out, "--tmp_path", os.path.join(root, "tmp"),
+              "--video_paths", *wavs])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    no_kernel_launches("VGGish path")
+    feats = read_features(out)
+    for i, sec in enumerate(VGGISH_SECONDS):
+        f, want = feats[f"audio{i}_vggish.npy"], (VGGISH_EXAMPLES[sec], 128)
+        if f.shape != want or not np.isfinite(f).all():
+            raise AssertionError(f"audio{i} ({sec:g} s): shape {f.shape} (expected {want}), "
+                                 f"finite {np.isfinite(f).all()}")
+    minutes = sum(VGGISH_SECONDS) / 60
+    print(f"VGGish path (cold CLI run, model build included, --decode_workers 2): {len(wavs)} "
+          f"wavs, {minutes:g} min of 44.1 kHz stereo audio, in {wall:.3f} s, "
+          f"{len(wavs) / wall:.3f} videos/s; features {[f.shape for f in feats.values()]}")
+
+    ex = build_extractor(ExtractionConfig(feature_type="vggish", video_paths=wavs[:4],
+                                          allow_random_init=True), external_call=True)
+    (card,) = ex([0], device=device)
+    (cpu,) = ex([0], device=torch.device("cpu"))
+    err = rel_l2(card["vggish"], cpu["vggish"])
+    print(f"VGGish, one 60 s wav {card['vggish'].shape}: card vs the port on the CPU rel_l2 "
+          f"{err:.3e} (tol {VGGISH_RTOL:g})")
+    if not err <= VGGISH_RTOL:
+        raise AssertionError(f"VGGish: card and CPU embeddings disagree: {err}")
+
+    read_s, resample_s, mel_s = vggish_host_split(wavs[0])
+    prep, fwd = warm_split(ex, wavs[:4], device)
+    warm = prep + fwd
+    print(f"VGGish path (warm extractor, 60 s wavs): {4 / warm:.3f} videos/s, "
+          f"{warm / 4 * 1e3:.2f} ms/video = host read + resample + log-mel "
+          f"{prep / 4 * 1e3:.2f} ms ({prep / warm:.1%}) + forward (H2D, VGGish, D2H) "
+          f"{fwd / 4 * 1e3:.2f} ms; one wav's host: read {read_s * 1e3:.2f} ms, resample "
+          f"44.1 -> 16 kHz {resample_s * 1e3:.2f} ms, log-mel {mel_s * 1e3:.2f} ms")
+    model = ex.warmup(device)
+    t0 = time.perf_counter()
+    payload = ex.prepare(wavs[4])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ex.forward(model, payload)  # cuDNN's choice for this batch
+    t0 = time.perf_counter()
+    ex.forward(model, payload)  # ends in a copy to the host
+    one_ms = (time.perf_counter() - t0) * 1e3
+    print(f"VGGish, the 600 s wav: host {host_ms:.2f} ms, forward {one_ms:.3f} ms "
+          f"({payload[0].shape[0]} examples)")
+    print_top_kernels(device_kernels(lambda: ex.forward(model, payload)), one_ms,
+                      "one forward of the 600 s wav on the device", top=10)
+
+
+def run_contract_path(root: str, device):
+    """Phase 12: the run contract on the CLIP path (full width, uni_12,
+    --attn flash) over 8 clips: --decode_workers 0 against 2, injected
+    prepare faults retried to 8/8, and --strict on a corrupt clip."""
+    from video_features_tpu_torch import cli
+    from video_features_tpu_torch.config import ExtractionConfig
+    from video_features_tpu_torch.extract.registry import build_extractor
+    from video_features_tpu_torch.ops.flash_attention import flash_attention
+    from video_features_tpu_torch.utils.synth import synth_video
+
+    clips = [synth_video(os.path.join(root, f"contract{i}.mp4"), seed=20 + i)
+             for i in range(CONTRACT_VIDEOS)]
+
+    def run(out, *extra, videos=clips):
+        reset_counts()
+        t0 = time.perf_counter()
+        cli.main(["--feature_type", "CLIP-ViT-B/32", "--extract_method", f"uni_{FRAMES}",
+                  "--attn", "flash", "--allow_random_init", "--on_extraction", "save_numpy",
+                  "--output_path", os.path.join(root, out), "--tmp_path",
+                  os.path.join(root, "tmp"), *extra, "--video_paths", *videos])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, flash_attention.launches, read_features(
+            os.path.join(root, out))
+
+    def summary_of(out):
+        with open(os.path.join(root, out, "_manifest", "summary.json")) as f:
+            return json.load(f)
+
+    def max_err(a, b):
+        if sorted(a) != sorted(b):
+            raise AssertionError(f"different files: {sorted(a)} vs {sorted(b)}")
+        return max(float(np.abs(a[k] - b[k]).max()) for k in a)
+
+    print(f"host: {os.cpu_count()} cores, {len(os.sched_getaffinity(0))} usable by this "
+          f"process, torch intra-op threads {torch.get_num_threads()}")
+    feats = {}
+    for workers in ("0", "2"):
+        wall, launches, feats[workers] = run(f"contract_w{workers}", "--strict",
+                                             "--decode_workers", workers)
+        if len(feats[workers]) != CONTRACT_VIDEOS or launches != CONTRACT_VIDEOS * LAYERS:
+            raise AssertionError(f"--decode_workers {workers}: {len(feats[workers])} files, "
+                                 f"flash_attention launches {launches}")
+        print(f"run contract, --decode_workers {workers} (cold CLI run, model build included): "
+              f"{CONTRACT_VIDEOS} videos in {wall:.3f} s, {CONTRACT_VIDEOS / wall:.3f} videos/s; "
+              f"flash_attention launches {launches}")
+    err = max_err(feats["2"], feats["0"])
+    print(f"features --decode_workers 2 vs 0: max_abs_err {err:.3e} (tol {CONTRACT_ATOL:g})")
+    if not err <= CONTRACT_ATOL:
+        raise AssertionError(f"--decode_workers 0 and 2 disagree: {err}")
+
+    exs = {w: build_extractor(ExtractionConfig(
+        feature_type="CLIP-ViT-B/32", video_paths=clips, extract_method=f"uni_{FRAMES}",
+        attn="flash", allow_random_init=True, decode_workers=w), external_call=True)
+        for w in (0, 2)}
+    for ex in exs.values():
+        ex(device=device)  # model build, cuBLAS and allocator set-up
+    walls = {0: [], 2: []}
+    for w in (0, 2, 2, 0):
+        t0 = time.perf_counter()
+        exs[w](device=device)  # ends in copies to the host
+        walls[w].append(time.perf_counter() - t0)
+    vps = {w: [CONTRACT_VIDEOS / t for t in ts] for w, ts in walls.items()}
+    print(f"run contract, warm extractor, {CONTRACT_VIDEOS} videos a pass in turns 0, 2, 2, 0: "
+          f"--decode_workers 0 {vps[0][0]:.3f} and {vps[0][1]:.3f} videos/s, --decode_workers 2 "
+          f"{vps[2][0]:.3f} and {vps[2][1]:.3f} videos/s "
+          f"({sum(vps[2]) / sum(vps[0]):.2f}x)")
+
+    wall, launches, faulted = run("contract_fault", "--strict", "--decode_workers", "2",
+                                  "--fault_inject", "prepare:error:3", "--retries", "2",
+                                  "--retry_backoff", "0")
+    summary = summary_of("contract_fault")
+    err = max_err(faulted, feats["2"])
+    print(f"run contract, --fault_inject prepare:error:3: {summary['done']}/{summary['total']} "
+          f"done, {summary['failed']} failed, {summary['retries']} retries; features vs the "
+          f"clean run max_abs_err {err:.3e}; flash_attention launches {launches}")
+    if not (summary["done"] == summary["total"] == CONTRACT_VIDEOS and summary["failed"] == 0
+            and summary["retries"] >= 1 and err <= CONTRACT_ATOL):
+        raise AssertionError(f"injected prepare faults were not recovered: {summary}")
+
+    bad = os.path.join(root, "corrupt.mp4")
+    with open(bad, "wb") as f:
+        f.write(b"not a video")
+    good = clips[:3]
+    try:
+        run("contract_strict", "--strict", videos=good + [bad])
+    except SystemExit as exc:
+        code = exc.code
+    else:
+        raise AssertionError("--strict with a corrupt clip exited 0")
+    rec = summary_of("contract_strict")["videos"][bad]
+    written = read_features(os.path.join(root, "contract_strict"))
+    print(f"run contract, --strict with a corrupt clip among {len(good)} good ones: exit "
+          f"{str(code).splitlines()[0]!r}; its record {rec['status']}, {rec['error_class']}, "
+          f"{rec['error_type']}; {len(written)} good files written")
+    if code in (0, None) or (rec["status"], rec["error_class"]) != ("failed", "permanent") \
+            or len(written) != len(good):
+        raise AssertionError(f"--strict run: exit {code!r}, record {rec}, files {sorted(written)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -879,6 +1079,8 @@ def main() -> int:
                 RESNET_BATCH)),
             ("R(2+1)D-18", lambda: run_cnn_path(
                 root, device, "r21d_rgb", R21D_CLIP_FRAMES, (R21D_CLIP_FRAMES // 16, 512))),
+            ("VGGish", lambda: run_vggish_path(root, device)),
+            ("run contract", lambda: run_contract_path(root, device)),
         ]
         results = {}
         for name, phase in phases:

@@ -80,7 +80,8 @@ def test_every_module_imports_without_jax():
     ["--feature_type", "i3d", "--flow_type", "raft"],
     ["--feature_type", "resnet50"],
     ["--feature_type", "r21d_rgb"],
-], ids=["clip", "i3d", "pwc", "raft", "i3d-raft", "resnet50", "r21d"])
+    ["--feature_type", "vggish"],
+], ids=["clip", "i3d", "pwc", "raft", "i3d-raft", "resnet50", "r21d", "vggish"])
 def test_cli_without_cpu_needs_cuda(monkeypatch, sample_video, tmp_path, args):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

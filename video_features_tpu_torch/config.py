@@ -2,8 +2,9 @@
 
 Counterpart of ``video_features_tpu/config.py`` (``ExtractionConfig``,
 ``sanity_check``, ``parse_batch_args``), cut to the fields the CLIP,
-ResNet, R(2+1)D, RAFT, PWC and I3D paths read. Flag names, meanings and
-defaults are the JAX package's.
+ResNet, R(2+1)D, RAFT, PWC, I3D and VGGish paths and the run contract
+(manifest, retries, ``--strict``, ``--decode_workers``) read. Flag names,
+meanings and defaults are the JAX package's.
 """
 
 from __future__ import annotations
@@ -14,10 +15,14 @@ import re
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
+from video_features_tpu_torch.runtime.faults import parse_fault_specs
+
 # the feature types this package extracts so far
 CLIP_FEATURE_TYPES = ["CLIP-ViT-B/32", "CLIP-ViT-B/16", "CLIP4CLIP-ViT-B-32"]
 RESNET_FEATURE_TYPES = [f"resnet{d}" for d in (18, 34, 50, 101, 152)]
-FEATURE_TYPES = CLIP_FEATURE_TYPES + RESNET_FEATURE_TYPES + ["r21d_rgb", "raft", "pwc", "i3d"]
+VGGISH_FEATURE_TYPES = ["vggish", "vggish_torch"]
+FEATURE_TYPES = (CLIP_FEATURE_TYPES + RESNET_FEATURE_TYPES + VGGISH_FEATURE_TYPES
+                 + ["r21d_rgb", "raft", "pwc", "i3d"])
 # the feature types whose --show_pred this package prints so far
 SHOW_PRED_FEATURE_TYPES = RESNET_FEATURE_TYPES + ["r21d_rgb"]
 STREAMS = ("rgb", "flow")
@@ -43,6 +48,8 @@ class ExtractionConfig:
     cpu: bool = False
     # --- output ---
     tmp_path: str = "./tmp"
+    # keep the wav/aac an audio rip leaves in tmp_path (vggish on a video)
+    keep_tmp_files: bool = False
     on_extraction: str = "print"  # print | save_numpy | save_pickle
     output_path: str = "./output"
     output_direct: bool = False
@@ -61,7 +68,7 @@ class ExtractionConfig:
     flow_type: str = "pwc"
     stack_size: Optional[int] = None
     step_size: Optional[int] = None
-    # --- weights: a CLIP, ResNet, R(2+1)D, RAFT or PWC state dict
+    # --- weights: a CLIP, ResNet, R(2+1)D, RAFT, PWC or VGGish state dict
     # (.pt/.pth/.npz), or for i3d a directory of i3d_rgb.pt / i3d_flow.pt /
     # raft-sintel.pth / pwc_net_sintel.pt; without
     # them the run fails unless allow_random_init asks for seeded random
@@ -75,10 +82,26 @@ class ExtractionConfig:
     # print the top-5 classes of each frame (resnet, ImageNet) or stack
     # (r21d, Kinetics-400)
     show_pred: bool = False
-    # skip videos whose output files already exist
+    # skip videos whose output files already exist, or that an earlier
+    # run's manifest records as permanently failed
     resume: bool = False
     # padded frame-batch sizes (ops/window.py::bucket_size)
     shape_buckets: Optional[List[int]] = None
+    # --- the run contract (runtime/faults.py, extract/base.py) ---
+    # host threads that decode and preprocess upcoming videos while the
+    # device computes the current one; 0 runs decode and compute in turn
+    decode_workers: int = 2
+    # extra attempts for a transient (I/O) or oom failure, with backoff
+    # retry_backoff * 2^(k-1) * jitter seconds before attempt k+1
+    retries: int = 2
+    retry_backoff: float = 0.5
+    # exit nonzero when the run manifest records a failed video, an
+    # empty-feature warning or a worker death
+    strict: bool = False
+    # with --resume: attempt again the videos recorded as permanently failed
+    retry_failed: bool = False
+    # test-only STAGE:KIND:EVERY_N fault injection (runtime/faults.py)
+    fault_inject: Optional[List[str]] = None
 
 
 def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
@@ -143,6 +166,16 @@ def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
         not cfg.shape_buckets or any(b < 1 for b in cfg.shape_buckets)
     ):
         raise ValueError(f"shape_buckets must be positive ints, got {cfg.shape_buckets}")
+    if cfg.retries < 0:
+        raise ValueError(f"retries must be >= 0, got {cfg.retries}")
+    if cfg.retry_backoff < 0:
+        raise ValueError(f"retry_backoff must be >= 0, got {cfg.retry_backoff}")
+    if cfg.retry_failed and not cfg.resume:
+        raise ValueError(
+            "--retry_failed only modifies --resume (it re-attempts videos "
+            "the manifest recorded as permanently failed); add --resume"
+        )
+    parse_fault_specs(cfg.fault_inject)  # raises naming the bad spec
     return cfg
 
 
@@ -155,6 +188,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="CUDA device ids; the run uses the first")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     p.add_argument("--tmp_path", default="./tmp")
+    p.add_argument("--keep_tmp_files", action="store_true", default=False)
     p.add_argument("--on_extraction", default="print", choices=list(ON_EXTRACTION))
     p.add_argument("--output_path", default="./output")
     p.add_argument("--output_direct", action="store_true",
@@ -186,9 +220,31 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--show_pred", action="store_true", default=False,
                    help="print the top-5 classes (resnet: ImageNet, r21d: Kinetics-400)")
     p.add_argument("--resume", action="store_true", default=False,
-                   help="skip videos whose outputs already exist")
+                   help="skip videos whose outputs already exist or that the "
+                        "manifest records as permanently failed")
     p.add_argument("--shape_buckets", type=int, nargs="+", default=None,
                    help="padded frame-batch sizes (default: multiples of 8)")
+    p.add_argument("--decode_workers", type=int, default=2,
+                   help="host threads decoding upcoming videos while the device "
+                        "computes (0: decode and compute in turn)")
+    p.add_argument("--retries", type=int, default=2,
+                   help="retry budget per video for TRANSIENT failures (I/O "
+                        "flakes, out of memory); backoff is exponential with "
+                        "deterministic jitter")
+    p.add_argument("--retry_backoff", type=float, default=0.5,
+                   help="base retry backoff seconds (attempt k waits "
+                        "base * 2^(k-1) * jitter)")
+    p.add_argument("--strict", action="store_true", default=False,
+                   help="exit nonzero if the run manifest records any failed "
+                        "video, empty-feature warning, or worker death")
+    p.add_argument("--retry_failed", action="store_true", default=False,
+                   help="with --resume: re-attempt videos the manifest recorded "
+                        "as permanently failed (default: skip them)")
+    p.add_argument("--fault_inject", action="append", default=None,
+                   metavar="STAGE:KIND:EVERY_N",
+                   help="TEST-ONLY deterministic fault injection: raise/stall at "
+                        "STAGE (decode|prepare|dispatch|sink) every N calls; KIND "
+                        "in error|corrupt|hang|oom|compile|kill; repeatable")
     return p
 
 

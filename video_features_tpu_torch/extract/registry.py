@@ -6,6 +6,7 @@ from __future__ import annotations
 from video_features_tpu_torch.config import (
     CLIP_FEATURE_TYPES,
     RESNET_FEATURE_TYPES,
+    VGGISH_FEATURE_TYPES,
     ExtractionConfig,
 )
 
@@ -35,4 +36,8 @@ def build_extractor(cfg: ExtractionConfig, external_call: bool = False):
         from video_features_tpu_torch.models.i3d.extract_i3d import ExtractI3D
 
         return ExtractI3D(cfg, external_call)
+    if cfg.feature_type in VGGISH_FEATURE_TYPES:
+        from video_features_tpu_torch.models.vggish.extract_vggish import ExtractVGGish
+
+        return ExtractVGGish(cfg, external_call)
     raise ValueError(f"unknown feature_type: {cfg.feature_type}")

@@ -9,17 +9,45 @@ the JAX package, so either package's output can ``--resume`` the other's.
 
 from __future__ import annotations
 
+import json
 import os
 import pathlib
 import pickle
 import threading
 import uuid
-from typing import Dict, List
+from typing import Any, Dict, List
 
 import numpy as np
 
+from video_features_tpu_torch.runtime import faults
+
 META_KEYS = ("fps", "timestamps_ms")
 _SUFFIX = {"save_numpy": "npy", "save_pickle": "pkl"}
+
+
+def _tmp_name(path: str) -> str:
+    """A staging name no other process or thread writes: a run killed
+    mid-save leaves no truncated file for ``--resume`` to trust."""
+    return f"{path}.{os.getpid()}-{threading.get_ident()}-{uuid.uuid4().hex[:8]}.tmp"
+
+
+def atomic_write_json(path: str, doc: Any) -> str:
+    """Publish ``doc`` as JSON (indent 1, sorted keys) at ``path``: write a
+    same-directory tmp file, then one ``os.replace``, so readers see the
+    old file or the new one, never a torn one. Returns ``path``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = _tmp_name(path)
+    try:
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(doc, f, indent=1, sort_keys=True)
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    return path
 
 
 def output_file_name(name: str, key: str, on_extraction: str, output_direct: bool) -> str:
@@ -73,15 +101,16 @@ def action_on_extraction(
                 msg = f"the value is empty for {key} @ {fpath}"
                 print(f"Warning: {msg}")
                 warnings.append(msg)
-            # write a uniquely named tmp file, then rename: a run killed
-            # mid-save leaves no truncated file for --resume to trust
-            tmp = f"{fpath}.{os.getpid()}-{threading.get_ident()}-{uuid.uuid4().hex[:8]}.tmp"
+            tmp = _tmp_name(fpath)
             try:
                 with open(tmp, "wb") as f:
                     if on_extraction == "save_numpy":
                         np.save(f, value)
                     else:
                         pickle.dump(value, f)
+                # an injected sink fault lands between write and rename:
+                # bytes on disk, nothing committed
+                faults.fire("sink")
                 os.replace(tmp, fpath)
             except BaseException:
                 try:

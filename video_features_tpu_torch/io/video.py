@@ -3,7 +3,8 @@
 Counterpart of ``video_features_tpu/io/video.py`` (``probe``,
 ``read_frames_at_indices``, ``extract_frames``, ``stream_frames``) on its
 cv2 backend: the same frame-exact sequential decode, so both packages
-sample the same bytes from the same file.
+sample the same bytes from the same file. Each reader that opens is one
+call of the ``decode`` fault-injection stage, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -14,13 +15,12 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import cv2
 import numpy as np
 
+from video_features_tpu_torch.runtime import faults
+from video_features_tpu_torch.runtime.faults import CorruptVideoError
+
 # declared fps below this is absent fps (hostile headers declare ~1e-10)
 MIN_SANE_FPS = 1e-3
 DEFAULT_FPS = 25.0
-
-
-class CorruptVideoError(RuntimeError):
-    """The input cannot be decoded into the frames its sampler needs."""
 
 
 def probe(path: str) -> Tuple[float, int]:
@@ -30,6 +30,7 @@ def probe(path: str) -> Tuple[float, int]:
     try:
         if not cap.isOpened():
             raise CorruptVideoError(f"cannot open video: {path}")
+        faults.fire("decode")
         fps = cap.get(cv2.CAP_PROP_FPS) or 0.0
         count = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
     finally:
@@ -53,6 +54,7 @@ def read_frames_at_indices(path: str, indices) -> Dict[int, np.ndarray]:
     try:
         if not cap.isOpened():
             raise CorruptVideoError(f"cannot open video: {path}")
+        faults.fire("decode")
         for i in range(need[-1] + 1):
             if not cap.grab():
                 break
@@ -114,6 +116,7 @@ def stream_frames(
     try:
         if not cap.isOpened():
             raise CorruptVideoError(f"cannot open video: {path}")
+        faults.fire("decode")
         fps = cap.get(cv2.CAP_PROP_FPS) or 0.0
         src_fps = float(fps) if math.isfinite(fps) and fps >= MIN_SANE_FPS else DEFAULT_FPS
         if extraction_fps is None:

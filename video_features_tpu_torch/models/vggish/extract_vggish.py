@@ -1,0 +1,65 @@
+"""VGGish audio extractor, for ``vggish`` and ``vggish_torch``.
+
+Counterpart of ``video_features_tpu/models/vggish/extract_vggish.py``.
+Per input: a ``.wav`` is read directly, a video container ripped through
+ffmpeg (``io/audio.py``); the waveform becomes (96, 64) log-mel examples
+on the host (``mel.py``), zero-padded to a bucketed batch; the VGG runs
+on the device under ``torch.inference_mode()`` and the first n rows come
+back. Output: ``{feature_type: (n, 128) float32}``, n = duration / 0.96 s,
+with no fps or timestamp keys; a clip shorter than 0.96 s gives (0, 128).
+The raw embeddings, as both reference extractors emit them: the PCA
+postprocess (``model.postprocess``) is for library users.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from video_features_tpu_torch.extract.base import BaseExtractor
+from video_features_tpu_torch.io.audio import load_audio_for_model
+from video_features_tpu_torch.io.paths import video_path_of
+from video_features_tpu_torch.models.common.weights import (
+    load_checked,
+    load_state_dict,
+    random_init_fallback,
+)
+from video_features_tpu_torch.models.vggish.convert import convert_state_dict
+from video_features_tpu_torch.models.vggish.mel import SAMPLE_RATE, waveform_to_examples
+from video_features_tpu_torch.models.vggish.model import VGGISH_EMBEDDING_DIM, VGGish, init_weights
+from video_features_tpu_torch.ops.window import bucket_size, pad_batch
+
+
+class ExtractVGGish(BaseExtractor):
+    def _build(self, device: torch.device) -> VGGish:
+        model = VGGish()
+        if self.config.weights_path:
+            load_checked(model, convert_state_dict(load_state_dict(self.config.weights_path)),
+                         self.feature_type)
+        else:
+            random_init_fallback(self.config, self.feature_type,
+                                 "a torchvggish state dict (vggish-10086976.pth)")
+            init_weights(model)
+        return model.to(device).eval()
+
+    def prepare(self, entry):
+        """Host half: ((B, 1, 96, 64) float32 examples padded to a bucket, n)."""
+        samples = load_audio_for_model(
+            video_path_of(entry), SAMPLE_RATE, self.tmp_path, self.config.keep_tmp_files
+        )
+        examples = waveform_to_examples(samples, SAMPLE_RATE)  # (n, 96, 64)
+        n = examples.shape[0]
+        if n == 0:
+            return None, 0
+        return pad_batch(examples[:, None], bucket_size(n, buckets=self.config.shape_buckets)), n
+
+    def forward(self, model: VGGish, payload) -> Dict[str, np.ndarray]:
+        x, n = payload
+        if n == 0:
+            return {self.feature_type: np.zeros((0, VGGISH_EMBEDDING_DIM), np.float32)}
+        device = next(model.parameters()).device
+        with torch.inference_mode():
+            out = model(torch.from_numpy(x).to(device))
+        return {self.feature_type: out[:n].cpu().numpy()}

@@ -112,5 +112,9 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(str(build(name)))
+            path = build(name)
+            try:
+                lib = _libs[name] = ctypes.CDLL(str(path))
+            except OSError as exc:  # not an I/O flake: a retry loads the same file
+                raise RuntimeError(f"kernel library {path} does not load: {exc}") from exc
         return lib

@@ -1,7 +1,10 @@
-"""Synthetic clips for tests and ``chip_smoke.py``: a moving gradient
-plus a seeded random box, written with cv2 (the generator of
-``video_features_tpu/utils/synth.py``, so one seed gives both packages
-the same file)."""
+"""Synthetic media for tests and ``chip_smoke.py``.
+
+``synth_video``: a moving gradient plus a seeded random box, written with
+cv2 (the generator of ``video_features_tpu/utils/synth.py``, so one seed
+gives both packages the same file). ``synth_wav``: a seeded chirp plus
+noise, written as an int16 wav with scipy.
+"""
 
 from __future__ import annotations
 
@@ -35,4 +38,29 @@ def synth_video(
             writer.write(frame)
     finally:
         writer.release()
+    return path
+
+
+def synth_wav(
+    path: str,
+    seconds: float = 3.0,
+    sample_rate: int = 44100,
+    channels: int = 2,
+    seed: int = 0,
+) -> str:
+    """An int16 wav: a 200 Hz -> 4 kHz linear chirp (each channel's phase
+    offset by the seed's draw) at amplitude 0.5, plus Gaussian noise at
+    0.05, clipped to [-1, 1]."""
+    from scipy.io import wavfile
+
+    rng = np.random.RandomState(seed)
+    n = int(round(seconds * sample_rate))
+    t = np.arange(n) / sample_rate
+    f0, f1 = 200.0, 4000.0
+    phase = 2 * np.pi * (f0 * t + 0.5 * (f1 - f0) / max(seconds, 1e-9) * t * t)
+    offsets = rng.uniform(0, 2 * np.pi, channels)
+    x = 0.5 * np.sin(phase[:, None] + offsets[None, :])
+    x = x + 0.05 * rng.standard_normal((n, channels))
+    data = (np.clip(x, -1.0, 1.0) * 32767).astype(np.int16)
+    wavfile.write(path, sample_rate, data[:, 0] if channels == 1 else data)
     return path
