@@ -60,13 +60,30 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     prepare:error:3`` recovered to 8/8 done with the clean features, and
     ``--strict`` exiting nonzero on a corrupt clip recorded failed and
     permanent while the good clips' files are written;
-13. a ``kernels`` JSON line, then the ``ok`` JSON line last.
+13. async ingest (the JAX package's ``_run_pipelined`` loop): CLIP (full
+    width, ``uni_12``, ``--attn flash``) on phase 12's 8 clips at
+    ``--video_batch 1, 4, 8`` x ``--inflight_groups 1, 2`` through the CLI
+    (features within 1e-4 of ``--video_batch 1 --inflight_groups 1``, K1
+    launches = 12 x fused dispatches), the warm videos/s of each setting
+    over two passes, the pinning time of a fused group and the idle share
+    of a fused forward, and ``--fault_inject dispatch:error:2`` at
+    ``--video_batch 4`` recovered to 8/8 done through a ``group_fallback``;
+    K1 held to its plain version at the fused N=64; ResNet-50, R(2+1)D-18
+    and VGGish at ``--video_batch 4`` on 4 short inputs against
+    ``--video_batch 1`` with warm videos/s; ``pwc --batch_size 8
+    --video_batch 2`` on two 30-frame clips and I3D + PWC ``--batch_size 2
+    --video_batch 2`` on two 65-frame clips against their solo runs, with
+    K2 launches = 5 x fused forwards and K2 held to its plain version at
+    the fused N=16 and N=128;
+14. a ``kernels`` JSON line (each kernel's launches on its main path and
+    in the fused runs, and its records at the fused shapes), then the
+    ``ok`` JSON line last.
 
-Every CLI run of phases 4-11 passes ``--strict``, so a video that fails
+Every CLI run of phases 4-13 passes ``--strict``, so a video that fails
 in isolation fails its phase. Phases 7-11 launch no hand-written kernel:
 RAFT, ResNet, R(2+1)D and VGGish reach no ``pallas_call`` in the JAX
 package. Every launch count is read from a run that starts with all
-counts at 0, and each of phases 4-12 prints its wall time.
+counts at 0, and each of phases 4-13 prints its wall time.
 """
 
 from __future__ import annotations
@@ -151,6 +168,17 @@ VGGISH_RTOL = 1e-3
 # effects, none of which exist in a fixed-shape fp32 forward
 CONTRACT_VIDEOS = 8
 CONTRACT_ATOL = 1e-6
+# the async ingest phase: CLIP on the contract clips at each --video_batch
+# x --inflight_groups; a fused batch changes the GEMMs' shapes, so cuBLAS
+# may sum in another order (TF32 stays off): fp32 rounding of unit-scale
+# features through 12 layers
+INGEST_VIDEO_BATCHES = (1, 4, 8)
+INGEST_INFLIGHT = (1, 2)
+INGEST_ATOL = 1e-4
+# K1 at the fused CLIP shape: 4 videos of 16 images (uni_12 bucketed)
+FUSED_ATTENTION_SHAPE = (4 * 16, 12, 50, 64)
+INGEST_PWC_FRAMES = 30
+INGEST_WAV_SECONDS = 10.0  # 10 examples, bucketed to 16
 # ResNet-50 and R(2+1)D-18 features card vs CPU, relative L2 of fp32 sums
 # in other orders through ~50 and ~37 convolutions
 CNN_FEATURE_RTOL = 1e-3
@@ -190,12 +218,15 @@ def time_ms(fn, iters: int = 200, warmup: int = 10) -> float:
 def device_kernels(fn, iters: int = 1):
     """{kernel name: (device ms per iteration, launches per iteration)}
     from a torch.profiler trace of ``iters`` calls; empty when the trace
-    holds no device time."""
+    holds no device time. Late in a long process a trace has been seen to
+    lose launches (``traced_ms`` and ``print_top_kernels`` check counts),
+    so the device settles for a moment inside the profiler first."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.1)
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -207,6 +238,16 @@ def device_kernels(fn, iters: int = 1):
         if us > 0:
             out[e.key] = (us / 1e3 / iters, e.count / iters)
     return out
+
+
+def traced_ms(traced, name: str, launches: int = 1):
+    """Device ms per iteration of the kernels named ``name`` in a trace,
+    or None (not measured) unless the trace holds exactly ``launches`` of
+    them per iteration."""
+    hits = [(ms, n) for key, (ms, n) in traced.items() if name in key]
+    if not hits or sum(n for _, n in hits) != launches:
+        return None
+    return sum(ms for ms, _ in hits)
 
 
 def attention_bound(shape, dtype, kv_len):
@@ -247,8 +288,9 @@ def flow_feature_rtol(flip_share: float, levels) -> float:
     return I3D_FEATURE_RTOL + 4.0 * np.sqrt(flip_share) * UINT8_LEVEL / max(rms, 1e-30)
 
 
-def check_flash_attention(device):
-    """Phase 3 for K1; returns the main path case's record."""
+def hold_flash_attention(device, shape, dtype, kv_len, seed: int):
+    """K1 against its plain version on one case: checks the error, prints
+    and returns the case's record (times, bound, SDPA's times)."""
     import torch.nn.functional as F
 
     from video_features_tpu_torch.ops.flash_attention import (
@@ -256,47 +298,53 @@ def check_flash_attention(device):
         flash_attention_reference,
     )
 
-    main = None
-    for i, (shape, dtype, kv_len) in enumerate(ATTENTION_CASES):
-        rng = np.random.default_rng(i)
-        q, k, v = (
-            torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
-            for _ in range(3)
-        )
-        out = flash_attention(q, k, v, kv_len=kv_len)
-        torch.cuda.synchronize()
-        ref = flash_attention_reference(q, k, v, kv_len=kv_len)
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = KERNEL_ATOL[dtype]
-        mask = None
-        if kv_len is not None:
-            mask = torch.arange(shape[2], device=device) < kv_len
-        ms = time_ms(lambda: flash_attention(q, k, v, kv_len=kv_len))
-        plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, kv_len=kv_len))
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
-        bound_ms, bound_by = attention_bound(shape, dtype, kv_len)
-        traced = device_kernels(lambda: flash_attention(q, k, v, kv_len=kv_len), iters=20)
-        device_ms = sum(ms for name, (ms, _) in traced.items() if "flash_attention" in name)
-        # every kernel SDPA launches, on the device
-        library_device_ms = sum(ms for ms, _ in device_kernels(
-            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), iters=20).values())
-        print(
-            f"flash_attention {shape} {str(dtype)[6:]} kv_len={kv_len}: "
-            f"max_abs_err {err:.3e} (tol {tol:g}); kernel {ms * 1e3:.2f} us, "
-            f"kernel on the device {device_ms * 1e3:.2f} us (profiler), "
-            f"plain {plain_ms * 1e3:.2f} us, sdpa {library_ms * 1e3:.2f} us, "
-            f"sdpa on the device {library_device_ms * 1e3:.2f} us (profiler), "
-            f"bound {bound_ms * 1e3:.2f} us ({bound_by}), "
-            f"{bound_share(bound_ms, device_ms or ms)} of the bound"
-        )
-        if not err <= tol:
-            raise AssertionError(f"flash_attention disagrees with its plain version: {err}")
-        if main is None:
-            main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, library_ms=library_ms,
-                        device_ms=device_ms or None,
-                        library_device_ms=library_device_ms or None)
-    return main
+    rng = np.random.default_rng(seed)
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
+        for _ in range(3)
+    )
+    out = flash_attention(q, k, v, kv_len=kv_len)
+    torch.cuda.synchronize()
+    ref = flash_attention_reference(q, k, v, kv_len=kv_len)
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = KERNEL_ATOL[dtype]
+    mask = None
+    if kv_len is not None:
+        mask = torch.arange(shape[2], device=device) < kv_len
+    ms = time_ms(lambda: flash_attention(q, k, v, kv_len=kv_len))
+    plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, kv_len=kv_len))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+    bound_ms, bound_by = attention_bound(shape, dtype, kv_len)
+    traced = device_kernels(lambda: flash_attention(q, k, v, kv_len=kv_len), iters=20)
+    device_ms = traced_ms(traced, "flash_attention")
+    # every kernel SDPA launches, on the device
+    library_device_ms = sum(ms for ms, _ in device_kernels(
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), iters=20).values())
+    print(
+        f"flash_attention {shape} {str(dtype)[6:]} kv_len={kv_len}: "
+        f"max_abs_err {err:.3e} (tol {tol:g}); kernel {ms * 1e3:.2f} us, "
+        f"kernel on the device {us_or_not(device_ms)} (profiler), "
+        f"plain {plain_ms * 1e3:.2f} us, sdpa {library_ms * 1e3:.2f} us, "
+        f"sdpa on the device {us_or_not(library_device_ms)} (profiler), "
+        f"bound {bound_ms * 1e3:.2f} us ({bound_by}), "
+        f"{bound_share(bound_ms, device_ms or ms)} of the bound"
+    )
+    if not err <= tol:
+        raise AssertionError(f"flash_attention disagrees with its plain version: {err}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms, device_ms=device_ms,
+                library_device_ms=library_device_ms or None)
+
+
+def check_flash_attention(device):
+    """Phase 3 for K1; returns the main path case's record."""
+    records = [hold_flash_attention(device, shape, dtype, kv_len, seed=i)
+               for i, (shape, dtype, kv_len) in enumerate(ATTENTION_CASES)]
+    return records[0]
+
+
+def us_or_not(ms) -> str:
+    return "not measured" if ms is None else f"{ms * 1e3:.2f} us"
 
 
 def bound_share(bound_ms: float, ms: float) -> str:
@@ -315,66 +363,85 @@ def correlation_bound(shape, dtype):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def check_local_correlation(device):
-    """Phase 3 for K2; returns the record of one stack's five cost
-    volumes on the I3D main path (times and bounds summed over the five
-    levels, the largest error of the five)."""
+def hold_local_correlation(device, label: str, shape, dtype, seed: int):
+    """K2 against its plain version on one case: checks the error, prints
+    and returns the case's record (times, bound)."""
     from video_features_tpu_torch.ops.correlation import local_correlation_reference
     from video_features_tpu_torch.ops.correlation_kernel import (
         launch_shape,
         local_correlation_kernel,
     )
 
-    stack = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, device_ms=0.0)
-    bounds = []  # (ms, what sets it) of each main-path level
-    for i, (label, shape, dtype) in enumerate(CORRELATION_CASES):
-        rng = np.random.default_rng(100 + i)
-        f1, f2 = (
-            torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
-            for _ in range(2)
-        )
-        out = local_correlation_kernel(f1, f2)
-        torch.cuda.synchronize()
-        ref = local_correlation_reference(f1, f2)
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = KERNEL_ATOL[dtype]
-        ms = time_ms(lambda: local_correlation_kernel(f1, f2))
-        plain_ms = time_ms(lambda: local_correlation_reference(f1, f2), iters=20, warmup=2)
-        bound_ms, bound_by = correlation_bound(shape, dtype)
-        traced = device_kernels(lambda: local_correlation_kernel(f1, f2), iters=20)
-        device_ms = sum(ms for name, (ms, _) in traced.items() if "local_correlation" in name)
-        tile = launch_shape(*shape, f1.element_size())
-        print(
-            f"local_correlation {label} {shape} {str(dtype)[6:]}: max_abs_err {err:.3e} "
-            f"(tol {tol:g}); kernel {ms * 1e3:.2f} us, kernel on the device "
-            f"{device_ms * 1e3:.2f} us (profiler), plain {plain_ms * 1e3:.2f} us, "
-            f"bound {bound_ms * 1e3:.2f} us ({bound_by}), "
-            f"{bound_share(bound_ms, device_ms or ms)} of the bound; {tile.staging} staging, tile "
-            f"{tile.tile_h}x{tile.tile_w}, {tile.splits} channel groups, chunk {tile.chunk}, "
-            f"tiles {tile.tiles}, {tile.threads} threads, {tile.smem_bytes} B shared"
-        )
-        if not err <= tol:
-            raise AssertionError(f"local_correlation disagrees with its plain version: {err}")
-        if label.startswith("level") and dtype == torch.float32:
-            stack["max_abs_err"] = max(stack["max_abs_err"], err)
-            stack["ms"] += ms
-            stack["plain_ms"] += plain_ms
-            # a level the profiler caught no device time of leaves the sum unmeasured
-            if stack["device_ms"] is not None:
-                stack["device_ms"] = stack["device_ms"] + device_ms if device_ms else None
-            bounds.append((bound_ms, bound_by))
-    # five launches one after another: their least time is the sum of
-    # theirs, set by what sets the largest
-    bound_ms, bound_by = sum(b for b, _ in bounds), max(bounds)[1]
-    on_device = (f"{stack['device_ms'] * 1e3:.2f} us" if stack["device_ms"] is not None
+    rng = np.random.default_rng(seed)
+    f1, f2 = (
+        torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
+        for _ in range(2)
+    )
+    out = local_correlation_kernel(f1, f2)
+    torch.cuda.synchronize()
+    ref = local_correlation_reference(f1, f2)
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = KERNEL_ATOL[dtype]
+    ms = time_ms(lambda: local_correlation_kernel(f1, f2))
+    plain_ms = time_ms(lambda: local_correlation_reference(f1, f2), iters=20, warmup=2)
+    bound_ms, bound_by = correlation_bound(shape, dtype)
+    traced = device_kernels(lambda: local_correlation_kernel(f1, f2), iters=20)
+    device_ms = traced_ms(traced, "local_correlation")
+    tile = launch_shape(*shape, f1.element_size())
+    print(
+        f"local_correlation {label} {shape} {str(dtype)[6:]}: max_abs_err {err:.3e} "
+        f"(tol {tol:g}); kernel {ms * 1e3:.2f} us, kernel on the device "
+        f"{us_or_not(device_ms)} (profiler), plain {plain_ms * 1e3:.2f} us, "
+        f"bound {bound_ms * 1e3:.2f} us ({bound_by}), "
+        f"{bound_share(bound_ms, device_ms or ms)} of the bound; {tile.staging} staging, tile "
+        f"{tile.tile_h}x{tile.tile_w}, {tile.splits} channel groups, chunk {tile.chunk}, "
+        f"tiles {tile.tiles}, {tile.threads} threads, {tile.smem_bytes} B shared"
+    )
+    if not err <= tol:
+        raise AssertionError(f"local_correlation disagrees with its plain version: {err}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, device_ms=device_ms)
+
+
+def hold_correlation_levels(device, pairs: int, levels, label: str, seed: int):
+    """K2 on one PWC forward's five cost volumes (N = ``pairs``): the
+    record summed over the levels (the largest error; a level without
+    device time in its trace leaves the device sum unmeasured). Five
+    launches one after another: their least time is the sum of theirs,
+    set by what sets the largest."""
+    recs = [hold_local_correlation(device, f"{label} level {lvl}", (pairs, c, h, w),
+                                   torch.float32, seed + i)
+            for i, (lvl, c, h, w) in enumerate(levels)]
+    device_ms = (sum(r["device_ms"] for r in recs)
+                 if all(r["device_ms"] for r in recs) else None)
+    rec = dict(max_abs_err=max(r["max_abs_err"] for r in recs),
+               ms=sum(r["ms"] for r in recs), plain_ms=sum(r["plain_ms"] for r in recs),
+               bound_ms=sum(r["bound_ms"] for r in recs),
+               bound_by=max((r["bound_ms"], r["bound_by"]) for r in recs)[1],
+               library_ms=None, device_ms=device_ms)
+    on_device = (f"{device_ms * 1e3:.2f} us" if device_ms is not None
                  else "not measured (a level has no device time in its trace)")
-    print(f"local_correlation, one stack's five levels (fp32): kernel {stack['ms'] * 1e3:.2f} us, "
-          f"on the device {on_device}, plain {stack['plain_ms'] * 1e3:.2f} "
-          f"us, bound {bound_ms * 1e3:.2f} us, "
-          f"{bound_share(bound_ms, stack['device_ms'] or stack['ms'])} of the bound")
-    return dict(max_abs_err=stack["max_abs_err"], ms=stack["ms"], plain_ms=stack["plain_ms"],
-                bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, device_ms=stack["device_ms"])
+    print(f"local_correlation, {label}'s five levels (fp32, N={pairs}): kernel "
+          f"{rec['ms'] * 1e3:.2f} us, on the device {on_device}, plain "
+          f"{rec['plain_ms'] * 1e3:.2f} us, bound {rec['bound_ms'] * 1e3:.2f} us, "
+          f"{bound_share(rec['bound_ms'], device_ms or rec['ms'])} of the bound")
+    return rec
+
+
+def pwc_levels(hp: int, wp: int):
+    """PWC's five cost volumes (level, C, H, W) on an (hp, wp) internal
+    grid (a multiple of 64)."""
+    return [(lvl, c, hp >> lvl, wp >> lvl)
+            for lvl, c in ((2, 32), (3, 64), (4, 96), (5, 128), (6, 196))]
+
+
+def check_local_correlation(device):
+    """Phase 3 for K2; returns the record of one stack's five cost
+    volumes on the I3D main path."""
+    for i, (label, shape, dtype) in enumerate(CORRELATION_CASES):
+        if not (label.startswith("level") and dtype == torch.float32):
+            hold_local_correlation(device, label, shape, dtype, seed=100 + i)
+    return hold_correlation_levels(device, PAIRS, CORR_LEVELS, "one I3D stack", seed=100)
 
 
 def synth_clips(root: str):
@@ -391,8 +458,7 @@ def read_features(out_dir: str):
 def warm_split(ex, clips, device):
     """(host s, forward s) of a built extractor over ``clips``, after one
     warm-up pass: ``prepare`` (decode and host preprocessing) and
-    ``forward`` (H2D, models, D2H). For the flow extractors ``prepare``
-    is a lazy stream, so their decode falls in ``forward``."""
+    ``forward`` (H2D, models, D2H)."""
     model = ex.warmup(device)
     ex(device=device)  # cuDNN, cuBLAS and allocator set-up
     prep = fwd = 0.0
@@ -465,25 +531,33 @@ def run_main_path(root: str):
     warm = prep + fwd
     print(f"main path (--attn flash, warm extractor): {N_VIDEOS / warm:.3f} videos/s, "
           f"{warm / N_VIDEOS * 1e3:.2f} ms/video = host decode + preprocess "
-          f"{prep / N_VIDEOS * 1e3:.2f} ms + forward (H2D, model, D2H) {fwd / N_VIDEOS * 1e3:.2f} ms")
+          f"{prep / N_VIDEOS * 1e3:.2f} ms + forward (H2D, model, D2H) "
+          f"{fwd / N_VIDEOS * 1e3:.2f} ms")
     model, payload = ex.warmup(device), ex.prepare(clips[-1])
     print_top_kernels(device_kernels(lambda: ex.forward(model, payload)), fwd / N_VIDEOS * 1e3,
-                      "one forward on the device")
+                      "one forward on the device", mark="flash_attention", expect=LAYERS)
     return launches
 
 
-def print_top_kernels(traced, wall_ms: float, label: str, top: int = 8, mark: str = ""):
+def print_top_kernels(traced, wall_ms: float, label: str, top: int = 8, mark: str = "",
+                      expect: int = 0):
     """One forward's device time by kernel from a profiler trace, against
     the wall time of the same forward run without the profiler. Where the
     traced busy time exceeds that wall, the profiler's own cost per kernel
-    shows, and the idle share is not measured."""
+    shows, and the idle share is not measured; so too where the trace
+    holds another number of ``mark`` launches than ``expect``."""
     busy = sum(ms for ms, _ in traced.values())
     if not busy:
         print(f"{label}: the profiler recorded no device time (not measured)")
         return
     marked = sum(ms for name, (ms, _) in traced.items() if mark and mark in name)
-    idle = (f"idle share {1 - busy / wall_ms:.3f}" if busy <= wall_ms
-            else "idle share not measured: the trace's busy time exceeds the wall")
+    seen = sum(n for name, (_, n) in traced.items() if mark and mark in name)
+    if expect and seen != expect:
+        idle = f"idle share not measured: the trace holds {seen:g} of {expect} {mark} launches"
+    elif busy <= wall_ms:
+        idle = f"idle share {1 - busy / wall_ms:.3f}"
+    else:
+        idle = "idle share not measured: the trace's busy time exceeds the wall"
     launches = sum(n for _, n in traced.values())
     print(f"{label}: {busy:.3f} ms busy of {wall_ms:.3f} ms wall ({idle}), "
           f"{launches:g} launches" + (f"; {mark} {marked:.4f} ms ({marked / busy:.1%})"
@@ -493,21 +567,23 @@ def print_top_kernels(traced, wall_ms: float, label: str, top: int = 8, mark: st
 
 
 def stack_streams(ex, models, stack, corr_method="auto"):
-    """One stack (S+1, H, W, 3) through both streams, step by step as
-    ``ExtractI3D.forward`` runs it, with ``ex``'s flow net (PWC with the
-    cost volume ``corr_method`` picks; RAFT on the padded stack): (flow,
-    its cropped uint8 levels, rgb features, flow features), as numpy."""
+    """One stack (S+1, H, W, 3), or a group of them (B, S+1, H, W, 3),
+    through both streams, step by step as ``ExtractI3D.forward`` runs it,
+    with ``ex``'s flow net (PWC with the cost volume ``corr_method``
+    picks; RAFT on the padded stack): (flow, its cropped uint8 levels,
+    rgb features, flow features), as numpy, each with the batch axis."""
     from video_features_tpu_torch.models.i3d.extract_i3d import center_crop, rgb_chain
     from video_features_tpu_torch.ops.preprocess import flow_to_uint8, scale_to_1_1
 
     pwc = models.get("pwc")
     if pwc is not None:
         pwc.corr_method = corr_method
+    batch = stack if stack.dim() == 5 else stack[None]
     try:
         with torch.inference_mode():
-            flow = ex.flow(models, stack[None])
+            flow = ex.flow(models, batch)
             levels = flow_to_uint8(center_crop(flow))
-            f_rgb, _ = models["rgb"](rgb_chain(stack[None, :-1]))
+            f_rgb, _ = models["rgb"](rgb_chain(batch[:, :-1]))
             f_flow, _ = models["flow"](scale_to_1_1(levels))
     finally:
         if pwc is not None:
@@ -606,7 +682,8 @@ def run_i3d_path(root: str, device):
     ex.forward(models, one)
     one_ms = (time.perf_counter() - t0) * 1e3
     print_top_kernels(device_kernels(lambda: ex.forward(models, one)), one_ms,
-                      "one stack's forward on the device", top=10, mark="local_correlation")
+                      "one stack's forward on the device", top=10, mark="local_correlation",
+                      expect=len(CORR_LEVELS))
     return launches
 
 
@@ -819,7 +896,8 @@ def run_raft_path(root: str, device):
     print(f"RAFT path (--feature_type raft --batch_size {RAFT_BATCH}, {w}x{h} padded to "
           f"{-(-h // 8) * 8}x{-(-w // 8) * 8}): flow {flow.shape}, |flow| max "
           f"{np.abs(flow).max():.3f}; cold CLI run {wall:.3f} s; warm {1 / (prep + fwd):.3f} "
-          f"videos/s, {(prep + fwd) * 1e3:.2f} ms/video (decode interleaved with the forward)")
+          f"videos/s, {(prep + fwd) * 1e3:.2f} ms/video = host decode + resize + pad "
+          f"{prep * 1e3:.2f} ms + forward (H2D, RAFT, D2H) {fwd * 1e3:.2f} ms")
 
 
 def run_cnn_path(root: str, device, feature_type: str, n_frames: int, want, batch_size=1):
@@ -1048,6 +1126,231 @@ def run_contract_path(root: str, device):
         raise AssertionError(f"--strict run: exit {code!r}, record {rec}, files {sorted(written)}")
 
 
+def ingest_cli(root: str, out: str, feature_args, videos, *extra):
+    """One --strict CLI run with every launch count at 0 first: (wall s,
+    K1 launches, K2 launches, the .npy files by name)."""
+    from video_features_tpu_torch import cli
+    from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
+    from video_features_tpu_torch.ops.flash_attention import flash_attention
+
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main([*feature_args, "--allow_random_init", "--on_extraction", "save_numpy", "--strict",
+              "--output_path", os.path.join(root, out), "--tmp_path", os.path.join(root, "tmp"),
+              *extra, "--video_paths", *videos])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (wall, flash_attention.launches, local_correlation_kernel.launches,
+            read_features(os.path.join(root, out)))
+
+
+def max_abs_diff(a, b) -> float:
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"different files: {sorted(a)} vs {sorted(b)}")
+    return max(float(np.abs(a[k] - b[k]).max()) for k in a)
+
+
+def run_ingest_clip(root: str, device) -> int:
+    """The async ingest phase on CLIP (full width, uni_12, --attn flash, 8
+    clips): --video_batch x --inflight_groups through the CLI, the warm
+    videos/s of each, the fused forward's idle share, the group's pinning
+    time, and a dispatch fault injected into a fused group. Returns K1's
+    launches in its CLI runs."""
+    from video_features_tpu_torch.config import ExtractionConfig
+    from video_features_tpu_torch.extract import ingest
+    from video_features_tpu_torch.extract.registry import build_extractor
+    from video_features_tpu_torch.utils.synth import synth_video
+
+    clips = [synth_video(os.path.join(root, f"contract{i}.mp4"), seed=20 + i)
+             for i in range(CONTRACT_VIDEOS)]
+    clip_args = ["--feature_type", "CLIP-ViT-B/32", "--extract_method", f"uni_{FRAMES}",
+                 "--attn", "flash"]
+    settings = [(vb, ig) for vb in INGEST_VIDEO_BATCHES for ig in INGEST_INFLIGHT]
+    feats, launches = {}, 0
+    for vb, ig in settings:
+        wall, k1, k2, feats[vb, ig] = ingest_cli(
+            root, f"ingest_clip_{vb}_{ig}", clip_args, clips,
+            "--video_batch", str(vb), "--inflight_groups", str(ig))
+        dispatches = -(-CONTRACT_VIDEOS // vb)
+        err = max_abs_diff(feats[vb, ig], feats[INGEST_VIDEO_BATCHES[0], INGEST_INFLIGHT[0]])
+        print(f"async ingest, CLIP --video_batch {vb} --inflight_groups {ig} (cold CLI run): "
+              f"{CONTRACT_VIDEOS} videos in {wall:.3f} s; {dispatches} dispatches, "
+              f"flash_attention launches {k1}; features vs --video_batch 1 --inflight_groups 1 "
+              f"max_abs_err {err:.3e} (tol {INGEST_ATOL:g})")
+        if len(feats[vb, ig]) != CONTRACT_VIDEOS or k1 != LAYERS * dispatches or k2:
+            raise AssertionError(f"--video_batch {vb} --inflight_groups {ig}: "
+                                 f"{len(feats[vb, ig])} files, K1 {k1}, K2 {k2}")
+        if not err <= INGEST_ATOL:
+            raise AssertionError(f"--video_batch {vb} --inflight_groups {ig} disagrees: {err}")
+        launches += k1
+
+    exs = {(vb, ig): build_extractor(ExtractionConfig(
+        feature_type="CLIP-ViT-B/32", video_paths=clips, extract_method=f"uni_{FRAMES}",
+        attn="flash", allow_random_init=True, video_batch=vb, inflight_groups=ig),
+        external_call=True) for vb, ig in settings}
+    for ex in exs.values():
+        ex(device=device)  # model build, cuBLAS and allocator set-up at this batch
+    vps = {k: [] for k in settings}
+    for order in (settings, settings[::-1]):  # two passes, the second in reverse
+        for k in order:
+            t0 = time.perf_counter()
+            exs[k](device=device)  # ends in copies to the host
+            vps[k].append(CONTRACT_VIDEOS / (time.perf_counter() - t0))
+    print(f"async ingest, CLIP warm extractor (--decode_workers 2, {CONTRACT_VIDEOS} videos a "
+          "pass, two passes, the second in reverse order), videos/s:")
+    for (vb, ig), v in vps.items():
+        print(f"  --video_batch {vb} --inflight_groups {ig}: {v[0]:.3f} and {v[1]:.3f}")
+
+    ex = exs[4, 2]
+    model = ex.warmup(device)
+    payloads = [ex.prepare(c) for c in clips[:4]]
+    x = np.concatenate([p[0] for p in payloads])
+    pins = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ingest.pinned_copy(x)
+        pins.append((time.perf_counter() - t0) * 1e3)
+    print(f"async ingest, pinning one --video_batch 4 group ({x.nbytes / 2 ** 20:.1f} MiB): "
+          f"{', '.join(f'{ms:.3f}' for ms in pins)} ms (first and then cached blocks)")
+    for vb, group in ((1, payloads[:1]), (4, payloads)):
+        t0 = time.perf_counter()
+        ex.fetch_group(ex.dispatch_group(model, group))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        print_top_kernels(device_kernels(lambda: ex.fetch_group(ex.dispatch_group(model, group))),
+                          wall_ms, f"async ingest, one fused CLIP forward of {vb} video(s) "
+                          "(H2D, model, D2H) on the device", mark="flash_attention",
+                          expect=LAYERS)
+
+    wall, k1, _, faulted = ingest_cli(root, "ingest_clip_fault", clip_args, clips,
+                                      "--video_batch", "4", "--fault_inject", "dispatch:error:2")
+    with open(os.path.join(root, "ingest_clip_fault", "_manifest", "summary.json")) as f:
+        summary = json.load(f)
+    fallbacks = [e for e in summary["events"] if e.get("event") == "group_fallback"]
+    err = max_abs_diff(faulted, feats[1, 1])
+    print(f"async ingest, CLIP --video_batch 4 --fault_inject dispatch:error:2: "
+          f"{summary['done']}/{summary['total']} done, {summary['failed']} failed, "
+          f"group_fallback events {[(e['phase'], e['size']) for e in fallbacks]}; "
+          f"flash_attention launches {k1}; features vs --video_batch 1 max_abs_err {err:.3e}")
+    if not (summary["done"] == summary["total"] == CONTRACT_VIDEOS and summary["failed"] == 0
+            and len(fallbacks) == 1 and k1 == LAYERS * (1 + 4) and err <= INGEST_ATOL):
+        raise AssertionError(f"the fused-group fault was not recovered: {summary}")
+    return launches + k1
+
+
+def run_ingest_cnns(root: str, device):
+    """ResNet-50, R(2+1)D-18 and VGGish at --video_batch 4 on 4 short
+    inputs against --video_batch 1, and the warm videos/s of both."""
+    from video_features_tpu_torch.config import ExtractionConfig
+    from video_features_tpu_torch.extract.registry import build_extractor
+    from video_features_tpu_torch.utils.synth import synth_video, synth_wav
+
+    short = [synth_video(os.path.join(root, f"ingest_short{i}.mp4"), n_frames=SHORT_CLIP_FRAMES,
+                         seed=30 + i) for i in range(4)]
+    wavs = [synth_wav(os.path.join(root, f"ingest_audio{i}.wav"), seconds=INGEST_WAV_SECONDS,
+                      sample_rate=VGGISH_RATE, channels=2, seed=30 + i) for i in range(4)]
+    families = [("resnet50", short, dict(batch_size=RESNET_BATCH), CNN_FEATURE_RTOL),
+                ("r21d_rgb", short, {}, CNN_FEATURE_RTOL),
+                ("vggish", wavs, {}, VGGISH_RTOL)]
+    for feature_type, inputs, kw, tol in families:
+        exs = {vb: build_extractor(ExtractionConfig(
+            feature_type=feature_type, video_paths=inputs, allow_random_init=True,
+            video_batch=vb, **kw), external_call=True) for vb in (1, 4)}
+        reset_counts()
+        got = {vb: ex(device=device) for vb, ex in exs.items()}  # the warm-up passes
+        no_kernel_launches(f"async ingest, {feature_type}")
+        err = max(rel_l2(f[feature_type], s[feature_type]) for f, s in zip(got[4], got[1]))
+        vps = {1: [], 4: []}
+        for vb in (1, 4, 4, 1):
+            t0 = time.perf_counter()
+            exs[vb](device=device)
+            vps[vb].append(len(inputs) / (time.perf_counter() - t0))
+        print(f"async ingest, {feature_type} --video_batch 4 on {len(inputs)} inputs "
+              f"{[f[feature_type].shape for f in got[4]]}: rel_l2 vs --video_batch 1 "
+              f"{err:.3e} (tol {tol:g}); warm videos/s in turns 1, 4, 4, 1: --video_batch 1 "
+              f"{vps[1][0]:.3f} and {vps[1][1]:.3f}, --video_batch 4 {vps[4][0]:.3f} and "
+              f"{vps[4][1]:.3f}")
+        if not err <= tol:
+            raise AssertionError(f"{feature_type}: fused and solo features disagree: {err}")
+
+
+def run_ingest_flow(root: str, device):
+    """PWC (--batch_size 8 --video_batch 2, two 30-frame clips) and I3D +
+    PWC (--batch_size 2 --video_batch 2, two 65-frame clips) against their
+    solo runs, and K2 held to its plain version at the two fused shapes.
+    Returns (K2's launches in the fused runs, K2's records)."""
+    from video_features_tpu_torch.config import ExtractionConfig
+    from video_features_tpu_torch.extract.registry import build_extractor
+    from video_features_tpu_torch.utils.synth import synth_video
+
+    pwc_clips = [synth_video(os.path.join(root, f"ingest_pwc{i}.mp4"),
+                             n_frames=INGEST_PWC_FRAMES, seed=40 + i) for i in range(2)]
+    pwc_args = ["--feature_type", "pwc", "--batch_size", str(PWC_BATCH)]
+    _, _, solo_k2, solo = ingest_cli(root, "ingest_pwc_1", pwc_args, pwc_clips)
+    wall, _, k2, fused = ingest_cli(root, "ingest_pwc_2", pwc_args, pwc_clips,
+                                    "--video_batch", "2")
+    windows = 2 * -(-(INGEST_PWC_FRAMES - 1) // PWC_BATCH)
+    dispatches = -(-windows // 2)
+    err = max_abs_diff(fused, solo)
+    tol = FLOW_RTOL * max(max(float(np.abs(f).max()) for f in solo.values()), 1.0)
+    print(f"async ingest, PWC --batch_size {PWC_BATCH} --video_batch 2 on 2 clips of "
+          f"{INGEST_PWC_FRAMES} frames: flow {[f.shape for f in fused.values()]}, {windows} "
+          f"windows in {dispatches} fused forwards of {2 * PWC_BATCH} pairs, cold CLI run "
+          f"{wall:.3f} s; local_correlation launches {k2} (solo run {solo_k2}); flow vs solo "
+          f"max_abs_err {err:.3e} (tol {tol:.3e})")
+    if k2 != len(CORR_LEVELS) * dispatches or not err <= tol:
+        raise AssertionError(f"PWC --video_batch 2: K2 launches {k2}, flow error {err}")
+    launches = k2
+    records = {"pwc": hold_correlation_levels(device, 2 * PWC_BATCH, pwc_levels(256, 320),
+                                              "a fused PWC forward", seed=300)}
+
+    i3d_clips = [synth_video(os.path.join(root, f"ingest_i3d{i}.mp4"), n_frames=STACK + 1,
+                             seed=50 + i) for i in range(2)]
+    i3d_args = ["--feature_type", "i3d", "--flow_type", "pwc", "--batch_size", "2"]
+    _, _, solo_k2, solo = ingest_cli(root, "ingest_i3d_1", i3d_args, i3d_clips)
+    wall, _, k2, fused = ingest_cli(root, "ingest_i3d_2", i3d_args, i3d_clips,
+                                    "--video_batch", "2")
+    # the levels the flow features see, solo (each stack beside the zero
+    # stack that pads its group) and fused (the two stacks together)
+    ex = build_extractor(ExtractionConfig(feature_type="i3d", video_paths=i3d_clips,
+                                          allow_random_init=True), external_call=True)
+    models = ex.warmup(device)
+    stacks = [torch.from_numpy(np.stack(ex.prepare(c)[0])).to(device) for c in i3d_clips]
+    both = stack_streams(ex, models, torch.stack(stacks))
+    flips, levels = [], []
+    for i, st in enumerate(stacks):
+        alone = stack_streams(ex, models, torch.stack([st, torch.zeros_like(st)]))
+        flips.append(float(np.mean(alone[1][0] != both[1][i])))
+        levels.append(alone[1][0])
+    flow_tol = flow_feature_rtol(max(flips), np.stack(levels))
+    print(f"async ingest, I3D + PWC --batch_size 2 --video_batch 2 on 2 clips of {STACK + 1} "
+          f"frames: cold CLI run {wall:.3f} s; local_correlation launches {k2} (solo run "
+          f"{solo_k2}); uint8 flow levels flipped fused vs solo {max(flips):.3e}")
+    for name in sorted(fused):
+        tol = flow_tol if name.endswith("_flow.npy") else I3D_FEATURE_RTOL
+        err = rel_l2(fused[name], solo[name])
+        print(f"  {name} {fused[name].shape}: rel_l2 vs solo {err:.3e} (tol {tol:.3e})")
+        if fused[name].shape != (1, 1024) or not err <= tol:
+            raise AssertionError(f"I3D --video_batch 2: {name} {fused[name].shape}, {err}")
+    if sorted(fused) != sorted(solo) or len(fused) != 4 or k2 != len(CORR_LEVELS):
+        raise AssertionError(f"I3D --video_batch 2: files {sorted(fused)}, K2 launches {k2}")
+    records["i3d"] = hold_correlation_levels(device, 2 * STACK, CORR_LEVELS,
+                                             "a fused I3D stack group", seed=400)
+    return launches + k2, records
+
+
+def run_ingest_path(root: str, device):
+    """Phase 13, async ingest. Returns each kernel's launches in its CLI
+    runs and its records at the fused shapes."""
+    k1 = run_ingest_clip(root, device)
+    attention = hold_flash_attention(device, FUSED_ATTENTION_SHAPE, torch.float32, None,
+                                     seed=200)
+    run_ingest_cnns(root, device)
+    k2, correlation = run_ingest_flow(root, device)
+    return {"flash_attention": (k1, {"N=64 (--video_batch 4)": attention}),
+            "local_correlation": (k2, {"N=16 (pwc --video_batch 2)": correlation["pwc"],
+                                       "N=128 (i3d --video_batch 2)": correlation["i3d"]})}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1081,13 +1384,18 @@ def main() -> int:
                 root, device, "r21d_rgb", R21D_CLIP_FRAMES, (R21D_CLIP_FRAMES // 16, 512))),
             ("VGGish", lambda: run_vggish_path(root, device)),
             ("run contract", lambda: run_contract_path(root, device)),
+            ("async ingest", lambda: run_ingest_path(root, device)),
         ]
         results = {}
         for name, phase in phases:
             t0 = time.perf_counter()
             results[name] = phase()
             print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
-        k1_launches, k2_launches = results["CLIP"], results["I3D + PWC"]
+        # each kernel's launches: its main path's run, then the fused runs
+        ingest = results["async ingest"]
+        (k1_fused, k1_shapes), (k2_fused, k2_shapes) = (ingest["flash_attention"],
+                                                        ingest["local_correlation"])
+        k1_launches, k2_launches = results["CLIP"] + k1_fused, results["I3D + PWC"] + k2_fused
 
     records = [
         {
@@ -1097,6 +1405,7 @@ def main() -> int:
             "replaces": "video_features_tpu/ops/pallas/flash_attention.py:36",
             "launches": k1_launches,
             **k1,
+            "fused_shapes": k1_shapes,
         },
         {
             "name": "local_correlation",
@@ -1105,6 +1414,7 @@ def main() -> int:
             "replaces": "video_features_tpu/ops/pallas/correlation_kernel.py:39",
             "launches": k2_launches,
             **k2,
+            "fused_shapes": k2_shapes,
         },
     ]
     print(json.dumps({"kernels": records}))

@@ -2,7 +2,7 @@
 the ``video-features-tpu-torch`` script).
 
 The JAX package's flags and output files (``video_features_tpu/cli.py``).
-The run goes to ``cuda:<device_ids[0]>``, or to the CPU with ``--cpu``.
+The run goes to ``cuda:<device_id>`` (one), or to the CPU with ``--cpu``.
 After the run, every record under ``<output_path>/_manifest/`` is merged
 into ``summary.json`` and its one-line outcome printed; with ``--strict``
 a failed video, an empty-feature warning or a worker death exits nonzero.

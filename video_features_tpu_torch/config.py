@@ -3,7 +3,8 @@
 Counterpart of ``video_features_tpu/config.py`` (``ExtractionConfig``,
 ``sanity_check``, ``parse_batch_args``), cut to the fields the CLIP,
 ResNet, R(2+1)D, RAFT, PWC, I3D and VGGish paths and the run contract
-(manifest, retries, ``--strict``, ``--decode_workers``) read. Flag names,
+(manifest, retries, ``--strict``, ``--decode_workers``) and the async
+ingest loop (``--video_batch``, ``--inflight_groups``) read. Flag names,
 meanings and defaults are the JAX package's.
 """
 
@@ -15,6 +16,7 @@ import re
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
+from video_features_tpu_torch.devices import check_one_device
 from video_features_tpu_torch.runtime.faults import parse_fault_specs
 
 # the feature types this package extracts so far
@@ -102,6 +104,13 @@ class ExtractionConfig:
     retry_failed: bool = False
     # test-only STAGE:KIND:EVERY_N fault injection (runtime/faults.py)
     fault_inject: Optional[List[str]] = None
+    # --- the async ingest loop (extract/base.py, extract/ingest.py) ---
+    # fuse up to N prepared videos of one shape key into one device
+    # dispatch (needs decode_workers >= 1); 1 is off
+    video_batch: int = 1
+    # dispatched videos or groups in flight before the loop blocks on the
+    # oldest's fetch (2 double-buffers; 1 is dispatch-then-fetch lockstep)
+    inflight_groups: int = 2
 
 
 def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
@@ -175,6 +184,19 @@ def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
             "--retry_failed only modifies --resume (it re-attempts videos "
             "the manifest recorded as permanently failed); add --resume"
         )
+    check_one_device(cfg.device_ids)
+    if cfg.video_batch < 1:
+        raise ValueError(f"video_batch must be >= 1, got {cfg.video_batch}")
+    if cfg.video_batch > 1 and int(cfg.decode_workers or 0) < 1:
+        raise ValueError(
+            "--video_batch needs the async pipeline: set --decode_workers "
+            ">= 1 (aggregation groups prepared videos, and only "
+            "_run_pipelined prepares ahead)"
+        )
+    if cfg.inflight_groups < 1:
+        raise ValueError(
+            f"inflight_groups must be >= 1, got {cfg.inflight_groups}"
+        )
     parse_fault_specs(cfg.fault_inject)  # raises naming the bad spec
     return cfg
 
@@ -185,7 +207,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--video_paths", nargs="+", help="space-separated paths to videos")
     p.add_argument("--file_with_video_paths", help=".txt file where each line is a path")
     p.add_argument("--device_ids", type=int, nargs="+",
-                   help="CUDA device ids; the run uses the first")
+                   help="the CUDA device id to run on (one, so far)")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     p.add_argument("--tmp_path", default="./tmp")
     p.add_argument("--keep_tmp_files", action="store_true", default=False)
@@ -245,6 +267,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="TEST-ONLY deterministic fault injection: raise/stall at "
                         "STAGE (decode|prepare|dispatch|sink) every N calls; KIND "
                         "in error|corrupt|hang|oom|compile|kill; repeatable")
+    p.add_argument("--video_batch", type=int, default=1,
+                   help="aggregate up to N videos' prepared batches into "
+                        "one device dispatch (every feature type); 1 = off")
+    p.add_argument("--inflight_groups", type=int, default=2,
+                   help="async-ingest completion-queue depth: dispatched "
+                        "groups that may stay in flight before the loop "
+                        "blocks on the oldest fetch (2 = the classic "
+                        "double-buffer; 1 = lockstep dispatch-then-fetch)")
     return p
 
 

@@ -1,7 +1,8 @@
 """Device selection and the numerics every entry point pins.
 
 Counterpart of ``video_features_tpu/parallel/devices.py``: ``--device_ids``
-index the visible CUDA devices and ``--cpu`` selects the CPU. A run
+names one visible CUDA device (more is refused until multi-GPU queue mode
+is ported) and ``--cpu`` selects the CPU. A run
 without ``--cpu`` on a host without CUDA is an error, never a silent
 fallback to the CPU.
 """
@@ -19,8 +20,21 @@ def pin_fp32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def check_one_device(device_ids) -> None:
+    """Refuse more than one ``--device_ids``: the port runs on one CUDA
+    device until multi-GPU queue mode is ported."""
+    if device_ids is not None and len(device_ids) > 1:
+        raise ValueError(
+            f"--device_ids {' '.join(map(str, device_ids))}: this package runs "
+            "on one CUDA device so far; more than one is multi-GPU queue "
+            "mode (ROADMAP.md queue 1, item 12). Pass one id."
+        )
+
+
 def resolve_device(cfg) -> torch.device:
-    """``cuda:<device_ids[0]>``, or the CPU when ``cfg.cpu``."""
+    """``cuda:<device_ids[0]>`` (one id at most), or the CPU when
+    ``cfg.cpu``."""
+    check_one_device(cfg.device_ids)
     if cfg.cpu:
         return torch.device("cpu")
     if not torch.cuda.is_available():

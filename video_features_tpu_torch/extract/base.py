@@ -1,5 +1,5 @@
-"""Extractor runtime: the per-video loop every feature type shares, and
-its run contract.
+"""Extractor runtime: the per-video loop every feature type shares, its
+run contract, and its async device ingest.
 
 Counterpart of ``video_features_tpu/extract/base.py``: the path list is
 formed in ``__init__``, the model is built once per device (``warmup``),
@@ -10,44 +10,79 @@ The run contract (``runtime/faults.py``):
 
 - every outcome of a save run (or of a ``--strict`` or ``--fault_inject``
   run) is one record under ``<output_path>/_manifest/``: done, retry,
-  failed (with its stage and error class), skipped, or a sink warning;
+  failed (with its stage and error class), skipped, a sink warning, or a
+  decode warning (fps defaulted, partial decode; ``io/video.py``);
 - a transient or oom failure goes back in the queue after a backoff, up
   to ``--retries`` times; any other failure is recorded and printed, and
   the loop goes on with the next video;
+- a sticky device error (``faults.is_sticky``: a CUDA error that fails
+  every later launch, a kernel that does not build) is recorded as that
+  video's failure plus one ``worker_death`` event, and stops the loop:
+  the videos not yet attempted get no record, so ``--resume`` runs them;
 - ``--resume`` skips a video whose output files all exist, or that an
   earlier run recorded as a permanent failure (unless ``--retry_failed``).
 
-With ``--decode_workers N >= 1`` and more than one video, ``prepare``
-runs on N host threads while ``forward`` runs on the calling thread, with
-at most N + 1 prepared payloads waiting; with 0 (or one video) each video
-is prepared and computed in turn.
+With ``--decode_workers N >= 1`` and more than one video the loop is the
+JAX package's ``_run_pipelined``: ``prepare`` runs on N host threads,
+at most N + 1 prepared payloads wait, and the device half is split in
+two. ``dispatch_prepared`` enqueues a video's H2D, forward and D2H
+(``extract/ingest.py``) and returns a handle; up to ``--inflight_groups``
+handles wait in a ``CompletionQueue`` before the loop blocks on the
+oldest's ``fetch_dispatched``, and a head that has already completed is
+sunk without blocking. With ``--video_batch N > 1``, prepared videos
+whose payloads share an ``agg_key`` fuse N at a time into one
+``transfer_group`` + ``dispatch_group`` (a partial group flushes at the
+end), and ``fetch_group`` splits the results per video; a fused group
+that fails at dispatch or fetch re-runs each member alone (a
+``group_fallback`` event), unless the error is sticky. With 0 (or one
+video) each video is prepared and computed in turn.
 
 A subclass implements ``_build(device)`` (the model state), ``prepare``
 (host: decode and preprocess one video; thread-safe, and touches no CUDA)
-and ``forward`` (device: the model on a prepared payload, returning the
-feature dict).
+and either ``dispatch_prepared`` + ``fetch_dispatched`` (``forward`` is
+then their composition) or ``forward`` alone (the solo path only); and
+for ``--video_batch``, ``agg_key``, ``dispatch_group``, ``fetch_group``
+and optionally ``transfer_group``.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+import threading
 import time
 import traceback
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from video_features_tpu_torch.config import ExtractionConfig
 from video_features_tpu_torch.devices import pin_fp32, resolve_device
-from video_features_tpu_torch.extract.ingest import RequeueTimers
+from video_features_tpu_torch.extract.ingest import (
+    CompletionQueue,
+    HostCopy,
+    RequeueTimers,
+    place_batch,
+)
 from video_features_tpu_torch.io.paths import form_list_from_user_input, video_path_of
+from video_features_tpu_torch.io.video import pop_decode_warnings
 from video_features_tpu_torch.io.sink import action_on_extraction, expected_output_files
 from video_features_tpu_torch.runtime import faults
 from video_features_tpu_torch.runtime.faults import NULL_MANIFEST, RunManifest
+
+
+class LoopStopped(Exception):
+    """Raised by the failure policy at a sticky device error: the loop
+    ends there and leaves the videos not yet attempted without a record."""
+
+
+def device_of(state) -> torch.device:
+    """The device of a built model state (a module, or a dict of them)."""
+    module = next(iter(state.values())) if isinstance(state, dict) else state
+    return next(module.parameters()).device
 
 
 class BaseExtractor:
@@ -101,8 +136,92 @@ class BaseExtractor:
     def prepare(self, entry) -> Any:
         raise NotImplementedError
 
-    def forward(self, state: Any, payload: Any) -> Dict[str, np.ndarray]:
+    # --- the device half: solo ---------------------------------------------
+    def dispatch_prepared(self, state: Any, payload: Any) -> Any:
+        """Enqueue one prepared video's H2D (``ingest.place_batch``), its
+        forward and its D2H (``ingest.HostCopy``), and return a handle
+        without waiting for any of them."""
         raise NotImplementedError
+
+    def fetch_dispatched(self, handle: Any) -> Dict[str, np.ndarray]:
+        """Wait for a dispatched video's results and assemble its feature
+        dict."""
+        raise NotImplementedError
+
+    def forward(self, state: Any, payload: Any) -> Dict[str, np.ndarray]:
+        """The device half of one video: dispatched, then fetched. An
+        extractor without the split overrides this instead."""
+        return self.fetch_dispatched(self.dispatch_prepared(state, payload))
+
+    def extract_prepared(self, state: Any, payload: Any) -> Dict[str, np.ndarray]:
+        """The loops' solo path for one prepared video."""
+        return self.forward(state, payload)
+
+    def _supports_device_pipeline(self) -> bool:
+        return type(self).dispatch_prepared is not BaseExtractor.dispatch_prepared
+
+    # --- the device half: cross-video aggregation (--video_batch) -----------
+    def _supports_aggregation(self) -> bool:
+        return type(self).dispatch_group is not BaseExtractor.dispatch_group
+
+    def _aggregation_enabled(self) -> bool:
+        return self._supports_aggregation() and max(int(self.config.video_batch or 1), 1) > 1
+
+    def agg_key(self, payload: Any):
+        """Hashable shape key: payloads with equal keys may fuse into one
+        dispatch. ``None`` sends the video down the solo path (an
+        extractor's opt-out for oversized payloads or ``--show_pred``)."""
+        return None
+
+    def transfer_group(self, state: Any, payloads: List[Any]):
+        """Optional H2D stage of a fused group: assemble the group's host
+        arrays and place them now, returning an ``ingest.StagedGroup``
+        that ``dispatch_group`` consumes. None (the default) keeps the
+        placement inside ``dispatch_group``. A partial group (the flush at
+        the end of a run) is not padded to the full group's shape: eager
+        PyTorch compiles no shape, and each video's rows are its own."""
+        return None
+
+    def dispatch_group(self, state: Any, payloads: Any) -> Any:
+        """Fuse up to ``--video_batch`` same-key payloads (or the
+        ``StagedGroup`` of ``transfer_group``) into one forward; return a
+        handle without waiting."""
+        raise NotImplementedError
+
+    def fetch_group(self, handle: Any) -> List[Dict[str, np.ndarray]]:
+        """Wait for a fused group and return its members' feature dicts,
+        in the order of the payloads."""
+        raise NotImplementedError
+
+    @staticmethod
+    def _dispatch_rows_grouped(rows: List[np.ndarray], chunk_rows: int,
+                               device: torch.device, forward) -> List[Tuple[HostCopy, int]]:
+        """The row re-chunking of fused ResNet frames and R(2+1)D stacks:
+        the videos' valid rows concatenated and run ``chunk_rows`` at a
+        time through ``forward`` (a device batch -> its feature rows),
+        the last chunk unpadded (eager PyTorch compiles no shape, so a
+        short chunk costs nothing extra). Returns ``[(HostCopy, rows)]``
+        without waiting."""
+        all_rows = np.concatenate(rows, axis=0)
+        outs = []
+        with torch.inference_mode():
+            for i in range(0, all_rows.shape[0], chunk_rows):
+                piece = all_rows[i : i + chunk_rows]
+                outs.append((HostCopy(forward(place_batch(piece, device))), piece.shape[0]))
+        return outs
+
+    @staticmethod
+    def _split_grouped_rows(outs, totals: List[int]) -> List[np.ndarray]:
+        """Fetch ``_dispatch_rows_grouped``'s handles and split the rows
+        back per video (``totals`` rows each, in order)."""
+        cat = np.concatenate([h.numpy()[:n] for h, n in outs], axis=0)
+        return np.split(cat, np.cumsum(totals)[:-1])
+
+    def _prefetch_frame_cap(self, max_bytes: int, frame_bytes: int, floor: int) -> int:
+        """A prepared video's cap in frames: the byte budget split over
+        the ``decode_workers + 2`` prepared videos that can be resident."""
+        resident = max(int(self.config.decode_workers or 0), 1) + 2
+        return max(max_bytes // resident // frame_bytes, floor)
 
     def warmup(self, device: torch.device) -> Any:
         """Build (once) and cache this device's model state."""
@@ -121,6 +240,7 @@ class BaseExtractor:
         if device is None:
             device = resolve_device(self.config)
         state = self.warmup(device)
+        self._device_label = str(device)
         indices = [int(i) for i in indices]
         results: List = []  # external_call: (position, feats_dict) pairs
         try:
@@ -152,7 +272,10 @@ class BaseExtractor:
                 time.sleep(wait)
             self._mark_start(entry)
             try:
-                feats_dict = self.forward(state, self.prepare(entry))
+                try:
+                    feats_dict = self.extract_prepared(state, self.prepare(entry))
+                finally:
+                    self._drain_decode_warnings(entry)  # decoded on this thread
                 self._sink_or_collect(feats_dict, entry, results, pos)
             except KeyboardInterrupt:
                 raise
@@ -161,71 +284,241 @@ class BaseExtractor:
                 def requeue(delay, pos=pos, idx=idx, attempt=attempt):
                     queue.append((pos, idx, attempt + 1, time.monotonic() + delay))
 
-                self._on_failure(entry, "extract", attempt, requeue=requeue)
+                try:
+                    self._on_failure(entry, "extract", attempt, requeue=requeue)
+                except LoopStopped:
+                    return
                 continue
             self._on_success(entry, attempt)
 
     def _run_pipelined(self, indices, state, results) -> None:
-        """``prepare`` on ``--decode_workers`` host threads, ``forward`` on
-        this thread: while video k computes, videos k+1..k+N decode. At
-        most N + 1 prepared payloads wait beyond the one being consumed,
-        so host memory stays bounded. A retry re-enters ``pending`` as a
-        fresh prepare future once its backoff timer fires."""
+        """The JAX package's ``_run_pipelined`` (module docstring), without
+        its telemetry (ROADMAP queue 1, item 5: each span's place is
+        marked). ``prepare`` runs on ``--decode_workers`` host threads; the
+        device half on this thread. A retry re-enters ``pending`` as a
+        fresh prepare future once its backoff timer fires, from any drain,
+        so the final drain is one loop that also waits on armed timers."""
         workers = max(1, int(self.config.decode_workers))
-        depth = workers + 1
+        depth = workers + 1  # prepared and waiting beyond the one consumed
+        split = self._supports_device_pipeline()
+        agg = self._aggregation_enabled()
+        group_size = max(int(self.config.video_batch or 1), 1)
+        groups: Dict[Any, list] = {}  # agg_key -> [(pos, idx, attempt, entry, payload)]
+        # entries: ([(pos, idx, attempt, entry), ...], handle, grouped,
+        # host payloads of a group, kept for its solo fallback)
+        inflight = CompletionQueue(int(self.config.inflight_groups))
         pending: deque = deque()  # (pos, idx, attempt, prepare future)
         timers = RequeueTimers()
+        stop_lock = threading.Lock()
+        stopped: List[bool] = []  # set at a sticky error: timers submit nothing
 
         def prep(entry, attempt: int):
             self._mark_start(entry)
+            # telemetry: the "prepare" span
             faults.fire("prepare")
-            return self.prepare(entry)
+            try:
+                return self.prepare(entry)
+            finally:
+                self._drain_decode_warnings(entry)  # this worker's notes
 
         def requeue(pos, idx, attempt):
             def do(delay: float) -> None:
                 def fire() -> None:
-                    entry = self.path_list[idx]
-                    pending.append((pos, idx, attempt + 1, pool.submit(prep, entry, attempt + 1)))
+                    with stop_lock:
+                        if not stopped:
+                            pending.append((pos, idx, attempt + 1,
+                                            pool.submit(prep, self.path_list[idx], attempt + 1)))
 
                 timers.schedule(delay, fire)
 
             return do
 
-        def consume_one() -> None:
-            pos, idx, attempt, fut = pending.popleft()
-            entry = self.path_list[idx]
-            stage = "prepare"
+        def sink_one(pos, idx, attempt, entry, feats_dict) -> None:
             try:
-                payload = fut.result()
-                stage = "dispatch"
-                faults.fire("dispatch")
-                feats_dict = self.forward(state, payload)
-                stage = "sink"
                 self._sink_or_collect(feats_dict, entry, results, pos)
             except KeyboardInterrupt:
                 raise
-            except Exception:  # noqa: BLE001 - classify, maybe retry
-                self._on_failure(entry, stage, attempt, requeue=requeue(pos, idx, attempt))
+            except Exception:  # noqa: BLE001 - this video's sink failed
+                self._on_failure(entry, "sink", attempt, requeue=requeue(pos, idx, attempt))
                 return
             self._on_success(entry, attempt)
 
+        def run_solo(pos, idx, attempt, entry, payload, inject: bool = True) -> None:
+            """The solo device path of one prepared video (the non-split
+            extractors', and the group fallback's, which passes
+            ``inject=False`` so the dispatch injection cannot fail again
+            the members it is recovering)."""
+            try:
+                try:
+                    if inject:
+                        faults.fire("dispatch")
+                    # telemetry: the "dispatch" span and the H2D count
+                    feats_dict = self.extract_prepared(state, payload)
+                finally:
+                    self._drain_decode_warnings(entry)  # a streamed payload decodes here
+            except KeyboardInterrupt:
+                raise
+            except Exception:  # noqa: BLE001 - classify, maybe retry
+                self._on_failure(entry, "dispatch", attempt, requeue=requeue(pos, idx, attempt))
+                return
+            sink_one(pos, idx, attempt, entry, feats_dict)
+
+        def solo_fallback(items, phase: str, fused_err: str) -> None:
+            """A fused dispatch or fetch failed: re-run every member alone,
+            so at most the truly bad video is lost. Callers leave their
+            ``except`` block and drop the group's handle first: a live
+            traceback would pin the group's device tensors while the
+            re-runs need that memory."""
+            print(f"Fused --video_batch {phase} failed for a group of {len(items)}; "
+                  "falling back to per-video dispatch:")
+            print(fused_err, end="")
+            self.manifest.event(
+                "group_fallback",
+                phase=phase,
+                size=len(items),
+                videos=[self._video_key(e) for _, _, _, e, _ in items],
+                message=fused_err.strip().splitlines()[-1][:300] if fused_err else None,
+            )
+            for pos, idx, attempt, e, p in items:
+                run_solo(pos, idx, attempt, e, p, inject=False)
+
+        def drain_completed(only_ready: bool = False) -> bool:
+            """Fetch and sink the oldest in-flight entry; with
+            ``only_ready``, only if its device work has already completed
+            (a non-blocking probe). Returns whether an entry was drained."""
+            if only_ready and not inflight.head_ready():
+                return False
+            slots, handle, grouped, payloads = inflight.pop()
+            if grouped:
+                fused_err = None
+                try:
+                    # telemetry: the "fetch" span
+                    dicts = self.fetch_group(handle)
+                except KeyboardInterrupt:
+                    raise
+                except Exception as exc:  # noqa: BLE001 - a fused fetch fails together
+                    if faults.is_sticky(exc):
+                        self._stop_on_sticky([(e, att) for _, _, att, e in slots], "fetch")
+                    fused_err = traceback.format_exc()
+                if fused_err is not None:
+                    del handle  # free the group's device memory before the re-runs
+                    solo_fallback([(pos, idx, att, e, p)
+                                   for (pos, idx, att, e), p in zip(slots, payloads)],
+                                  "fetch", fused_err)
+                    return True
+                for (pos, idx, att, e), d in zip(slots, dicts):
+                    sink_one(pos, idx, att, e, d)
+                return True
+            pos, idx, attempt, entry = slots[0]
+            try:
+                # telemetry: the "fetch" span
+                feats_dict = self.fetch_dispatched(handle)
+            except KeyboardInterrupt:
+                raise
+            except Exception:  # noqa: BLE001 - classify, maybe retry
+                self._on_failure(entry, "dispatch", attempt, requeue=requeue(pos, idx, attempt))
+                return True
+            sink_one(pos, idx, attempt, entry, feats_dict)
+            return True
+
+        def drain_to_capacity() -> None:
+            """After a dispatch: block on the oldest entry while the window
+            is full, then sink whatever else has already completed."""
+            while inflight.full:
+                drain_completed()
+            while drain_completed(only_ready=True):
+                pass
+
+        def dispatch_group_now(items) -> None:  # items: [(pos, idx, attempt, entry, payload)]
+            payloads = [p for *_, p in items]
+            fused_err = staged = None
+            try:
+                # one dispatch injection per group: the group is one dispatch
+                faults.fire("dispatch")
+                # telemetry: the "h2d" span and the H2D count
+                staged = self.transfer_group(state, payloads)
+                # telemetry: the "dispatch" span
+                handle = self.dispatch_group(state, staged if staged is not None else payloads)
+            except KeyboardInterrupt:
+                raise
+            except Exception as exc:  # noqa: BLE001 - a fused dispatch fails together
+                if faults.is_sticky(exc):
+                    self._stop_on_sticky([(e, att) for _, _, att, e, _ in items], "dispatch")
+                fused_err = traceback.format_exc()
+            if fused_err is not None:
+                staged = None  # free the staged group before the re-runs
+                solo_fallback(items, "dispatch", fused_err)
+                return
+            inflight.push([(pos, idx, att, e) for pos, idx, att, e, _ in items],
+                          handle, True, payloads)
+            drain_to_capacity()
+
+        def dispatch_single(pos, idx, attempt, entry, payload) -> None:
+            if not split:
+                run_solo(pos, idx, attempt, entry, payload)
+                return
+            try:
+                try:
+                    faults.fire("dispatch")
+                    # telemetry: the "dispatch" span and the H2D count
+                    handle = self.dispatch_prepared(state, payload)
+                finally:
+                    self._drain_decode_warnings(entry)  # a streamed payload decodes here
+            except KeyboardInterrupt:
+                raise
+            except Exception:  # noqa: BLE001 - classify, maybe retry
+                self._on_failure(entry, "dispatch", attempt, requeue=requeue(pos, idx, attempt))
+            else:
+                inflight.push([(pos, idx, attempt, entry)], handle, False, None)
+            drain_to_capacity()
+
+        def consume_one() -> None:
+            pos, idx, attempt, fut = pending.popleft()
+            # telemetry: the queue-depth gauges (pending, inflight, prepared)
+            entry = self.path_list[idx]
+            try:
+                payload = fut.result()
+                key = self.agg_key(payload) if agg else None
+            except KeyboardInterrupt:
+                raise
+            except Exception:  # noqa: BLE001 - prepare or decode failed: classify
+                self._on_failure(entry, "prepare", attempt, requeue=requeue(pos, idx, attempt))
+                return
+            if key is not None:
+                buf = groups.setdefault(key, [])
+                buf.append((pos, idx, attempt, entry, payload))
+                if len(buf) >= group_size:
+                    del groups[key]
+                    dispatch_group_now(buf)
+                return
+            dispatch_single(pos, idx, attempt, entry, payload)
+
         with ThreadPoolExecutor(max_workers=workers, thread_name_prefix="decode") as pool:
-            for pos, idx in enumerate(indices):
-                entry = self.path_list[idx]
-                reason = self._resume_skip_reason(entry)
-                if reason is not None:
-                    self._skip(entry, reason)
-                    continue
-                pending.append((pos, idx, 1, pool.submit(prep, entry, 1)))
-                if len(pending) > depth:
-                    consume_one()
-            # a retry re-enters `pending` from any consume, possibly through
-            # a timer still armed: drain until neither is left
-            while pending or timers.pending():
-                while pending:
-                    consume_one()
-                if timers.pending():
-                    timers.wait_any(0.05)
+            try:
+                for pos, idx in enumerate(indices):
+                    entry = self.path_list[idx]
+                    reason = self._resume_skip_reason(entry)
+                    if reason is not None:
+                        self._skip(entry, reason)
+                        continue
+                    pending.append((pos, idx, 1, pool.submit(prep, entry, 1)))
+                    if len(pending) > depth:
+                        consume_one()
+                while pending or groups or inflight or timers.pending():
+                    while pending:
+                        consume_one()
+                    for key in list(groups):  # flush the partial groups
+                        buf = groups.pop(key)
+                        if buf:
+                            dispatch_group_now(buf)
+                    while inflight and not pending:
+                        drain_completed()
+                    if not (pending or groups or inflight):
+                        timers.wait_any(0.05)  # only armed backoff timers remain
+            except LoopStopped:
+                with stop_lock:
+                    stopped.append(True)
+                pool.shutdown(wait=True, cancel_futures=True)
 
     # --- outcomes -----------------------------------------------------------
     def _sink_or_collect(self, feats_dict, entry, results, order: int) -> None:
@@ -262,9 +555,12 @@ class BaseExtractor:
         (the live exception is read off ``sys.exc_info``): a transient or
         oom failure with attempts left is recorded as ``retry`` and handed
         to ``requeue(delay)``; any other is recorded as ``failed`` and
-        printed. An exception's own ``stage`` (decode errors, injected
-        faults) overrides the caller's coarser label."""
+        printed; a sticky device error stops the loop (``_stop_on_sticky``).
+        An exception's own ``stage`` (decode errors, injected faults)
+        overrides the caller's coarser label."""
         exc = sys.exc_info()[1]
+        if exc is not None and faults.is_sticky(exc):
+            self._stop_on_sticky([(entry, attempt)], stage)
         stage = getattr(exc, "stage", None) or stage
         error_class = faults.classify_error(exc) if exc is not None else "permanent"
         video = self._video_key(entry)
@@ -288,6 +584,40 @@ class BaseExtractor:
         print(f"An error occurred extracting {video_path_of(entry)}:")
         traceback.print_exc()
         print("Continuing...")
+
+    def _stop_on_sticky(self, members, stage: str) -> None:
+        """At a sticky device error, called from its ``except`` block:
+        record each of the failing dispatch's ``(entry, attempt)`` members
+        as failed and one ``worker_death`` event, then raise
+        ``LoopStopped``. Every later launch in this process would fail the
+        same way, so the videos not yet attempted are left without a
+        record, for ``--resume``."""
+        exc = sys.exc_info()[1]
+        stage = getattr(exc, "stage", None) or stage
+        for entry, attempt in members:
+            self.manifest.record(
+                self._video_key(entry), "failed", stage=stage,
+                error_class=faults.classify_error(exc), error_type=type(exc).__name__,
+                message=str(exc), attempts=attempt, wall_s=self._wall(entry),
+            )
+        self.manifest.event(
+            "worker_death", device=getattr(self, "_device_label", None), phase=stage,
+            error_type=type(exc).__name__, message=str(exc)[:300],
+        )
+        videos = ", ".join(str(video_path_of(e)) for e, _ in members)
+        print(f"A sticky device error occurred extracting {videos}:")
+        traceback.print_exc()
+        print("Stopping: every later launch in this process would fail the same way; "
+              "the videos not attempted yet are left for --resume.")
+        raise LoopStopped(str(exc)) from exc
+
+    def _drain_decode_warnings(self, entry) -> None:
+        """This thread's decode notes (``io/video.py``) into the manifest
+        as the video's warnings. Runs on the thread that decoded."""
+        for note in pop_decode_warnings():
+            extra = {k: v for k, v in note.items() if k not in ("kind", "message")}
+            self.manifest.record(self._video_key(entry), "warning", stage="decode",
+                                 kind=note.get("kind"), message=note.get("message"), **extra)
 
     def _resume_skip_reason(self, entry) -> Optional[str]:
         """Why ``--resume`` skips this video, or None to process it: its

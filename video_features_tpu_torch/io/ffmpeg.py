@@ -8,6 +8,7 @@ fails with a clear message instead of mid-pipeline.
 
 from __future__ import annotations
 
+import hashlib
 import os
 import pathlib
 import shutil
@@ -48,12 +49,19 @@ def _run(cmd, timeout_s: Optional[float] = None) -> None:
 
 def extract_wav_from_video(video_path: str, tmp_path: str) -> Tuple[str, str]:
     """Container -> .aac -> .wav, the reference's two-stage rip, into
-    ``tmp_path``. Returns (wav path, aac path)."""
+    ``tmp_path``. Returns (wav path, aac path).
+
+    The names carry a hash of the absolute source path, as the JAX
+    package's ``reencode_video_with_diff_fps`` names its output: the bare
+    ``<stem>.aac|.wav`` of the reference collides when two inputs share a
+    stem (``a/x.mp4`` and ``b/x.mp4``), and two decode workers would then
+    overwrite (``-y``) or delete each other's rip."""
     ffmpeg = require_ffmpeg()
     os.makedirs(tmp_path, exist_ok=True)
+    tag = hashlib.sha1(os.path.abspath(video_path).encode()).hexdigest()[:10]
     stem = pathlib.Path(video_path).stem
-    aac_path = os.path.join(tmp_path, f"{stem}.aac")
-    wav_path = os.path.join(tmp_path, f"{stem}.wav")
+    aac_path = os.path.join(tmp_path, f"{stem}_{tag}.aac")
+    wav_path = os.path.join(tmp_path, f"{stem}_{tag}.wav")
     _run([ffmpeg, "-hide_banner", "-loglevel", "error", "-y",
           "-i", video_path, "-acodec", "copy", aac_path])
     _run([ffmpeg, "-hide_banner", "-loglevel", "error", "-y",

@@ -5,11 +5,18 @@ Counterpart of ``video_features_tpu/io/video.py`` (``probe``,
 cv2 backend: the same frame-exact sequential decode, so both packages
 sample the same bytes from the same file. Each reader that opens is one
 call of the ``decode`` fault-injection stage, as in the JAX package.
+
+Decode notes: a source without a usable fps (timestamps then assume
+25.0, ``fps_defaulted``) and a stream that ends more than 5% short of its
+declared frame count (``partial_decode``) are noted on the decoding
+thread; ``extract/base.py`` drains them (``pop_decode_warnings``) into
+the run manifest as warnings, which ``--strict`` counts.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import cv2
@@ -22,23 +29,106 @@ from video_features_tpu_torch.runtime.faults import CorruptVideoError
 MIN_SANE_FPS = 1e-3
 DEFAULT_FPS = 25.0
 
+# decode notes accumulate per THREAD: readers open deep inside the
+# samplers with no manifest in reach, and prepare runs one video at a time
+# on each decode thread, so the thread maps a note to its video
+_NOTES = threading.local()
+
+
+def _note(kind: str, message: str, **fields: object) -> None:
+    items = getattr(_NOTES, "items", None)
+    if items is None:
+        items = _NOTES.items = []
+    note: Dict[str, object] = {"kind": kind, "message": message, **fields}
+    if note not in items:  # one fps note per video, not one per reader
+        items.append(note)
+
+
+def pop_decode_warnings() -> List[Dict[str, object]]:
+    """This thread's decode notes since the last call, each ``{'kind',
+    'message', ...}`` (``partial_decode`` notes also carry ``decoded`` and
+    ``declared``)."""
+    items = getattr(_NOTES, "items", None) or []
+    _NOTES.items = []
+    return items
+
+
+def fps_or_default(fps: float, path: str) -> float:
+    """``fps``, or the 25.0 fallback for an absent fps, noted so that it
+    reaches the manifest instead of becoming a silent default."""
+    if fps:
+        return fps
+    _note(
+        "fps_defaulted",
+        f"fps metadata absent or ~zero; timestamps assume 25.0 fps: {path}",
+    )
+    return DEFAULT_FPS
+
+
+class _Reader:
+    """``cv2.VideoCapture`` with the JAX reader's bookkeeping (``_Reader``
+    on its cv2 backend): sanitised fps and declared count, frames grabbed,
+    and whether the stream ended; ``close`` notes a ``partial_decode``
+    when the stream ended more than 5% (at least 2 frames) short of its
+    declared count. A sampler that stops early notes nothing."""
+
+    def __init__(self, path: str) -> None:
+        self._path = str(path)
+        self._cap = cv2.VideoCapture(self._path)
+        if not self._cap.isOpened():
+            self._cap.release()
+            raise CorruptVideoError(f"cannot open video: {path}")
+        try:
+            faults.fire("decode")
+        except BaseException:
+            self._cap.release()
+            raise
+        fps = self._cap.get(cv2.CAP_PROP_FPS) or 0.0
+        self.fps = float(fps) if math.isfinite(fps) and fps >= MIN_SANE_FPS else 0.0
+        count = int(self._cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        self.frame_count = count if 0 <= count <= 10 ** 9 else 0
+        self._grabs = 0
+        self._eof = False
+
+    def grab(self) -> bool:
+        ok = self._cap.grab()
+        if ok:
+            self._grabs += 1
+        else:
+            self._eof = True
+        return ok
+
+    def retrieve(self) -> Optional[np.ndarray]:
+        """The grabbed frame as RGB uint8 HWC, or None."""
+        ok, frame = self._cap.retrieve()
+        return cv2.cvtColor(frame, cv2.COLOR_BGR2RGB) if ok else None
+
+    def close(self) -> None:
+        self._cap.release()
+        declared = self.frame_count
+        if (self._eof and declared > 0 and self._grabs < declared
+                and declared - self._grabs > max(1, declared // 20)):
+            _note(
+                "partial_decode",
+                f"partial decode: {self._grabs} of {declared} "
+                f"declared frames decodable: {self._path}",
+                decoded=self._grabs,
+                declared=declared,
+            )
+
+    def __enter__(self) -> "_Reader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
 
 def probe(path: str) -> Tuple[float, int]:
     """(fps, frame_count) from the container's metadata; fps is 0.0 and
     the count 0 where they are absent or insane."""
-    cap = cv2.VideoCapture(str(path))
-    try:
-        if not cap.isOpened():
-            raise CorruptVideoError(f"cannot open video: {path}")
-        faults.fire("decode")
-        fps = cap.get(cv2.CAP_PROP_FPS) or 0.0
-        count = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
-    finally:
-        cap.release()
-    fps = float(fps) if math.isfinite(fps) and fps >= MIN_SANE_FPS else 0.0
-    if count < 0 or count > 10 ** 9:
-        count = 0
-    return fps, count
+    r = _Reader(path)
+    r._cap.release()  # metadata only: no stream read, nothing to note
+    return r.fps, r.frame_count
 
 
 def read_frames_at_indices(path: str, indices) -> Dict[int, np.ndarray]:
@@ -50,20 +140,14 @@ def read_frames_at_indices(path: str, indices) -> Dict[int, np.ndarray]:
     if not need:
         return got
     wanted = set(need)
-    cap = cv2.VideoCapture(str(path))
-    try:
-        if not cap.isOpened():
-            raise CorruptVideoError(f"cannot open video: {path}")
-        faults.fire("decode")
+    with _Reader(path) as r:
         for i in range(need[-1] + 1):
-            if not cap.grab():
+            if not r.grab():
                 break
             if i in wanted:
-                ok, frame = cap.retrieve()
-                if ok:
-                    got[i] = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
-    finally:
-        cap.release()
+                frame = r.retrieve()
+                if frame is not None:
+                    got[i] = frame
     return got
 
 
@@ -73,7 +157,7 @@ def extract_frames(path: str, method: str) -> Tuple[List[np.ndarray], float, Lis
     frames, source fps, timestamps_ms)."""
     ext, *params = method.split("_")
     fps, frame_cnt = probe(path)
-    fps = fps or DEFAULT_FPS
+    fps = fps_or_default(fps, path)
     if frame_cnt < 3:
         raise CorruptVideoError(
             f"video too short for sampling: {frame_cnt} of {frame_cnt} "
@@ -111,36 +195,29 @@ def stream_frames(
     With ``extraction_fps``, output frame k is source frame
     ``round(k * src_fps / extraction_fps)``: a source frame repeats when
     upsampling and is grabbed but never converted when skipped. The
-    source fps is the container's, or 25.0 where it is absent."""
-    cap = cv2.VideoCapture(str(path))
-    try:
-        if not cap.isOpened():
-            raise CorruptVideoError(f"cannot open video: {path}")
-        faults.fire("decode")
-        fps = cap.get(cv2.CAP_PROP_FPS) or 0.0
-        src_fps = float(fps) if math.isfinite(fps) and fps >= MIN_SANE_FPS else DEFAULT_FPS
+    source fps is the container's, or 25.0 (noted) where it is absent."""
+    with _Reader(path) as r:
+        src_fps = fps_or_default(r.fps, path)
         if extraction_fps is None:
             i = 0
-            while True:
-                ok, frame = cap.read()
-                if not ok:
+            while r.grab():
+                frame = r.retrieve()
+                if frame is None:
                     return
-                yield cv2.cvtColor(frame, cv2.COLOR_BGR2RGB), i * 1000.0 / src_fps
+                yield frame, i * 1000.0 / src_fps
                 i += 1
+            return
         out_k, src_i, frame = 0, -1, None
         while True:
             target = int(round(out_k * src_fps / extraction_fps))
             fresh = False
             while src_i < target:
-                if not cap.grab():
+                if not r.grab():
                     return
                 fresh, src_i = True, src_i + 1
             if fresh:
-                ok, bgr = cap.retrieve()
-                if not ok:
+                frame = r.retrieve()
+                if frame is None:
                     return
-                frame = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
             yield frame, out_k * 1000.0 / extraction_fps
             out_k += 1
-    finally:
-        cap.release()

@@ -7,6 +7,10 @@ package) -> zero-pad to the bucketed batch -> ``encode_image`` on the
 device under ``torch.inference_mode()`` -> the first T rows, with
 ``{feature_type, fps, timestamps_ms}``. ``--attn`` picks the attention
 core: fused matmuls, the CUDA flash kernel, or its blockwise version.
+With ``--video_batch N`` the batches of N videos of one bucket run as one
+forward. Not ported yet: the ``--preprocess device`` payloads of the JAX
+hooks and the ``--frame_delta_threshold`` kept rows (ROADMAP queue 1,
+item 7).
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ import torch
 from PIL import Image
 
 from video_features_tpu_torch.config import ExtractionConfig
-from video_features_tpu_torch.extract.base import BaseExtractor
+from video_features_tpu_torch.extract.base import BaseExtractor, device_of
+from video_features_tpu_torch.extract.ingest import HostCopy, StagedGroup, place_batch
 from video_features_tpu_torch.io.paths import video_path_of
 from video_features_tpu_torch.io.video import extract_frames
 from video_features_tpu_torch.models.clip.convert import convert_state_dict
@@ -79,13 +84,62 @@ class ExtractCLIP(BaseExtractor):
         padded = pad_batch(batch, bucket_size(T, buckets=self.config.shape_buckets))
         return padded, T, fps, timestamps_ms
 
-    def forward(self, model: VisionTransformer, payload) -> Dict[str, np.ndarray]:
+    # --- the device half, split (extract/base.py): H2D, forward and D2H
+    # enqueued at dispatch, waited for at fetch
+    def dispatch_prepared(self, model: VisionTransformer, payload):
         padded, T, fps, timestamps_ms = payload
-        device = next(model.parameters()).device
         with torch.inference_mode():
-            out = model(torch.from_numpy(padded).to(device))
+            out = model(place_batch(padded, device_of(model)))
+            return HostCopy(out[:T]), fps, timestamps_ms
+
+    def fetch_dispatched(self, handle) -> Dict[str, np.ndarray]:
+        out, fps, timestamps_ms = handle
         return {
-            self.feature_type: out[:T].cpu().numpy(),
+            self.feature_type: out.numpy(),
             "fps": np.array(fps),
             "timestamps_ms": np.array(timestamps_ms),
         }
+
+    # --- cross-video aggregation (--video_batch): N videos' bucketed
+    # batches concatenate into one (N * bucket)-image forward, and the
+    # features slice apart per video at fetch. A lone uni_12 batch is 16
+    # images; the fused batch is what fills the card. Above AGG_MAX_FRAMES
+    # sampled frames (fix_N over a long video) a video dispatches alone:
+    # N - 1 such payloads waiting on the host plus an N-fold transfer is
+    # the shape the cap exists to avoid.
+    AGG_MAX_FRAMES = 256
+
+    def agg_key(self, payload):
+        head = payload[0]
+        if head.shape[0] > self.AGG_MAX_FRAMES:
+            return None
+        return head.shape  # the bucketed (T_pad, 3, S, S)
+
+    def transfer_group(self, model: VisionTransformer, payloads):
+        """The group's H2D: the videos' batches concatenated and placed
+        now, so the next group's copy overlaps this group's forward. A
+        partial group is not padded to the full group's size: eager
+        PyTorch compiles no shape, and each video's rows are its own."""
+        bucket = payloads[0][0].shape[0]
+        x = np.concatenate([p[0] for p in payloads], axis=0)
+        metas = [(i * bucket, T, fps, ts) for i, (_, T, fps, ts) in enumerate(payloads)]
+        return StagedGroup((place_batch(x, device_of(model)),), metas)
+
+    def dispatch_group(self, model: VisionTransformer, payloads):
+        if not isinstance(payloads, StagedGroup):
+            payloads = self.transfer_group(model, payloads)
+        with torch.inference_mode():
+            out = model(payloads.arrays[0])
+            return HostCopy(out), payloads.metas
+
+    def fetch_group(self, handle):
+        out, metas = handle
+        arr = out.numpy()
+        return [
+            {
+                self.feature_type: arr[off : off + T],
+                "fps": np.array(fps),
+                "timestamps_ms": np.array(ts),
+            }
+            for off, T, fps, ts in metas
+        ]

@@ -26,8 +26,11 @@ Weights: ``--weights_path`` is a directory holding any of ``i3d_rgb.pt``,
 ``i3d_flow.pt``, ``raft-sintel.pth`` and ``pwc_net_sintel.pt``; a missing
 file is an error unless ``--allow_random_init``. Output: ``{rgb: (S,
 1024), flow: (S, 1024), fps, timestamps_ms}``, saved as
-``<stem>_rgb.npy`` and ``<stem>_flow.npy``. Flow read from disk and
-``--show_pred`` are not ported yet (``config.py`` refuses them).
+``<stem>_rgb.npy`` and ``<stem>_flow.npy``. With ``--video_batch N`` the
+stacks of N same-resolution clips fill the ``--batch_size`` stack groups.
+Flow read from disk and ``--show_pred`` are not ported yet (``config.py``
+refuses them), nor the ``--preprocess device`` payloads of the JAX
+package's hooks (ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -38,9 +41,15 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from video_features_tpu_torch.extract.base import BaseExtractor
+from video_features_tpu_torch.extract.base import BaseExtractor, device_of
+from video_features_tpu_torch.extract.ingest import HostCopy, place_batch, stack_group
 from video_features_tpu_torch.io.paths import form_slices, video_path_of
-from video_features_tpu_torch.io.video import DEFAULT_FPS, CorruptVideoError, probe, read_frames_at_indices
+from video_features_tpu_torch.io.video import (
+    CorruptVideoError,
+    fps_or_default,
+    probe,
+    read_frames_at_indices,
+)
 from video_features_tpu_torch.models.common.weights import (
     load_checked,
     load_state_dict,
@@ -57,7 +66,6 @@ from video_features_tpu_torch.models.raft.extract_raft import InputPadder
 from video_features_tpu_torch.models.raft.model import RAFT
 from video_features_tpu_torch.models.raft.model import init_weights as raft_init
 from video_features_tpu_torch.ops.preprocess import flow_to_uint8, pil_resize, scale_to_1_1
-from video_features_tpu_torch.ops.window import pad_batch
 
 MIN_SIDE_SIZE = 256
 CENTRAL_CROP_SIZE = 224
@@ -135,13 +143,21 @@ class ExtractI3D(BaseExtractor):
         return {kind: self._model(kind).to(device).eval() for kind in kinds}
 
     # --- host: decode and resize -------------------------------------------
-    def _sample_frames(self, path: str):
+    # A prepared video is T x 256 x W x 3 float32 and the pipeline keeps
+    # decode_workers + 2 of them, so a byte budget gives the per-video
+    # frame cap (``_prefetch_frame_cap``, in units of a min-side-256 4:3
+    # frame; floor one 65-frame stack). A video over it is handed over as
+    # ("deferred", entry) and decoded at dispatch, one resident at a time.
+    PIPELINE_MAX_BYTES = 4 << 30
+    _FRAME_BYTES = 256 * 342 * 3 * 4
+
+    def _sample_grid(self, path: str):
         """The reference's I3D sampling grid: the ``--extraction_fps``
         linspace, upsampling to 65 frames (against the default stack of
         64, whatever ``--stack_size`` is) for a shorter video, or all
-        frames. Returns (frames, fps, timestamps_ms)."""
+        frames. Returns (fps, sampled indices)."""
         fps, frame_cnt = probe(path)
-        fps = fps or DEFAULT_FPS
+        fps = fps_or_default(fps, path)
         if self.config.extraction_fps is not None:
             samples_num = max(int(frame_cnt / fps * self.config.extraction_fps), 1)
         elif frame_cnt < DEFAULT_STACK_SIZE + 1:
@@ -149,23 +165,36 @@ class ExtractI3D(BaseExtractor):
         else:
             samples_num = frame_cnt
         if self.config.extraction_fps is None and frame_cnt >= DEFAULT_STACK_SIZE + 1:
-            samples_ix = np.arange(frame_cnt)
-        else:
-            samples_ix = np.linspace(1, max(frame_cnt - 1, 1), samples_num).astype(int)
+            return fps, np.arange(frame_cnt)
+        return fps, np.linspace(1, max(frame_cnt - 1, 1), samples_num).astype(int)
+
+    def _sample_frames(self, path: str, grid=None):
+        """(RGB frames, fps, timestamps_ms) on the grid (``_sample_grid``'s,
+        or the one given); undecodable sampled indices are dropped, as the
+        reference does."""
+        fps, samples_ix = grid or self._sample_grid(path)
         got = read_frames_at_indices(path, samples_ix)
-        # undecodable sampled indices are dropped, as the reference does
         kept = [i for i in samples_ix if i in got]
         mspf = 1000.0 / fps
         return [got[i] for i in kept], fps, [i * mspf for i in kept]
 
-    def prepare(self, entry):
-        """Host half: (min-side-256 float32 frames, fps, timestamps_ms)."""
-        path = video_path_of(entry)
-        frames, fps, timestamps_ms = self._sample_frames(path)
+    def _decode(self, path: str, grid=None):
+        """(min-side-256 float32 frames, fps, timestamps_ms)."""
+        frames, fps, timestamps_ms = self._sample_frames(path, grid)
         if not frames:
             raise CorruptVideoError(f"no frames decoded from {path}")
-        frames = [pil_resize(f, MIN_SIDE_SIZE).astype(np.float32) for f in frames]
-        return frames, fps, timestamps_ms
+        return [pil_resize(f, MIN_SIDE_SIZE).astype(np.float32) for f in frames], fps, timestamps_ms
+
+    def prepare(self, entry):
+        """Host half: (min-side-256 float32 frames, fps, timestamps_ms), or
+        ("deferred", entry) over the prefetch cap."""
+        path = video_path_of(entry)
+        grid = self._sample_grid(path)
+        cap = self._prefetch_frame_cap(self.PIPELINE_MAX_BYTES, self._FRAME_BYTES,
+                                       floor=DEFAULT_STACK_SIZE + 1)
+        if len(grid[1]) > cap:
+            return ("deferred", entry)
+        return self._decode(path, grid)
 
     # --- device --------------------------------------------------------------
     def flow(self, models: Dict[str, torch.nn.Module], stacks: torch.Tensor) -> torch.Tensor:
@@ -175,28 +204,86 @@ class ExtractI3D(BaseExtractor):
             stacks = InputPadder(stacks.shape[-3:-1]).pad_tensor(stacks)
         return models[self.flow_type](stacks)
 
-    def forward(self, models: Dict[str, torch.nn.Module], payload) -> Dict[str, np.ndarray]:
-        frames, fps, timestamps_ms = payload
-        device = next(models[self.streams[0]].parameters()).device
-        slices = form_slices(len(frames), self.stack_size + 1, self.step_size)
-        feats: Dict[str, List[np.ndarray]] = {s: [] for s in self.streams}
-        for g0 in range(0, len(slices), self.stack_batch):
-            chunk = slices[g0 : g0 + self.stack_batch]
-            stacks = pad_batch(np.stack([np.stack(frames[s:e]) for s, e in chunk]),
-                               self.stack_batch)
-            x = torch.from_numpy(stacks).to(device)  # (B, S+1, H, W, 3)
-            with torch.inference_mode():
+    def _stacks(self, frames) -> List[tuple]:
+        """The video's ``stack_size + 1``-frame stacks, as (frames, start,
+        end), stacked only when their group is placed."""
+        return [(frames, s, e)
+                for s, e in form_slices(len(frames), self.stack_size + 1, self.step_size)]
+
+    def _dispatch_stacks(self, models: Dict[str, torch.nn.Module],
+                         stacks) -> List[Dict[str, HostCopy]]:
+        """Enqueue the stacks ``--batch_size`` at a time, the last group
+        zero-padded to that size (so a fused group runs at the solo path's
+        shapes), each stream's features on their way to the host."""
+        device = device_of(models)
+        outs = []
+        with torch.inference_mode():
+            for g0 in range(0, len(stacks), self.stack_batch):
+                chunk = stacks[g0 : g0 + self.stack_batch]
+                x = stack_group([np.stack(f[s:e]) for f, s, e in chunk], pad_to=self.stack_batch)
+                x = place_batch(x, device)  # (B, S+1, H, W, 3)
+                feats = {}
                 for stream in self.streams:
                     if stream == "rgb":
                         f, _ = models["rgb"](rgb_chain(x[:, :-1]))
                     else:
                         f, _ = models["flow"](flow_chain(self.flow(models, x)))
-                    feats[stream].append(f[: len(chunk)].cpu().numpy())
-        out: Dict[str, np.ndarray] = {
-            s: (np.concatenate(v).astype(np.float32) if v
+                    feats[stream] = HostCopy(f[: len(chunk)])
+                outs.append(feats)
+        return outs
+
+    def _fetch_stacks(self, outs) -> Dict[str, np.ndarray]:
+        return {
+            s: (np.concatenate([o[s].numpy() for o in outs]).astype(np.float32) if outs
                 else np.zeros((0, I3D_FEATURE_DIM), np.float32))
-            for s, v in feats.items()
+            for s in self.streams
         }
+
+    # the split of the device half (extract/base.py)
+    def dispatch_prepared(self, models: Dict[str, torch.nn.Module], payload):
+        if isinstance(payload[0], str):  # ("deferred", entry): decode now
+            payload = self._decode(video_path_of(payload[1]))
+        frames, fps, timestamps_ms = payload
+        return self._dispatch_stacks(models, self._stacks(frames)), fps, timestamps_ms
+
+    def fetch_dispatched(self, handle) -> Dict[str, np.ndarray]:
+        outs, fps, timestamps_ms = handle
+        out = self._fetch_stacks(outs)
         out["fps"] = np.array(fps)
         out["timestamps_ms"] = np.array(timestamps_ms)
         return out
+
+    # --- cross-video aggregation (--video_batch) ---------------------------
+    # A corpus of short clips (one 65-frame stack each) dispatches one stack
+    # per video through the deepest pipeline of the package: the flow net
+    # over 64 pairs and two I3D towers. Same-resolution stacks share one
+    # shape, so the stacks of several videos fill the --batch_size stack
+    # groups instead of zero padding. A video too short for one stack, over
+    # AGG_MAX_FRAMES sampled frames, or deferred takes the solo path.
+    AGG_MAX_FRAMES = 256
+
+    def agg_key(self, payload):
+        if isinstance(payload[0], str) or self.config.show_pred:
+            return None
+        frames = payload[0]
+        if len(frames) > self.AGG_MAX_FRAMES or len(frames) < self.stack_size + 1:
+            return None
+        return (frames[0].shape[:2], self.stack_size, self.step_size, tuple(self.streams),
+                self.flow_type)
+
+    def dispatch_group(self, models: Dict[str, torch.nn.Module], payloads):
+        stacks = [self._stacks(frames) for frames, _, _ in payloads]
+        outs = self._dispatch_stacks(models, [st for per_video in stacks for st in per_video])
+        return outs, [len(st) for st in stacks], [(fps, ts) for _, fps, ts in payloads]
+
+    def fetch_group(self, handle):
+        outs, counts, metas = handle
+        cat = self._fetch_stacks(outs)
+        dicts, off = [], 0
+        for count, (fps, timestamps_ms) in zip(counts, metas):
+            d: Dict[str, np.ndarray] = {s: cat[s][off : off + count] for s in self.streams}
+            d["fps"] = np.array(fps)
+            d["timestamps_ms"] = np.array(timestamps_ms)
+            dicts.append(d)
+            off += count
+        return dicts

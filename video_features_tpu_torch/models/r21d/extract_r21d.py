@@ -10,7 +10,9 @@ the last group zero-padded to that size and its surplus rows cut. The
 stacks cross to the device as uint8 and ``kinetics_preprocess`` runs
 there: /255, bilinear resize to 128x171 (``align_corners=False``, no
 antialias), Kinetics normalisation, center crop 112 at rounded offsets.
-``--show_pred`` prints each stack's top-5 Kinetics-400 classes.
+``--show_pred`` prints each stack's top-5 Kinetics-400 classes. With
+``--video_batch N`` the stacks of N same-resolution videos re-chunk into
+``N * batch_size``-stack forwards.
 
 Output: ``{r21d_rgb: (S, 512), fps, timestamps_ms}``, one timestamp per
 decoded frame.
@@ -23,9 +25,15 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from video_features_tpu_torch.extract.base import BaseExtractor
+from video_features_tpu_torch.extract.base import BaseExtractor, device_of
+from video_features_tpu_torch.extract.ingest import HostCopy, place_batch, stack_group
 from video_features_tpu_torch.io.paths import form_slices, video_path_of
-from video_features_tpu_torch.io.video import DEFAULT_FPS, CorruptVideoError, probe, stream_frames
+from video_features_tpu_torch.io.video import (
+    CorruptVideoError,
+    fps_or_default,
+    probe,
+    stream_frames,
+)
 from video_features_tpu_torch.models.common.weights import (
     load_checked,
     load_state_dict,
@@ -35,7 +43,6 @@ from video_features_tpu_torch.models.r21d.convert import convert_state_dict
 from video_features_tpu_torch.models.r21d.model import R21D_FEATURE_DIM, R2Plus1D, init_weights
 from video_features_tpu_torch.ops.preprocess import KINETICS_MEAN, KINETICS_STD
 from video_features_tpu_torch.ops.resize import resize_bilinear
-from video_features_tpu_torch.ops.window import pad_batch
 from video_features_tpu_torch.utils.labels import show_predictions_on_dataset
 
 PRE_CENTRAL_CROP_SIZE = (128, 171)
@@ -90,27 +97,74 @@ class ExtractR21D(BaseExtractor):
             raise CorruptVideoError(f"no frames decoded from {path}")
         clip = np.stack(frames)
         slices = form_slices(clip.shape[0], self.stack_size, self.step_size)
-        fps = self.config.extraction_fps or probe(path)[0] or DEFAULT_FPS
+        fps = self.config.extraction_fps or fps_or_default(probe(path)[0], path)
         return clip, slices, fps, timestamps_ms, path
 
-    def forward(self, model: R2Plus1D, payload) -> Dict[str, np.ndarray]:
+    @staticmethod
+    def _features(model: R2Plus1D, stacks: torch.Tensor):
+        """(B, T, H, W, 3) uint8 stacks on the device -> (features, logits)."""
+        return model(kinetics_preprocess(stacks).permute(0, 4, 1, 2, 3))
+
+    # --- the device half, split (extract/base.py): every stack group's
+    # H2D (uint8), preprocess, forward and D2H enqueued at dispatch
+    def dispatch_prepared(self, model: R2Plus1D, payload):
         clip, slices, fps, timestamps_ms, path = payload
-        device = next(model.parameters()).device
-        feats: List[np.ndarray] = []
+        device = device_of(model)
+        outs = []
         with torch.inference_mode():
             for g0 in range(0, len(slices), self.batch_size):
                 chunk = slices[g0 : g0 + self.batch_size]
-                stacks = pad_batch(np.stack([clip[s:e] for s, e in chunk]), self.batch_size)
-                x = kinetics_preprocess(torch.from_numpy(stacks).to(device))  # (B, T, h, w, 3)
-                f, logits = model(x.permute(0, 4, 1, 2, 3))
-                feats.append(f[: len(chunk)].cpu().numpy())
-                if self.config.show_pred:
-                    for (start, end), row in zip(chunk, logits[: len(chunk)].cpu().numpy()):
-                        print(f"{path} @ frames ({start}, {end})")
-                        show_predictions_on_dataset(row, "kinetics")
+                stacks = stack_group([clip[s:e] for s, e in chunk], pad_to=self.batch_size)
+                f, logits = self._features(model, place_batch(stacks, device))
+                # the 400-class logits cross only for --show_pred
+                outs.append((chunk, HostCopy(f[: len(chunk)]),
+                             HostCopy(logits[: len(chunk)]) if self.config.show_pred else None))
+        return outs, fps, timestamps_ms, path
+
+    def fetch_dispatched(self, handle) -> Dict[str, np.ndarray]:
+        outs, fps, timestamps_ms, path = handle
+        feats: List[np.ndarray] = []
+        for chunk, f, logits in outs:
+            feats.append(f.numpy())
+            if logits is not None:
+                for (start, end), row in zip(chunk, logits.numpy()):
+                    print(f"{path} @ frames ({start}, {end})")
+                    show_predictions_on_dataset(row, "kinetics")
         return {
             self.feature_type: (np.concatenate(feats) if feats
                                 else np.zeros((0, R21D_FEATURE_DIM), np.float32)),
             "fps": np.array(fps),
             "timestamps_ms": np.array(timestamps_ms),
         }
+
+    # --- cross-video aggregation (--video_batch): the uint8 stacks of N
+    # same-resolution videos re-chunk into (N * batch_size)-stack forwards.
+    # A short video gives 1-4 16-frame stacks, too few to fill the card
+    # alone. The key carries (H, W), so only same-resolution videos fuse.
+    # The cap is in transfer BYTES (uint8 stacks at the source resolution,
+    # before the device resize): a stack count that is harmless at 240p is
+    # gigabytes at 1080p, and N - 1 payloads wait on the host while a
+    # group fills. Over-cap videos and --show_pred take the solo path.
+    AGG_MAX_BYTES = 256 << 20
+
+    def agg_key(self, payload):
+        clip, slices = payload[0], payload[1]
+        if self.config.show_pred or not slices:
+            return None
+        if len(slices) * self.stack_size * int(np.prod(clip.shape[1:])) > self.AGG_MAX_BYTES:
+            return None
+        return (self.stack_size,) + clip.shape[1:]  # (stack, H, W, 3)
+
+    def dispatch_group(self, model: R2Plus1D, payloads):
+        group = max(int(self.config.video_batch or 1), 1)
+        rows = [np.stack([clip[s:e] for s, e in slices]) for clip, slices, *_ in payloads]
+        outs = self._dispatch_rows_grouped(rows, self.batch_size * group, device_of(model),
+                                           lambda x: self._features(model, x)[0])
+        return outs, [len(p[1]) for p in payloads], [(p[2], p[3]) for p in payloads]
+
+    def fetch_group(self, handle):
+        outs, totals, metas = handle
+        return [
+            {self.feature_type: feats, "fps": np.array(fps), "timestamps_ms": np.array(ts)}
+            for feats, (fps, ts) in zip(self._split_grouped_rows(outs, totals), metas)
+        ]

@@ -8,7 +8,8 @@ on the device under ``torch.inference_mode()`` and the first n rows come
 back. Output: ``{feature_type: (n, 128) float32}``, n = duration / 0.96 s,
 with no fps or timestamp keys; a clip shorter than 0.96 s gives (0, 128).
 The raw embeddings, as both reference extractors emit them: the PCA
-postprocess (``model.postprocess``) is for library users.
+postprocess (``model.postprocess``) is for library users. With
+``--video_batch N`` the example batches of N clips run as one forward.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from video_features_tpu_torch.extract.base import BaseExtractor
+from video_features_tpu_torch.extract.base import BaseExtractor, device_of
+from video_features_tpu_torch.extract.ingest import HostCopy, place_batch
 from video_features_tpu_torch.io.audio import load_audio_for_model
 from video_features_tpu_torch.io.paths import video_path_of
 from video_features_tpu_torch.models.common.weights import (
@@ -55,11 +57,45 @@ class ExtractVGGish(BaseExtractor):
             return None, 0
         return pad_batch(examples[:, None], bucket_size(n, buckets=self.config.shape_buckets)), n
 
-    def forward(self, model: VGGish, payload) -> Dict[str, np.ndarray]:
+    # --- the device half, split (extract/base.py): H2D, forward and D2H
+    # enqueued at dispatch, waited for at fetch
+    def dispatch_prepared(self, model: VGGish, payload):
         x, n = payload
         if n == 0:
-            return {self.feature_type: np.zeros((0, VGGISH_EMBEDDING_DIM), np.float32)}
-        device = next(model.parameters()).device
+            return None, 0
         with torch.inference_mode():
-            out = model(torch.from_numpy(x).to(device))
-        return {self.feature_type: out[:n].cpu().numpy()}
+            return HostCopy(model(place_batch(x, device_of(model)))[:n]), n
+
+    def fetch_dispatched(self, handle) -> Dict[str, np.ndarray]:
+        out, n = handle
+        if n == 0:
+            return {self.feature_type: np.zeros((0, VGGISH_EMBEDDING_DIM), np.float32)}
+        return {self.feature_type: out.numpy()}
+
+    # --- cross-video aggregation (--video_batch): N clips' bucketed
+    # example batches concatenate into one VGG forward, sliced apart at
+    # fetch. A short clip gives 1-5 (96, 64) examples. Over
+    # AGG_MAX_EXAMPLES (~25 MB of fp32 per payload; an hour of audio) a
+    # clip dispatches alone rather than parking N - 1 such buffers on the
+    # host; a clip under 0.96 s has nothing to fuse.
+    AGG_MAX_EXAMPLES = 1024
+
+    def agg_key(self, payload):
+        x, n = payload
+        if n == 0 or x.shape[0] > self.AGG_MAX_EXAMPLES:
+            return None
+        return x.shape  # the bucketed (B, 1, 96, 64)
+
+    def dispatch_group(self, model: VGGish, payloads):
+        """One forward over the group's batches, unpadded when the group
+        is partial (eager PyTorch compiles no shape)."""
+        bucket = payloads[0][0].shape[0]
+        x = np.concatenate([p[0] for p in payloads], axis=0)
+        with torch.inference_mode():
+            out = HostCopy(model(place_batch(x, device_of(model))))
+        return out, [(i * bucket, n) for i, (_, n) in enumerate(payloads)]
+
+    def fetch_group(self, handle):
+        out, metas = handle
+        arr = out.numpy()
+        return [{self.feature_type: arr[off : off + n]} for off, n in metas]

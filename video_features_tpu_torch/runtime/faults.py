@@ -161,6 +161,17 @@ def classify_error(exc: BaseException) -> str:
     return "permanent"
 
 
+def is_sticky(exc: BaseException) -> bool:
+    """Whether ``exc`` poisons the process for every later launch (a CUDA
+    error other than an allocation failure, or a kernel that does not
+    build or load): the loop then stops instead of failing each later
+    video the same way. ``classify_error`` calls these ``permanent``."""
+    if classify_error(exc) != "permanent":
+        return False
+    msg = str(exc)
+    return any(m in msg for m in _STICKY_MARKERS)
+
+
 def is_retryable(error_class: str) -> bool:
     """Whether re-entering the work queue can help."""
     return error_class in RETRYABLE_CLASSES
