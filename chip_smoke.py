@@ -11,7 +11,11 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
    PyTorch library call computing the same function (a yardstick only,
    never called by the port) and the least time the card could take,
    with that bound's share of the kernel's time (K1 also at L=65, one
-   row past a KV tile, and at d=128);
+   row past a KV tile, and at d=128); then K1 and K2 at the fused shapes
+   of phase 13 (K1 at N=64, K2 at N=16 and N=128), each with a profiler
+   window of its own while the profiler still keeps every launch, and the
+   banded resample of ``--preprocess device`` (plain torch ops) at the
+   main paths' shapes: its time, device time, launches and bytes bound;
 4. the CLIP path through the port's CLI: CLIP-ViT-B/32 at full width
    (768 wide, 12 layers, 12 heads, 224 px, patch 32, 512-d), ``uni_12``,
    ``--attn flash``, seeded random weights, on 4 synthetic clips; checks
@@ -68,22 +72,33 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     over two passes, the pinning time of a fused group and the idle share
     of a fused forward, and ``--fault_inject dispatch:error:2`` at
     ``--video_batch 4`` recovered to 8/8 done through a ``group_fallback``;
-    K1 held to its plain version at the fused N=64; ResNet-50, R(2+1)D-18
-    and VGGish at ``--video_batch 4`` on 4 short inputs against
-    ``--video_batch 1`` with warm videos/s; ``pwc --batch_size 8
-    --video_batch 2`` on two 30-frame clips and I3D + PWC ``--batch_size 2
-    --video_batch 2`` on two 65-frame clips against their solo runs, with
-    K2 launches = 5 x fused forwards and K2 held to its plain version at
-    the fused N=16 and N=128;
-14. a ``kernels`` JSON line (each kernel's launches on its main path and
-    in the fused runs, and its records at the fused shapes), then the
-    ``ok`` JSON line last.
+    ResNet-50, R(2+1)D-18 and VGGish at ``--video_batch 4`` on 4 short
+    inputs against ``--video_batch 1`` with warm videos/s; ``pwc
+    --batch_size 8 --video_batch 2`` on two 30-frame clips and I3D + PWC
+    ``--batch_size 2 --video_batch 2`` on two 65-frame clips against their
+    solo runs, with K2 launches = 5 x fused forwards;
+14. device preprocess: ``--preprocess device`` against ``host`` through
+    the CLI on CLIP (phase 12's 8 clips, ``--attn flash``; features within
+    5e-3), ResNet-50 (``--batch_size 16``, 60 frames; relative L2 within
+    5e-3), RAFT and PWC (``--batch_size 8``, no ``--side_size``: the model
+    input equal bit for bit, the flows within 1e-4 of the largest beside a
+    second host run's spread) and I3D + PWC (64/64 stacks, phase 5's clips; relative L2
+    within 5e-3), K1 and K2 launching as often as on the host path; CLIP's
+    ``--video_batch 4`` device groups against its device solo run (1e-4);
+    each family's warm serial videos/s in both modes with the host ms
+    split into decode and preprocess; CLIP's warm pipelined videos/s in
+    both modes; the bytes and pinning time of a ``--video_batch 4`` group
+    and a fused forward's idle share in both modes;
+15. a ``kernels`` JSON line (each kernel's launches on its main path, in
+    the fused runs and in the device preprocess runs, and its records at
+    the fused shapes), then the ``ok`` JSON line last.
 
-Every CLI run of phases 4-13 passes ``--strict``, so a video that fails
+Every CLI run of phases 4-14 passes ``--strict``, so a video that fails
 in isolation fails its phase. Phases 7-11 launch no hand-written kernel:
 RAFT, ResNet, R(2+1)D and VGGish reach no ``pallas_call`` in the JAX
-package. Every launch count is read from a run that starts with all
-counts at 0, and each of phases 4-13 prints its wall time.
+package, nor does the device preprocess's resample (the JAX package
+leaves it to XLA). Every launch count is read from a run that starts with
+all counts at 0, and each of phases 4-14 prints its wall time.
 """
 
 from __future__ import annotations
@@ -179,6 +194,28 @@ INGEST_ATOL = 1e-4
 FUSED_ATTENTION_SHAPE = (4 * 16, 12, 50, 64)
 INGEST_PWC_FRAMES = 30
 INGEST_WAV_SECONDS = 10.0  # 10 examples, bucketed to 16
+# the device preprocess phase: --preprocess device against host, each
+# family on its earlier phase's clips. The device resize is PIL's in fp32
+# taps, PIL's own in 8-bit fixed point: about one uint8 level in a few
+# pixels, so the JAX package's drift budget (absolute for CLIP's
+# unit-scale features; relative L2 for the CNNs', the flows' and I3D's);
+# with no resize (RAFT, PWC) the model's input is the host's, bit for bit
+DEVICE_DRIFT = 5e-3
+DEVICE_VIDEO_BATCH = 4
+# the resample's shapes on the main paths: (label, leading axes, source
+# (h, w), taps, per-video taps of a group, normalize), with taps ('fused',
+# resize_to, crop, method) or ('contract', side, grid (h, w), (top, left))
+RESAMPLE_CASES = [
+    ("CLIP uni_12 video", (16,), (240, 320), ("fused", 224, 224, "bicubic"), False, True),
+    ("CLIP --video_batch 4 group", (4, 16), (240, 320), ("fused", 224, 224, "bicubic"), True,
+     True),
+    ("ResNet-50 batch", (16,), (240, 320), ("fused", 256, 224, "bilinear"), False, True),
+    ("RAFT window (identity onto 256x336)", (9,), (250, 330),
+     ("contract", 0, (256, 336), (3, 3)), False, False),
+    ("I3D rgb stack", (1, 64), (240, 320), ("fused", 256, 224, "bilinear"), False, False),
+    ("I3D + PWC flow stack", (1, 65), (240, 320), ("contract", 256, (256, 341), (0, 0)), False,
+     False),
+]
 # ResNet-50 and R(2+1)D-18 features card vs CPU, relative L2 of fp32 sums
 # in other orders through ~50 and ~37 convolutions
 CNN_FEATURE_RTOL = 1e-3
@@ -1276,8 +1313,8 @@ def run_ingest_cnns(root: str, device):
 def run_ingest_flow(root: str, device):
     """PWC (--batch_size 8 --video_batch 2, two 30-frame clips) and I3D +
     PWC (--batch_size 2 --video_batch 2, two 65-frame clips) against their
-    solo runs, and K2 held to its plain version at the two fused shapes.
-    Returns (K2's launches in the fused runs, K2's records)."""
+    solo runs (K2 is held to its plain version at these two fused shapes
+    in phase 3). Returns K2's launches in the fused runs."""
     from video_features_tpu_torch.config import ExtractionConfig
     from video_features_tpu_torch.extract.registry import build_extractor
     from video_features_tpu_torch.utils.synth import synth_video
@@ -1300,8 +1337,6 @@ def run_ingest_flow(root: str, device):
     if k2 != len(CORR_LEVELS) * dispatches or not err <= tol:
         raise AssertionError(f"PWC --video_batch 2: K2 launches {k2}, flow error {err}")
     launches = k2
-    records = {"pwc": hold_correlation_levels(device, 2 * PWC_BATCH, pwc_levels(256, 320),
-                                              "a fused PWC forward", seed=300)}
 
     i3d_clips = [synth_video(os.path.join(root, f"ingest_i3d{i}.mp4"), n_frames=STACK + 1,
                              seed=50 + i) for i in range(2)]
@@ -1333,22 +1368,273 @@ def run_ingest_flow(root: str, device):
             raise AssertionError(f"I3D --video_batch 2: {name} {fused[name].shape}, {err}")
     if sorted(fused) != sorted(solo) or len(fused) != 4 or k2 != len(CORR_LEVELS):
         raise AssertionError(f"I3D --video_batch 2: files {sorted(fused)}, K2 launches {k2}")
-    records["i3d"] = hold_correlation_levels(device, 2 * STACK, CORR_LEVELS,
-                                             "a fused I3D stack group", seed=400)
-    return launches + k2, records
+    return launches + k2
 
 
 def run_ingest_path(root: str, device):
     """Phase 13, async ingest. Returns each kernel's launches in its CLI
-    runs and its records at the fused shapes."""
+    runs."""
     k1 = run_ingest_clip(root, device)
+    run_ingest_cnns(root, device)
+    return {"flash_attention": k1, "local_correlation": run_ingest_flow(root, device)}
+
+
+def decode_s(ex, clip) -> float:
+    """Seconds to decode ``clip`` as ``ex.prepare`` does, without its
+    preprocessing: the host ms of a video split into decode and the rest."""
+    from video_features_tpu_torch.io.video import extract_frames, stream_frames
+
+    t0 = time.perf_counter()
+    if hasattr(ex, "_sample_frames"):  # I3D's sampling grid
+        ex._sample_frames(clip)
+    elif ex.config.extract_method:  # CLIP's uni_N / fix_N
+        extract_frames(clip, ex.config.extract_method)
+    else:
+        for _ in stream_frames(clip, ex.config.extraction_fps):
+            pass
+    return time.perf_counter() - t0
+
+
+def device_family(root: str, device, label: str, feature_args, clips, check, k1_want=None,
+                  k2_want=None):
+    """One family at --preprocess host and device through the CLI (counts
+    at 0 before each run), the outputs held by ``check``, the kernels'
+    launches equal in both runs; then both modes' warm serial split (host
+    decode and preprocess, forward) and videos/s. ``check`` is 'abs' or
+    'rel' (within DEVICE_DRIFT), or 'identity' for RAFT and PWC without a
+    resize: the first window's model input on the card equal bit for bit
+    on both paths, and the flows within FLOW_RTOL of the largest, beside
+    a second host run's own spread. Returns (the device run's K1 and K2
+    launches, its features, the extractors by mode)."""
+    from video_features_tpu_torch.config import parse_args
+    from video_features_tpu_torch.extract.ingest import place_taps
+    from video_features_tpu_torch.extract.registry import build_extractor
+    from video_features_tpu_torch.ops.preprocess import device_resize_frames
+
+    slug = label.replace(" ", "_").replace("+", "").lower()
+    modes = ("host", "device", "host again") if check == "identity" else ("host", "device")
+    runs = {mode: ingest_cli(root, f"devpre_{slug}_{mode.replace(' ', '_')}", feature_args,
+                             clips, "--preprocess", mode.split()[0]) for mode in modes}
+    (h_wall, h_k1, h_k2, host), (d_wall, d_k1, d_k2, dev) = runs["host"], runs["device"]
+    if sorted(dev) != sorted(host) or not host:
+        raise AssertionError(f"{label}: files {sorted(dev)} vs {sorted(host)}")
+    for name in sorted(host):
+        if dev[name].shape != host[name].shape or not np.isfinite(dev[name]).all():
+            raise AssertionError(f"{label} {name}: {dev[name].shape} vs {host[name].shape}, "
+                                 f"finite {np.isfinite(dev[name]).all()}")
+    exs = {mode: build_extractor(parse_args([*feature_args, "--allow_random_init",
+                                             "--preprocess", mode, "--video_paths", *clips]),
+                                 external_call=True) for mode in ("host", "device")}
+    if check == "rel":
+        err, tol = max(rel_l2(dev[k], host[k]) for k in host), DEVICE_DRIFT
+        what = f"rel_l2 {err:.3e} (tol {tol:g})"
+    else:
+        err = max_abs_diff(dev, host)
+        tol = DEVICE_DRIFT
+        what = f"max_abs_err {err:.3e} (tol {tol:g})"
+    if check == "identity":
+        host_in = torch.from_numpy(exs["host"].prepare(clips[0])[0][0]).to(device)
+        windows, _, _, taps = exs["device"].prepare(clips[0])[:4]
+        dev_in = device_resize_frames(torch.from_numpy(windows[0]).to(device),
+                                      *place_taps(taps, device))
+        same_input = dev_in.shape == host_in.shape and torch.equal(dev_in, host_in)
+        tol = FLOW_RTOL * max(max(float(np.abs(f).max()) for f in host.values()), 1.0)
+        what = (f"first window's model input equal {same_input}; flow max_abs_err {err:.3e} "
+                f"(tol {tol:.3e}; a second host run against the first "
+                f"{max_abs_diff(runs['host again'][3], host):.3e})")
+        if not same_input:
+            raise AssertionError(f"{label}: the device input differs from the host's")
+    print(f"device preprocess, {label}: {len(host)} files {[dev[k].shape for k in sorted(dev)]}"
+          f"; device vs host {what}; cold CLI runs host {h_wall:.3f} s, device {d_wall:.3f} s; "
+          f"launches host K1 {h_k1} K2 {h_k2}, device K1 {d_k1} K2 {d_k2}")
+    if not err <= tol:
+        raise AssertionError(f"{label}: device and host outputs disagree: {err}")
+    if (d_k1, d_k2) != (h_k1, h_k2) or (k1_want is not None and d_k1 != k1_want) or (
+            k2_want is not None and d_k2 != k2_want):
+        raise AssertionError(f"{label}: launches host {(h_k1, h_k2)}, device {(d_k1, d_k2)}, "
+                             f"expected {(k1_want, k2_want)}")
+
+    line = []
+    for mode, ex in exs.items():
+        prep, fwd = warm_split(ex, clips, device)
+        dec = sum(decode_s(ex, c) for c in clips)
+        n = len(clips)
+        line.append(f"{mode} {n / (prep + fwd):.3f} videos/s = decode {dec / n * 1e3:.2f} ms + "
+                    f"preprocess {(prep - dec) / n * 1e3:.2f} ms + forward (H2D, "
+                    f"{'resample, ' if mode == 'device' else ''}model, D2H) "
+                    f"{fwd / n * 1e3:.2f} ms a video")
+    print(f"device preprocess, {label}, warm serial: " + "; ".join(line))
+    return d_k1, d_k2, dev, exs
+
+
+def run_device_path(root: str, device):
+    """Phase 14, --preprocess device (uint8 ingest, the PIL-semantics
+    banded resize on the card) against --preprocess host for CLIP (phase
+    12's clips, --attn flash), ResNet-50, RAFT, PWC and I3D + PWC on their
+    earlier phases' clips; CLIP's --video_batch 4 device groups against
+    solo, the warm pipelined videos/s of both modes, the pinned bytes and
+    time of a group, and a fused device forward's idle share. Returns each
+    kernel's launches in the device runs."""
+    from video_features_tpu_torch.extract import ingest
+    from video_features_tpu_torch.utils.synth import synth_video
+
+    contract = [synth_video(os.path.join(root, f"contract{i}.mp4"), seed=20 + i)
+                for i in range(CONTRACT_VIDEOS)]
+    clip_args = ["--feature_type", "CLIP-ViT-B/32", "--extract_method", f"uni_{FRAMES}",
+                 "--attn", "flash"]
+    k1, _, clip_dev, clip_exs = device_family(root, device, "CLIP", clip_args, contract, "abs",
+                                              k1_want=CONTRACT_VIDEOS * LAYERS, k2_want=0)
+    groups = -(-CONTRACT_VIDEOS // DEVICE_VIDEO_BATCH)
+    wall, k1_fused, k2_fused, fused = ingest_cli(
+        root, "devpre_clip_fused", clip_args, contract, "--preprocess", "device",
+        "--video_batch", str(DEVICE_VIDEO_BATCH))
+    err = max_abs_diff(fused, clip_dev)
+    print(f"device preprocess, CLIP --video_batch {DEVICE_VIDEO_BATCH}: {groups} fused "
+          f"dispatches in {wall:.3f} s (cold CLI run), flash_attention launches {k1_fused}; "
+          f"features vs the device solo run max_abs_err {err:.3e} (tol {INGEST_ATOL:g})")
+    if not err <= INGEST_ATOL or (k1_fused, k2_fused) != (LAYERS * groups, 0):
+        raise AssertionError(f"CLIP device groups: err {err}, launches {k1_fused}, {k2_fused}")
+    k1 += k1_fused
+
+    vps = {"host": [], "device": []}
+    exs = {mode: clip_exs[mode] for mode in vps}
+    for mode in ("host", "device", "device", "host"):
+        t0 = time.perf_counter()
+        exs[mode](device=device)  # the pipelined loop, --decode_workers 2
+        vps[mode].append(CONTRACT_VIDEOS / (time.perf_counter() - t0))
+    print(f"device preprocess, CLIP warm pipelined (--decode_workers 2, {CONTRACT_VIDEOS} "
+          f"videos, turns host, device, device, host): host {vps['host'][0]:.3f} and "
+          f"{vps['host'][1]:.3f} videos/s, device {vps['device'][0]:.3f} and "
+          f"{vps['device'][1]:.3f} videos/s")
+
+    from video_features_tpu_torch.config import parse_args
+    from video_features_tpu_torch.extract.registry import build_extractor
+
+    for mode in ("host", "device"):
+        ex = build_extractor(parse_args([*clip_args, "--allow_random_init", "--preprocess", mode,
+                                         "--video_batch", str(DEVICE_VIDEO_BATCH),
+                                         "--video_paths", *contract]), external_call=True)
+        model = ex.warmup(device)
+        group = [ex.prepare(c) for c in contract[:DEVICE_VIDEO_BATCH]]
+        x = (np.concatenate([p[0] for p in group]) if mode == "host"
+             else np.stack([p[0][0] for p in group]))
+        pins = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ingest.pinned_copy(x)
+            pins.append((time.perf_counter() - t0) * 1e3)
+        print(f"device preprocess, pinning one CLIP --video_batch {DEVICE_VIDEO_BATCH} group at "
+              f"--preprocess {mode}: {x.dtype} {x.shape}, {x.nbytes / 2 ** 20:.1f} MiB in "
+              f"{', '.join(f'{ms:.3f}' for ms in pins)} ms")
+        ex.fetch_group(ex.dispatch_group(model, group))
+        t0 = time.perf_counter()
+        ex.fetch_group(ex.dispatch_group(model, group))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        print_top_kernels(device_kernels(lambda: ex.fetch_group(ex.dispatch_group(model, group))),
+                          wall_ms, f"device preprocess, one fused CLIP forward of "
+                          f"{DEVICE_VIDEO_BATCH} videos at --preprocess {mode} (H2D, "
+                          f"{'resample, ' if mode == 'device' else ''}model, D2H)",
+                          mark="flash_attention", expect=LAYERS)
+
+    resnet = synth_video(os.path.join(root, "devpre_resnet.mp4"), n_frames=RESNET_CLIP_FRAMES,
+                         seed=7)
+    device_family(root, device, "ResNet-50", ["--feature_type", "resnet50", "--batch_size",
+                                              str(RESNET_BATCH)], [resnet], "rel",
+                  k1_want=0, k2_want=0)
+    frames, width, height = RAFT_CLIP
+    raft = synth_video(os.path.join(root, "devpre_raft.mp4"), n_frames=frames, width=width,
+                       height=height, seed=6)
+    device_family(root, device, "RAFT", ["--feature_type", "raft", "--batch_size",
+                                         str(RAFT_BATCH)], [raft], "identity", k1_want=0, k2_want=0)
+    pwc = synth_video(os.path.join(root, "devpre_pwc.mp4"), n_frames=PWC_CLIP_FRAMES, seed=5)
+    windows = -(-(PWC_CLIP_FRAMES - 1) // PWC_BATCH)
+    _, k2, _, _ = device_family(root, device, "PWC", ["--feature_type", "pwc", "--batch_size",
+                                                      str(PWC_BATCH)], [pwc], "identity",
+                                k1_want=0, k2_want=windows * len(CORR_LEVELS))
+    i3d = [synth_video(os.path.join(root, f"devpre_i3d{i}.mp4"), n_frames=I3D_CLIP_FRAMES,
+                       seed=i) for i in range(I3D_VIDEOS)]
+    _, k2_i3d, _, _ = device_family(
+        root, device, "I3D + PWC", ["--feature_type", "i3d", "--flow_type", "pwc"], i3d, "rel",
+        k1_want=0, k2_want=I3D_VIDEOS * I3D_STACKS * len(CORR_LEVELS))
+    return {"flash_attention": k1, "local_correlation": k2 + k2_i3d}
+
+
+def hold_fused_shapes(device):
+    """Phase 3, the fused shapes of phase 13: K1 at N=64 and K2 at N=16 and
+    N=128 against their plain versions, each with a profiler window of its
+    own early in the process (late in a long run the profiler loses
+    launches). Returns each kernel's records by shape."""
     attention = hold_flash_attention(device, FUSED_ATTENTION_SHAPE, torch.float32, None,
                                      seed=200)
-    run_ingest_cnns(root, device)
-    k2, correlation = run_ingest_flow(root, device)
-    return {"flash_attention": (k1, {"N=64 (--video_batch 4)": attention}),
-            "local_correlation": (k2, {"N=16 (pwc --video_batch 2)": correlation["pwc"],
-                                       "N=128 (i3d --video_batch 2)": correlation["i3d"]})}
+    pwc = hold_correlation_levels(device, 2 * PWC_BATCH, pwc_levels(256, 320),
+                                  "a fused PWC forward", seed=300)
+    i3d = hold_correlation_levels(device, 2 * STACK, CORR_LEVELS, "a fused I3D stack group",
+                                  seed=400)
+    return {"flash_attention": {"N=64 (--video_batch 4)": attention},
+            "local_correlation": {"N=16 (pwc --video_batch 2)": pwc,
+                                  "N=128 (i3d --video_batch 2)": i3d}}
+
+
+def resample_taps(src, taps, device):
+    """The placed taps of one ``RESAMPLE_CASES`` entry, and the bucket."""
+    from video_features_tpu_torch.extract.ingest import place_taps
+    from video_features_tpu_torch.ops.resize import (
+        fused_resize_crop_banded,
+        shape_contract_banded,
+    )
+    from video_features_tpu_torch.ops.window import spatial_bucket
+
+    h, w = src
+    bh, bw = spatial_bucket(h, w)
+    if taps[0] == "fused":
+        _, resize_to, crop, method = taps
+        wt_y, idx_y, wt_x, idx_x = fused_resize_crop_banded(h, w, resize_to, crop, method,
+                                                           bh, bw)
+    else:
+        _, side, (out_h, out_w), (top, left) = taps
+        wt_y, idx_y, wt_x, idx_x = shape_contract_banded(h, w, side, out_h, out_w, top, left,
+                                                         "bilinear", bh, bw, "edge")
+    return place_taps(((wt_y, idx_y), (wt_x, idx_x)), device), (bh, bw)
+
+
+def measure_resample(device):
+    """Phase 3, the device preprocess's banded resample (plain torch ops,
+    as the JAX package leaves it to XLA) at the main paths' shapes: its
+    time by CUDA events and, from a profiler window of its own, its device
+    time and launches; the bytes it must move (uint8 frames in, fp32 out)
+    over the card's rate give its bound. Returns the records by label."""
+    from video_features_tpu_torch.ops.preprocess import (
+        CLIP_MEAN,
+        CLIP_STD,
+        device_preprocess_frames,
+        device_resize_frames,
+    )
+    from video_features_tpu_torch.extract.ingest import stack_taps
+
+    records = {}
+    rng = np.random.default_rng(500)
+    for label, lead, src, taps, per_video, normalize in RESAMPLE_CASES:
+        placed, bucket = resample_taps(src, taps, device)
+        if per_video:
+            placed = stack_taps([placed] * lead[0])
+        x = torch.from_numpy(rng.integers(0, 256, lead + bucket + (3,), dtype=np.uint8)).to(device)
+        if normalize:
+            fn = lambda: device_preprocess_frames(x, *placed, CLIP_MEAN, CLIP_STD)  # noqa: E731
+        else:
+            fn = lambda: device_resize_frames(x, *placed)  # noqa: E731
+        out = fn()
+        ms = time_ms(fn, iters=50, warmup=5)
+        traced = device_kernels(fn, iters=5)
+        device_ms = sum(t for t, _ in traced.values()) or None
+        launches = sum(n for _, n in traced.values())
+        bound_ms = (x.numel() + out.numel() * 4) / PEAK_BYTES_PER_S * 1e3
+        k = placed[0][0].shape[-1]
+        print(f"resample on the device, {label}: uint8 {tuple(x.shape)} -> fp32 "
+              f"{tuple(out.shape)}, K={k}; {ms:.3f} ms by events, on the device "
+              f"{us_or_not(device_ms)} (profiler) in {launches:g} launches, bound (bytes) "
+              f"{bound_ms * 1e3:.2f} us")
+        records[label] = dict(ms=ms, device_ms=device_ms, launches=launches, bound_ms=bound_ms)
+    return records
 
 
 def main() -> int:
@@ -1370,6 +1656,8 @@ def main() -> int:
 
     k1 = check_flash_attention(device)
     k2 = check_local_correlation(device)
+    fused_shapes = hold_fused_shapes(device)
+    measure_resample(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         phases = [
             ("CLIP", lambda: run_main_path(root)),
@@ -1385,6 +1673,7 @@ def main() -> int:
             ("VGGish", lambda: run_vggish_path(root, device)),
             ("run contract", lambda: run_contract_path(root, device)),
             ("async ingest", lambda: run_ingest_path(root, device)),
+            ("device preprocess", lambda: run_device_path(root, device)),
         ]
         results = {}
         for name, phase in phases:
@@ -1392,10 +1681,10 @@ def main() -> int:
             results[name] = phase()
             print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
         # each kernel's launches: its main path's run, then the fused runs
-        ingest = results["async ingest"]
-        (k1_fused, k1_shapes), (k2_fused, k2_shapes) = (ingest["flash_attention"],
-                                                        ingest["local_correlation"])
-        k1_launches, k2_launches = results["CLIP"] + k1_fused, results["I3D + PWC"] + k2_fused
+        # and the device preprocess runs
+        later = [results["async ingest"], results["device preprocess"]]
+        k1_launches = results["CLIP"] + sum(r["flash_attention"] for r in later)
+        k2_launches = results["I3D + PWC"] + sum(r["local_correlation"] for r in later)
 
     records = [
         {
@@ -1405,7 +1694,7 @@ def main() -> int:
             "replaces": "video_features_tpu/ops/pallas/flash_attention.py:36",
             "launches": k1_launches,
             **k1,
-            "fused_shapes": k1_shapes,
+            "fused_shapes": fused_shapes["flash_attention"],
         },
         {
             "name": "local_correlation",
@@ -1414,7 +1703,7 @@ def main() -> int:
             "replaces": "video_features_tpu/ops/pallas/correlation_kernel.py:39",
             "launches": k2_launches,
             **k2,
-            "fused_shapes": k2_shapes,
+            "fused_shapes": fused_shapes["local_correlation"],
         },
     ]
     print(json.dumps({"kernels": records}))

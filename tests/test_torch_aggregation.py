@@ -44,6 +44,7 @@ from video_features_tpu_torch.utils.synth import synth_video, synth_wav
 
 from test_torch_clip import SMALL, openai_state_dict
 from test_torch_pwc import FLOW_ATOL, _seeded_state_dict
+from torch_threads import one_torch_thread  # noqa: F401 - an autouse fixture
 
 FT = "CLIP-ViT-B/32"
 STICKY = "CUDA error: an illegal memory access was encountered"

@@ -43,6 +43,8 @@ from video_features_tpu_torch.models.pwc.model import PWCNet
 from video_features_tpu_torch.models.pwc.model import init_weights as pwc_init
 from video_features_tpu_torch.ops.preprocess import flow_to_uint8, scale_to_1_1
 
+from torch_threads import one_torch_thread  # noqa: F401 - an autouse fixture
+
 ATOL = 1e-5
 FLOW_FEATURE_RTOL = 1e-4
 

@@ -40,6 +40,8 @@ from video_features_tpu_torch.models.pwc.model import (
 )
 from video_features_tpu_torch.ops.resize import resize_bilinear
 
+from torch_threads import one_torch_thread  # noqa: F401 - an autouse fixture
+
 FLOW_ATOL = 1e-4
 
 

@@ -35,6 +35,8 @@ from video_features_tpu_torch.models.r21d.convert import convert_state_dict, par
 from video_features_tpu_torch.models.r21d.extract_r21d import ExtractR21D, kinetics_preprocess
 from video_features_tpu_torch.models.r21d.model import R2Plus1D, init_weights, midplanes
 
+from torch_threads import one_torch_thread  # noqa: F401 - an autouse fixture
+
 ATOL = 1e-4
 PRE_ATOL = 1e-5
 PRED_LINE = re.compile(r"^-?\d+\.\d{3} \d\.\d{3} \S|.* @ frames \(\d+, \d+\)$")

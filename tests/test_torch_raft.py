@@ -52,6 +52,8 @@ from video_features_tpu_torch.models.raft import model as raft
 from video_features_tpu_torch.models.raft.convert import convert_state_dict, params_from_jax
 from video_features_tpu_torch.models.raft.extract_raft import InputPadder
 
+from torch_threads import one_torch_thread  # noqa: F401 - an autouse fixture
+
 ATOL = 1e-5
 LOOKUP_RTOL = 1e-5
 ENCODER_ATOL = 1e-4

@@ -39,6 +39,8 @@ from video_features_tpu_torch.models.resnet.model import ResNet, init_weights
 from video_features_tpu_torch.ops.preprocess import imagenet_preprocess
 from video_features_tpu_torch.utils import labels
 
+from torch_threads import one_torch_thread  # noqa: F401 - an autouse fixture
+
 ATOL = 1e-4
 PRED_LINE = re.compile(r"^-?\d+\.\d{3} \d\.\d{3} \S")
 

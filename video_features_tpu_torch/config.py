@@ -4,8 +4,11 @@ Counterpart of ``video_features_tpu/config.py`` (``ExtractionConfig``,
 ``sanity_check``, ``parse_batch_args``), cut to the fields the CLIP,
 ResNet, R(2+1)D, RAFT, PWC, I3D and VGGish paths and the run contract
 (manifest, retries, ``--strict``, ``--decode_workers``) and the async
-ingest loop (``--video_batch``, ``--inflight_groups``) read. Flag names,
-meanings and defaults are the JAX package's.
+ingest loop (``--video_batch``, ``--inflight_groups``) and the device
+preprocess (``--preprocess``, ``--spatial_bucket``,
+``--frame_delta_threshold``) read. Flag names, meanings and defaults are
+the JAX package's; its ``--sharding mesh`` rules are left out, as the
+port runs on one device.
 """
 
 from __future__ import annotations
@@ -31,8 +34,15 @@ STREAMS = ("rgb", "flow")
 FLOW_TYPES = ("raft", "pwc", "flow")
 # I3D flow sources the JAX package has and this package does not yet
 FLOW_TYPES_TO_PORT = {
-    "flow": "flow read from disk (ROADMAP.md queue 1, item 2)",
+    "flow": "flow read from disk (ROADMAP.md queue 1, item 10)",
 }
+# the extractors whose dispatch honours --preprocess device: the image
+# models (a fixed 224 crop), the flow models (InputPadder's or the exact
+# grid) and I3D (min-edge-256 onto an output bucket); sanity_check names
+# this set in its refusal
+DEVICE_PREPROCESS_FEATURE_TYPES = CLIP_FEATURE_TYPES + RESNET_FEATURE_TYPES + ["raft", "pwc",
+                                                                             "i3d"]
+PREPROCESS_MODES = ("host", "device")
 ATTN_CORES = ("fused", "flash", "blockwise")
 ON_EXTRACTION = ("print", "save_numpy", "save_pickle")
 
@@ -111,6 +121,19 @@ class ExtractionConfig:
     # dispatched videos or groups in flight before the loop blocks on the
     # oldest's fetch (2 double-buffers; 1 is dispatch-then-fetch lockstep)
     inflight_groups: int = 2
+    # --- where the resize, crop and normalize run (ops/preprocess.py):
+    # 'host' is the PIL chain on the decode threads; 'device' ships raw
+    # uint8 frames, padded to a spatial bucket, and runs the PIL-semantics
+    # banded resize, crop and normalize on the card ---
+    preprocess: str = "host"
+    # --preprocess device: each axis of a source resolution rounds up to a
+    # multiple of this (ops/window.py::spatial_bucket), so videos of nearby
+    # resolutions share one shape and fuse under --video_batch
+    spatial_bucket: int = 64
+    # CLIP only: a sampled frame whose mean |uint8 delta| against the last
+    # kept frame is below this is not encoded; its row is copied from that
+    # frame's (ops/sampler.py). None is off; 0 keeps every frame
+    frame_delta_threshold: Optional[float] = None
 
 
 def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
@@ -197,6 +220,40 @@ def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
         raise ValueError(
             f"inflight_groups must be >= 1, got {cfg.inflight_groups}"
         )
+    if cfg.frame_delta_threshold is not None:
+        if cfg.frame_delta_threshold < 0:
+            raise ValueError(
+                "frame_delta_threshold must be >= 0, got "
+                f"{cfg.frame_delta_threshold}"
+            )
+        if cfg.feature_type not in CLIP_FEATURE_TYPES:
+            supported = ", ".join(CLIP_FEATURE_TYPES)
+            raise ValueError(
+                "--frame_delta_threshold gates per-frame features with "
+                "copy-forward fill, which is only sound for the "
+                f"frame-level extractors: {supported} "
+                f"(got {cfg.feature_type!r}; windowed/flow models mix "
+                "frames across time)"
+            )
+    if cfg.preprocess not in PREPROCESS_MODES:
+        raise ValueError(f"unknown preprocess mode: {cfg.preprocess}")
+    if cfg.preprocess == "device":
+        if cfg.feature_type not in DEVICE_PREPROCESS_FEATURE_TYPES:
+            supported = ", ".join(sorted(DEVICE_PREPROCESS_FEATURE_TYPES))
+            raise ValueError(
+                "--preprocess device currently covers: "
+                f"{supported} (got {cfg.feature_type!r})"
+            )
+        if cfg.feature_type == "i3d" and cfg.flow_type == "flow":
+            raise ValueError(
+                "--preprocess device on i3d requires an on-the-fly flow "
+                "model (--flow_type raft or pwc); pre-extracted disk flow "
+                "keeps the host chain (frames arrive already resized)"
+            )
+        # --show_pred with raft/pwc, which the JAX package refuses here,
+        # is refused above: the port does not print flow yet
+    if cfg.spatial_bucket < 1:
+        raise ValueError(f"spatial_bucket must be >= 1, got {cfg.spatial_bucket}")
     parse_fault_specs(cfg.fault_inject)  # raises naming the bad spec
     return cfg
 
@@ -275,6 +332,18 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "groups that may stay in flight before the loop "
                         "blocks on the oldest fetch (2 = the classic "
                         "double-buffer; 1 = lockstep dispatch-then-fetch)")
+    p.add_argument("--preprocess", default="host", choices=list(PREPROCESS_MODES),
+                   help="where resize/crop/normalize run: 'host' (PIL on the "
+                        "decode threads) or 'device' (raw uint8 frames, "
+                        "PIL-semantics resize on the card; clip, resnet*, "
+                        "raft, pwc, i3d)")
+    p.add_argument("--spatial_bucket", type=int, default=64,
+                   help="--preprocess device: pad each frame axis up to a "
+                        "multiple of this")
+    p.add_argument("--frame_delta_threshold", type=float, default=None,
+                   help="CLIP: skip a sampled frame whose mean |uint8 delta| "
+                        "vs the last kept frame is below this; its feature row "
+                        "is copied forward (0 keeps every frame)")
     return p
 
 

@@ -66,6 +66,7 @@ from video_features_tpu_torch.extract.ingest import (
     HostCopy,
     RequeueTimers,
     place_batch,
+    place_taps,
 )
 from video_features_tpu_torch.io.paths import form_list_from_user_input, video_path_of
 from video_features_tpu_torch.io.video import pop_decode_warnings
@@ -101,6 +102,9 @@ class BaseExtractor:
             self.output_path = os.path.join(self.config.output_path, self.feature_type)
         self.tmp_path = os.path.join(self.config.tmp_path, self.feature_type)
         self._device_state: Dict[torch.device, Any] = {}
+        # --preprocess device: (device, ids of the host taps) -> (the host
+        # taps, kept so their ids stay theirs; the placed taps)
+        self._taps: Dict[tuple, tuple] = {}
         pin_fp32()
         # the manifest roots at output_path (not the feature's subdirectory),
         # so one <output>/_manifest covers the tree and --resume merges it
@@ -216,6 +220,41 @@ class BaseExtractor:
         back per video (``totals`` rows each, in order)."""
         cat = np.concatenate([h.numpy()[:n] for h, n in outs], axis=0)
         return np.split(cat, np.cumsum(totals)[:-1])
+
+    def _device_preprocess_enabled(self) -> bool:
+        """``--preprocess device``: ``prepare`` ships raw uint8 frames and
+        their resample taps, and the dispatch resizes, crops and
+        normalizes on the device (``ops/preprocess.py``). The JAX
+        package's host rerun of a video whose fused program fails to
+        compile is left out: eager PyTorch compiles nothing, and a failure
+        on the device path is a failed video like any other."""
+        return self.config.preprocess == "device"
+
+    # the host taps are lru_cached per source resolution (ops/resize.py), so
+    # the same arrays come back for every video of a resolution; the bound
+    # only matters to a corpus of more resolutions than those caches hold
+    _TAPS_MAX = 512
+
+    def _device_taps(self, taps, device: torch.device):
+        """A video's host taps on ``device`` (``ingest.place_taps``), placed
+        once per set of host arrays and then reused. Call it on the loop
+        thread."""
+        key = (device,) + tuple(id(a) for pair in taps for a in pair)
+        hit = self._taps.get(key)
+        if hit is None:
+            if len(self._taps) >= self._TAPS_MAX:
+                self._taps.pop(next(iter(self._taps)))
+            hit = self._taps[key] = (taps, place_taps(taps, device))
+        return hit[1]
+
+    def _note_delta_gated(self, entry, skipped: int, total: int) -> None:
+        """``--frame_delta_threshold``: a video whose gate skipped frames
+        gets a ``delta_gated`` manifest event (the JAX package's
+        ``_note_windows_skipped``, whose ``windows_skipped`` metric waits
+        for telemetry, ROADMAP item 5)."""
+        if skipped > 0:
+            self.manifest.event("delta_gated", video=self._video_key(entry),
+                                skipped=skipped, total=total)
 
     def _prefetch_frame_cap(self, max_bytes: int, frame_bytes: int, floor: int) -> int:
         """A prepared video's cap in frames: the byte budget split over

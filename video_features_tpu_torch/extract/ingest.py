@@ -19,7 +19,11 @@ are explicit:
   dispatched handles the loop drains;
 - ``StagedGroup`` is what an extractor's ``transfer_group`` returns: the
   fused group already on the device, with the metas ``fetch_group``
-  needs to slice it apart; ``stack_group`` stacks per-video arrays.
+  needs to slice it apart; ``stack_group`` stacks per-video arrays;
+- ``place_taps`` puts the resample taps of ``--preprocess device`` on
+  the device (``BaseExtractor._device_taps`` does so once per source
+  resolution: only the uint8 frames cross per dispatch), and
+  ``stack_taps`` stacks per-video placed taps for a fused group.
 
 Left unported on purpose: ``jit_donated`` (XLA buffer donation; eager
 PyTorch frees a staged input when its last use on the compute stream
@@ -97,6 +101,24 @@ def place_batch(x: np.ndarray, device: torch.device) -> torch.Tensor:
     dev.record_stream(compute)
     stager.keep(copied, host)
     return dev
+
+
+def place_taps(taps, device: torch.device):
+    """``((wt_y, idx_y), (wt_x, idx_x))`` host taps -> the same pairs on
+    ``device`` as (float32, int64) tensors (``torch.gather`` and indexing
+    on the card take int64 indices)."""
+    return tuple(
+        (torch.from_numpy(np.array(wt, dtype=np.float32)).to(device),
+         torch.from_numpy(np.array(idx, dtype=np.int64)).to(device))
+        for wt, idx in taps
+    )
+
+
+def stack_taps(placed):
+    """Per-video placed taps -> the (N, P, K) layout of a fused group,
+    stacked on the device."""
+    return tuple(tuple(torch.stack([p[axis][j] for p in placed]) for j in range(2))
+                 for axis in range(2))
 
 
 class HostCopy:

@@ -131,6 +131,18 @@ def probe(path: str) -> Tuple[float, int]:
     return r.fps, r.frame_count
 
 
+def frame_size(path: str) -> Tuple[int, int]:
+    """(height, width) from the container's metadata, (0, 0) where absent;
+    reads no frame (the prefetch caps of ``--preprocess device`` count
+    source-resolution bytes before any decode)."""
+    cap = cv2.VideoCapture(str(path))
+    try:
+        return (max(int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)), 0),
+                max(int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)), 0))
+    finally:
+        cap.release()
+
+
 def read_frames_at_indices(path: str, indices) -> Dict[int, np.ndarray]:
     """{index: RGB uint8 HWC frame} for the wanted indices, by sequential
     decode up to the largest (seeks can land off by frames); indices past

@@ -8,9 +8,18 @@ device under ``torch.inference_mode()`` -> the first T rows, with
 ``{feature_type, fps, timestamps_ms}``. ``--attn`` picks the attention
 core: fused matmuls, the CUDA flash kernel, or its blockwise version.
 With ``--video_batch N`` the batches of N videos of one bucket run as one
-forward. Not ported yet: the ``--preprocess device`` payloads of the JAX
-hooks and the ``--frame_delta_threshold`` kept rows (ROADMAP queue 1,
-item 7).
+forward.
+
+``--preprocess device``: ``prepare`` ships the raw uint8 frames, padded
+to the time bucket and the spatial bucket, with the banded bicubic
+resize+crop taps of their source resolution
+(``ops/resize.py::fused_resize_crop_banded``); the dispatch resizes,
+crops and normalizes on the device (``device_preprocess_frames``) before
+the tower. Videos of one (T_pad, bucket) shape fuse under
+``--video_batch`` whatever their source resolution, each with its own
+taps. ``--frame_delta_threshold``: near-duplicate sampled frames are
+dropped in ``prepare`` (``ops/sampler.py``) and their rows copied forward
+at fetch.
 """
 
 from __future__ import annotations
@@ -23,7 +32,12 @@ from PIL import Image
 
 from video_features_tpu_torch.config import ExtractionConfig
 from video_features_tpu_torch.extract.base import BaseExtractor, device_of
-from video_features_tpu_torch.extract.ingest import HostCopy, StagedGroup, place_batch
+from video_features_tpu_torch.extract.ingest import (
+    HostCopy,
+    StagedGroup,
+    place_batch,
+    stack_taps,
+)
 from video_features_tpu_torch.io.paths import video_path_of
 from video_features_tpu_torch.io.video import extract_frames
 from video_features_tpu_torch.models.clip.convert import convert_state_dict
@@ -37,12 +51,15 @@ from video_features_tpu_torch.ops.flash_attention import flash_attention
 from video_features_tpu_torch.ops.preprocess import (
     CLIP_MEAN,
     CLIP_STD,
+    device_preprocess_frames,
     normalize_chw,
     pil_center_crop,
     pil_resize,
     to_float_chw,
 )
-from video_features_tpu_torch.ops.window import bucket_size, pad_batch
+from video_features_tpu_torch.ops.resize import fused_resize_crop_banded
+from video_features_tpu_torch.ops.sampler import copy_forward, frame_delta_keep_mask
+from video_features_tpu_torch.ops.window import bucket_size, pad_batch, pad_hw, spatial_bucket
 
 CORES = {"fused": attention, "flash": flash_attention, "blockwise": blockwise_attention}
 
@@ -75,27 +92,67 @@ class ExtractCLIP(BaseExtractor):
         return normalize_chw(to_float_chw(img), CLIP_MEAN, CLIP_STD)
 
     def prepare(self, entry):
-        """Host half: (padded (T_pad, 3, S, S) batch, T, fps, timestamps)."""
+        """Host half: (padded batch, T, fps, timestamps, keep). The batch is
+        (T_pad, 3, S, S) float32, or under ``--preprocess device`` the
+        (uint8 (T_pad, bh, bw, 3) frames, (wt_y, idx_y), (wt_x, idx_x))
+        triple. ``keep`` is the frame-delta gate's mask, or None when the
+        gate is off or kept every frame (the ungated payload)."""
         frames, fps, timestamps_ms = extract_frames(
             video_path_of(entry), self.config.extract_method
         )
+        keep = None
+        if self.config.frame_delta_threshold is not None:
+            mask = frame_delta_keep_mask(frames, float(self.config.frame_delta_threshold))
+            skipped = int(mask.size - mask.sum())
+            if skipped:
+                self._note_delta_gated(entry, skipped, int(mask.size))
+                keep = mask
+                frames = [f for f, k in zip(frames, mask) if k]
+        T = len(frames)
+        T_pad = bucket_size(T, buckets=self.config.shape_buckets)
+        if self._device_preprocess_enabled():
+            arr = np.stack(frames)  # (T, H, W, 3) uint8
+            h, w = arr.shape[1:3]
+            bh, bw = spatial_bucket(h, w, self.config.spatial_bucket)
+            size = self.model_cfg.image_size
+            wt_y, idx_y, wt_x, idx_x = fused_resize_crop_banded(
+                h, w, size, size, "bicubic", pad_h=bh, pad_w=bw
+            )
+            raw = pad_hw(pad_batch(arr, T_pad), bh, bw)
+            return (raw, (wt_y, idx_y), (wt_x, idx_x)), T, fps, timestamps_ms, keep
         batch = np.stack([self._preprocess(f) for f in frames])
-        T = batch.shape[0]
-        padded = pad_batch(batch, bucket_size(T, buckets=self.config.shape_buckets))
-        return padded, T, fps, timestamps_ms
+        return pad_batch(batch, T_pad), T, fps, timestamps_ms, keep
+
+    def _encode_raw(self, model: VisionTransformer, x_u8: torch.Tensor, taps) -> torch.Tensor:
+        """uint8 frames -> resize, crop and normalize on the device -> the
+        tower; a fused group's (N, T_pad, ...) frames flatten to N * T_pad
+        images."""
+        x = device_preprocess_frames(x_u8, *taps, CLIP_MEAN, CLIP_STD)
+        return model(x.flatten(0, x.dim() - 4))
 
     # --- the device half, split (extract/base.py): H2D, forward and D2H
     # enqueued at dispatch, waited for at fetch
     def dispatch_prepared(self, model: VisionTransformer, payload):
-        padded, T, fps, timestamps_ms = payload
+        padded, T, fps, timestamps_ms, keep = payload
+        device = device_of(model)
         with torch.inference_mode():
-            out = model(place_batch(padded, device_of(model)))
-            return HostCopy(out[:T]), fps, timestamps_ms
+            if isinstance(padded, tuple):  # --preprocess device
+                raw, wy, wx = padded
+                out = self._encode_raw(model, place_batch(raw, device),
+                                       self._device_taps((wy, wx), device))
+            else:
+                out = model(place_batch(padded, device))
+            return HostCopy(out[:T]), fps, timestamps_ms, keep
 
     def fetch_dispatched(self, handle) -> Dict[str, np.ndarray]:
-        out, fps, timestamps_ms = handle
+        out, fps, timestamps_ms, keep = handle
+        return self._feature_dict(out.numpy(), fps, timestamps_ms, keep)
+
+    def _feature_dict(self, feats: np.ndarray, fps, timestamps_ms, keep) -> Dict[str, np.ndarray]:
+        if keep is not None:  # gated: the kept rows back onto the full grid
+            feats = copy_forward(feats, keep)
         return {
-            self.feature_type: out.numpy(),
+            self.feature_type: feats,
             "fps": np.array(fps),
             "timestamps_ms": np.array(timestamps_ms),
         }
@@ -111,35 +168,48 @@ class ExtractCLIP(BaseExtractor):
 
     def agg_key(self, payload):
         head = payload[0]
+        if isinstance(head, tuple):  # --preprocess device
+            if head[0].shape[0] > self.AGG_MAX_FRAMES:
+                return None
+            # the bucketed (T_pad, bh, bw, 3): videos of other source
+            # resolutions in one spatial bucket fuse, each with its taps
+            return ("dev", head[0].shape)
         if head.shape[0] > self.AGG_MAX_FRAMES:
             return None
         return head.shape  # the bucketed (T_pad, 3, S, S)
 
     def transfer_group(self, model: VisionTransformer, payloads):
-        """The group's H2D: the videos' batches concatenated and placed
-        now, so the next group's copy overlaps this group's forward. A
-        partial group is not padded to the full group's size: eager
-        PyTorch compiles no shape, and each video's rows are its own."""
-        bucket = payloads[0][0].shape[0]
+        """The group's H2D: the videos' batches concatenated (under
+        ``--preprocess device``, their uint8 frames stacked and their
+        placed taps stacked on the device) and placed now, so the next
+        group's copy overlaps this group's forward. A partial group is not
+        padded to the full group's size: eager PyTorch compiles no shape,
+        and each video's rows are its own."""
+        device = device_of(model)
+        head = payloads[0][0]
+        raw = isinstance(head, tuple)  # --preprocess device
+        bucket = (head[0] if raw else head).shape[0]
+        metas = [(i * bucket, T, fps, ts, keep) for i, (_, T, fps, ts, keep) in enumerate(payloads)]
+        if raw:
+            x = place_batch(np.stack([p[0][0] for p in payloads]), device)
+            taps = stack_taps([self._device_taps(p[0][1:], device) for p in payloads])
+            return StagedGroup((x, taps), metas)
         x = np.concatenate([p[0] for p in payloads], axis=0)
-        metas = [(i * bucket, T, fps, ts) for i, (_, T, fps, ts) in enumerate(payloads)]
-        return StagedGroup((place_batch(x, device_of(model)),), metas)
+        return StagedGroup((place_batch(x, device),), metas)
 
     def dispatch_group(self, model: VisionTransformer, payloads):
         if not isinstance(payloads, StagedGroup):
             payloads = self.transfer_group(model, payloads)
+        arrays = payloads.arrays
         with torch.inference_mode():
-            out = model(payloads.arrays[0])
+            if len(arrays) == 2:  # --preprocess device: frames and taps
+                out = self._encode_raw(model, *arrays)
+            else:
+                out = model(arrays[0])
             return HostCopy(out), payloads.metas
 
     def fetch_group(self, handle):
         out, metas = handle
         arr = out.numpy()
-        return [
-            {
-                self.feature_type: arr[off : off + T],
-                "fps": np.array(fps),
-                "timestamps_ms": np.array(ts),
-            }
-            for off, T, fps, ts in metas
-        ]
+        return [self._feature_dict(arr[off : off + T], fps, ts, keep)
+                for off, T, fps, ts, keep in metas]

@@ -18,8 +18,20 @@ over which the video streams at dispatch instead; ``dispatch_prepared``
 enqueues every window and ``fetch_dispatched`` waits for them. With
 ``--video_batch G`` the windows of any videos of one shape run G at a
 time (:460-574). Not ported yet: ``--show_pred`` (refused in
-``config.py``) and the ``--preprocess device`` payloads (ROADMAP queue 1,
-item 7).
+``config.py``).
+
+``--preprocess device`` (:78-115, :343-): the windows hold the raw uint8
+frames, zero-padded to their spatial bucket, and the video carries the
+banded bilinear taps of its source resolution
+(``ops/resize.py::shape_contract_banded``), which resize each frame to
+``--side_size`` and place it on the model's grid (``_device_grid``) in one
+gather: RAFT's InputPadder grid, its replicate pad inside the taps; PWC's
+exact resized grid. The dispatch runs the taps on the device
+(``device_resize_frames``) before the model. With no ``--side_size`` the
+taps are the identity band, so the model's input equals the host's
+``InputPadder.pad`` bit for bit. Fused windows of other source
+resolutions share a key when their bucket and grid agree, each with its
+video's taps.
 
 Output: ``{<feature_type>: (T-1, 2, H, W), fps, timestamps_ms}``, flow at
 the frames' resolution.
@@ -33,7 +45,12 @@ import numpy as np
 import torch
 
 from video_features_tpu_torch.extract.base import BaseExtractor, device_of
-from video_features_tpu_torch.extract.ingest import HostCopy, place_batch, stack_group
+from video_features_tpu_torch.extract.ingest import (
+    HostCopy,
+    place_batch,
+    stack_group,
+    stack_taps,
+)
 from video_features_tpu_torch.io.paths import video_path_of
 from video_features_tpu_torch.io.video import (
     CorruptVideoError,
@@ -46,7 +63,9 @@ from video_features_tpu_torch.models.common.weights import (
     load_state_dict,
     random_init_fallback,
 )
-from video_features_tpu_torch.ops.preprocess import pil_resize
+from video_features_tpu_torch.ops.preprocess import device_resize_frames, pil_resize
+from video_features_tpu_torch.ops.resize import resized_hw, shape_contract_banded
+from video_features_tpu_torch.ops.window import pad_hw, spatial_bucket
 
 
 class NullPadder:
@@ -101,12 +120,38 @@ class PairwiseFlowExtractor(BaseExtractor):
                                self.config.resize_to_smaller_edge)
         return frame.astype(np.float32)
 
+    # --- the device preprocess's shape contract ---------------------------
+    def _device_grid(self, oh: int, ow: int):
+        """(out_h, out_w, top, left): where the resized (oh, ow) image lands
+        on the model's input grid. Here the exact resized shape (PWC, whose
+        /64 stretch is part of its forward); RAFT places it on its
+        InputPadder grid."""
+        return oh, ow, 0, 0
+
+    def _device_contract(self, h: int, w: int):
+        """(taps, (bh, bw), (oh, ow)) of a source resolution: the banded
+        taps onto ``_device_grid``, the spatial bucket the raw frames pad
+        to, and the resized shape the video's padder (and so ``unpad``) is
+        built from."""
+        side = int(self.config.side_size) if self.config.side_size is not None else 0
+        smaller = bool(self.config.resize_to_smaller_edge)
+        oh, ow = resized_hw(h, w, side, smaller) if side else (h, w)
+        out_h, out_w, top, left = self._device_grid(oh, ow)
+        bh, bw = spatial_bucket(h, w, self.config.spatial_bucket)
+        wt_y, idx_y, wt_x, idx_x = shape_contract_banded(
+            h, w, side, out_h, out_w, top, left, "bilinear",
+            pad_h=bh, pad_w=bw, pad_mode="edge", smaller_edge=smaller,
+        )
+        return ((wt_y, idx_y), (wt_x, idx_x)), (bh, bw), (oh, ow)
+
     # --- host: an eager prepare, capped in bytes --------------------------
     # A prepared video holds its padded windows; the pipeline keeps up to
     # decode_workers + 2 prepared videos, so the byte budget splits into a
     # per-video frame cap (``_prefetch_frame_cap``). A video over it is
     # handed over as ("stream", entry): its decode then interleaves with
     # its windows' forwards at dispatch, one such video resident at a time.
+    # Under --preprocess device a window frame is a uint8 frame at its
+    # spatial bucket, so more frames fit under the same budget.
     PIPELINE_MAX_BYTES = 4 << 30
 
     def _window_cap(self, padded_frame: np.ndarray) -> int:
@@ -117,20 +162,34 @@ class PairwiseFlowExtractor(BaseExtractor):
     def _fps(self, path: str) -> float:
         return self.config.extraction_fps or fps_or_default(probe(path)[0], path)
 
+    def _layout(self, h: int, w: int):
+        """(padder, taps, bucket) of a video of source resolution (h, w):
+        the padder of the resized frame, and under ``--preprocess device``
+        the contract's taps and bucket (None on the host chain)."""
+        if self._device_preprocess_enabled():
+            taps, bucket, resized = self._device_contract(h, w)
+            return self._make_padder(resized), taps, bucket
+        side = self.config.side_size
+        resized = (resized_hw(h, w, int(side), bool(self.config.resize_to_smaller_edge))
+                   if side is not None else (h, w))
+        return self._make_padder(resized), None, None
+
     def _windows(self, path: str, timestamps_ms: List[float], capped: bool):
         """Decode ``path`` into padded B+1-frame windows, yielding
-        (window, pairs, padder) as each fills and appending each frame's
-        timestamp to ``timestamps_ms``. The tail window repeats its last
-        frame, so every window has one shape; its surplus pairs are cut
-        after the forward. With ``capped``, yield None and stop once the
-        video passes the prefetch cap."""
+        (window, pairs, (padder, taps)) as each fills and appending each
+        frame's timestamp to ``timestamps_ms``. The tail window repeats its
+        last frame, so every window has one shape; its surplus pairs are
+        cut after the forward. With ``capped``, yield None and stop once
+        the video passes the prefetch cap."""
         batch: List[np.ndarray] = []
-        padder = cap = None
+        layout = cap = None
         for count, (frame, ts) in enumerate(stream_frames(path, self.config.extraction_fps), 1):
-            frame = self._preprocess(frame)
-            if padder is None:
-                padder = self._make_padder(frame.shape[:2])
-                cap = self._window_cap(padder.pad(frame[None])[0]) if capped else None
+            if layout is None:
+                layout = self._layout(*frame.shape[:2])
+            if layout[2] is None:  # the host chain
+                frame = self._preprocess(frame)
+            if cap is None and capped:
+                cap = self._window_cap(self._pad_window([frame], layout)[0])
             if cap is not None and count > cap:
                 yield None
                 return
@@ -138,40 +197,49 @@ class PairwiseFlowExtractor(BaseExtractor):
             batch.append(frame)
             # B+1 frames make B pairs; the boundary frame carries over
             if len(batch) - 1 == self.batch_size:
-                yield self._pad_window(batch, padder), len(batch) - 1, padder
+                yield self._pad_window(batch, layout), len(batch) - 1, layout[:2]
                 batch = [batch[-1]]
         if len(batch) > 1:
-            yield self._pad_window(batch, padder), len(batch) - 1, padder
-        if padder is None:
+            yield self._pad_window(batch, layout), len(batch) - 1, layout[:2]
+        if layout is None:
             raise CorruptVideoError(f"no frames decoded from {path}")
 
-    def _pad_window(self, batch: List[np.ndarray], padder) -> np.ndarray:
-        return padder.pad(np.stack(batch + [batch[-1]] * (self.batch_size + 1 - len(batch))))
+    def _pad_window(self, batch: List[np.ndarray], layout) -> np.ndarray:
+        """Frames -> one (B+1, ...) window, padded by the padder on the host
+        chain and zero-padded to the bucket under ``--preprocess device``."""
+        padder, _, bucket = layout
+        window = np.stack(batch + [batch[-1]] * (self.batch_size + 1 - len(batch)))
+        return padder.pad(window) if bucket is None else pad_hw(window, *bucket)
 
     def prepare(self, entry):
         """Host half: (padded (B+1, Hp, Wp, 3) windows, their pair counts,
-        padder, fps, timestamps_ms), or ("stream", entry) over the cap."""
+        padder, taps, fps, timestamps_ms), or ("stream", entry) over the
+        cap; taps are None on the host chain."""
         path = video_path_of(entry)
         windows: List[np.ndarray] = []
         n_pairs: List[int] = []
         timestamps_ms: List[float] = []
-        padder = None
+        padder = taps = None
         for item in self._windows(path, timestamps_ms, capped=True):
             if item is None:
                 return ("stream", entry)
-            window, n, padder = item
+            window, n, (padder, taps) = item
             windows.append(window)
             n_pairs.append(n)
-        return windows, n_pairs, padder, self._fps(path), timestamps_ms
+        return windows, n_pairs, padder, taps, self._fps(path), timestamps_ms
 
     # --- the device half, split (extract/base.py) --------------------------
     @staticmethod
     def _dispatch_window(model: torch.nn.Module, window: np.ndarray, n_pairs: int,
-                         padder, device: torch.device) -> HostCopy:
+                         padder, taps, device: torch.device) -> HostCopy:
         """One padded window -> its (n, 2, H, W) flows on their way to the
-        host, surplus pairs cut."""
+        host, surplus pairs cut; ``taps`` (placed) resize a uint8 window
+        on the device first."""
         with torch.inference_mode():
-            flow = padder.unpad(model(place_batch(window, device)))
+            x = place_batch(window, device)
+            if taps is not None:
+                x = device_resize_frames(x, *taps)
+            flow = padder.unpad(model(x))
             return HostCopy(flow[:n_pairs].permute(0, 3, 1, 2))
 
     def _stream(self, model: torch.nn.Module, entry) -> Dict[str, np.ndarray]:
@@ -180,8 +248,10 @@ class PairwiseFlowExtractor(BaseExtractor):
         path = video_path_of(entry)
         timestamps_ms: List[float] = []
         device = device_of(model)
-        flows = [self._dispatch_window(model, w, n, padder, device)
-                 for w, n, padder in self._windows(path, timestamps_ms, capped=False)]
+        flows = []
+        for w, n, (padder, taps) in self._windows(path, timestamps_ms, capped=False):
+            taps = self._device_taps(taps, device) if taps is not None else None
+            flows.append(self._dispatch_window(model, w, n, padder, taps, device))
         return self._flow_dict([f.numpy() for f in flows], self._fps(path), timestamps_ms)
 
     def _flow_dict(self, flows: List[np.ndarray], fps, timestamps_ms) -> Dict[str, np.ndarray]:
@@ -195,9 +265,11 @@ class PairwiseFlowExtractor(BaseExtractor):
     def dispatch_prepared(self, model: torch.nn.Module, payload):
         if isinstance(payload[0], str):  # ("stream", entry): over the cap
             return ("done", self._stream(model, payload[1]))
-        windows, n_pairs, padder, fps, timestamps_ms = payload
+        windows, n_pairs, padder, taps, fps, timestamps_ms = payload
         device = device_of(model)
-        outs = [self._dispatch_window(model, w, n, padder, device)
+        if taps is not None:
+            taps = self._device_taps(taps, device)
+        outs = [self._dispatch_window(model, w, n, padder, taps, device)
                 for w, n in zip(windows, n_pairs)]
         return ("batched", outs, fps, timestamps_ms)
 
@@ -217,24 +289,32 @@ class PairwiseFlowExtractor(BaseExtractor):
     def agg_key(self, payload):
         if isinstance(payload[0], str):
             return None
-        windows = payload[0]
+        windows, _, _, taps = payload[:4]
         # a 1-frame video makes no pairs, hence no windows: nothing to fuse
         if not windows or len(windows) * windows[0].nbytes > self.AGG_MAX_BYTES:
             return None
-        return windows[0].shape  # (B+1, Hp, Wp, 3)
+        if taps is None:
+            return windows[0].shape  # (B+1, Hp, Wp, 3)
+        # --preprocess device: (B+1, bh, bw, 3) uint8 and the grid and K of
+        # the taps, so source resolutions sharing the contract fuse
+        return ("dev", windows[0].shape, taps[0][0].shape, taps[1][0].shape)
 
     def dispatch_group(self, model: torch.nn.Module, payloads):
         """The windows of the group's videos, G at a time, as (G, B+1, Hp,
-        Wp, 3) forwards; the last forward is not padded to G windows."""
+        Wp, 3) forwards; the last forward is not padded to G windows. Under
+        ``--preprocess device`` each window resizes with its video's taps."""
         group = max(int(self.config.video_batch or 1), 1)
         device = device_of(model)
         flat_w = [w for p in payloads for w in p[0]]
+        flat_taps = [p[3] and self._device_taps(p[3], device) for p in payloads for _ in p[0]]
         outs = []
         with torch.inference_mode():
             for i in range(0, len(flat_w), group):
                 x = place_batch(stack_group(flat_w[i : i + group]), device)
+                if flat_taps[i] is not None:
+                    x = device_resize_frames(x, *stack_taps(flat_taps[i : i + group]))
                 outs.append(HostCopy(model(x)))  # (g, B, Hp, Wp, 2)
-        metas = [(p[1], p[2], p[3], p[4]) for p in payloads]
+        metas = [(p[1], p[2], p[4], p[5]) for p in payloads]
         return outs, metas
 
     def fetch_group(self, handle):

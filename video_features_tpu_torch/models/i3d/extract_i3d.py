@@ -29,12 +29,22 @@ file is an error unless ``--allow_random_init``. Output: ``{rgb: (S,
 ``<stem>_rgb.npy`` and ``<stem>_flow.npy``. With ``--video_batch N`` the
 stacks of N same-resolution clips fill the ``--batch_size`` stack groups.
 Flow read from disk and ``--show_pred`` are not ported yet (``config.py``
-refuses them), nor the ``--preprocess device`` payloads of the JAX
-package's hooks (ROADMAP queue 1, item 7).
+refuses them).
+
+``--preprocess device``: ``prepare`` keeps the sampled frames raw (uint8
+at the source resolution), and the stacks, zero-padded to their spatial
+bucket, are resized on the device with the taps of ``_device_geometry``:
+the rgb stream's min-edge-256 resize and floor-offset 224 crop in one
+pass; the flow stream's min-edge-256 resize onto the flow net's grid
+(RAFT's InputPadder grid rounded up to ``--spatial_bucket``, the image
+edge-replicated where the padder puts it; PWC's exact resized grid, as
+its /64 stretch is part of its forward), and the 224 crop of the flow at
+the offsets where the host crops the padded flow.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Dict, List
 
@@ -47,6 +57,7 @@ from video_features_tpu_torch.io.paths import form_slices, video_path_of
 from video_features_tpu_torch.io.video import (
     CorruptVideoError,
     fps_or_default,
+    frame_size,
     probe,
     read_frames_at_indices,
 )
@@ -63,9 +74,21 @@ from video_features_tpu_torch.models.pwc.model import PWCNet
 from video_features_tpu_torch.models.pwc.model import init_weights as pwc_init
 from video_features_tpu_torch.models.raft import convert as raft_convert
 from video_features_tpu_torch.models.raft.extract_raft import InputPadder
-from video_features_tpu_torch.models.raft.model import RAFT
+from video_features_tpu_torch.models.raft.model import RAFT, input_grid
 from video_features_tpu_torch.models.raft.model import init_weights as raft_init
-from video_features_tpu_torch.ops.preprocess import flow_to_uint8, pil_resize, scale_to_1_1
+from video_features_tpu_torch.ops.preprocess import (
+    device_resize_frames,
+    dynamic_center_crop,
+    flow_to_uint8,
+    pil_resize,
+    scale_to_1_1,
+)
+from video_features_tpu_torch.ops.resize import (
+    fused_resize_crop_banded,
+    resized_hw,
+    shape_contract_banded,
+)
+from video_features_tpu_torch.ops.window import flow_output_bucket, pad_hw, spatial_bucket
 
 MIN_SIDE_SIZE = 256
 CENTRAL_CROP_SIZE = 224
@@ -74,6 +97,53 @@ DEFAULT_STEP_SIZE = 64
 # checkpoint file names looked up under --weights_path (a directory)
 WEIGHT_FILES = {"rgb": "i3d_rgb.pt", "flow": "i3d_flow.pt", "raft": "raft-sintel.pth",
                 "pwc": "pwc_net_sintel.pt"}
+
+
+@functools.lru_cache(maxsize=256)
+def _device_geometry(h: int, w: int, bucket_multiple: int, flow_type: str):
+    """The shape contracts of a source resolution under ``--preprocess
+    device``, as the JAX package's ``_device_geometry``:
+
+    - rgb: min-edge-256 taps composed with the floor-offset 224 crop, a
+      fixed (224, 224) output;
+    - flow: min-edge-256 taps onto the flow net's grid, edge-replicated:
+      for RAFT the InputPadder /8 grid rounded up to ``bucket_multiple``
+      (``flow_output_bucket``), the image at the padder's place; for PWC
+      the exact resized shape;
+    - the (top, left) of the flow's 224 crop: where the host crops the
+      padded flow at floor offsets, measured from where the grid places
+      the image.
+    """
+    bh, bw = spatial_bucket(h, w, bucket_multiple)
+    oh, ow = resized_hw(h, w, MIN_SIDE_SIZE)
+    rgb_wy_t, rgb_wy_i, rgb_wx_t, rgb_wx_i = fused_resize_crop_banded(
+        h, w, MIN_SIDE_SIZE, CENTRAL_CROP_SIZE, "bilinear",
+        pad_h=bh, pad_w=bw, crop_offset="floor",
+    )
+    if flow_type == "raft":
+        tgt_h, tgt_w = input_grid(oh, ow)
+        out_h, out_w = flow_output_bucket(oh, ow, multiple=bucket_multiple)
+        top, left = (out_h - oh) // 2, (out_w - ow) // 2
+        fh = top + (tgt_h - CENTRAL_CROP_SIZE) // 2 - (tgt_h - oh) // 2
+        fw = left + (tgt_w - CENTRAL_CROP_SIZE) // 2 - (tgt_w - ow) // 2
+    else:  # pwc
+        out_h, out_w, top, left = oh, ow, 0, 0
+        fh = (oh - CENTRAL_CROP_SIZE) // 2
+        fw = (ow - CENTRAL_CROP_SIZE) // 2
+    if not (0 <= fh <= out_h - CENTRAL_CROP_SIZE and 0 <= fw <= out_w - CENTRAL_CROP_SIZE):
+        raise AssertionError(
+            f"flow crop {(fh, fw)} escapes the {(out_h, out_w)} grid for source {(h, w)}"
+        )
+    f_wy_t, f_wy_i, f_wx_t, f_wx_i = shape_contract_banded(
+        h, w, MIN_SIDE_SIZE, out_h, out_w, top, left, "bilinear",
+        pad_h=bh, pad_w=bw, pad_mode="edge",
+    )
+    return {
+        "bucket": (bh, bw),
+        "rgb": ((rgb_wy_t, rgb_wy_i), (rgb_wx_t, rgb_wx_i)),
+        "flow": ((f_wy_t, f_wy_i), (f_wx_t, f_wx_i)),
+        "crop": (fh, fw),
+    }
 
 
 def center_crop(x: torch.Tensor, crop: int = CENTRAL_CROP_SIZE) -> torch.Tensor:
@@ -88,9 +158,12 @@ def rgb_chain(stack_tail: torch.Tensor) -> torch.Tensor:
     return scale_to_1_1(center_crop(stack_tail))
 
 
-def flow_chain(flow: torch.Tensor) -> torch.Tensor:
-    """Flow -> I3D-flow input: crop, clamp and quantise, scale."""
-    return scale_to_1_1(flow_to_uint8(center_crop(flow)))
+def flow_chain(flow: torch.Tensor, crop=None) -> torch.Tensor:
+    """Flow -> I3D-flow input: crop (at floor center offsets, or at the
+    (top, left) of ``crop``), clamp and quantise, scale."""
+    cropped = center_crop(flow) if crop is None else dynamic_center_crop(
+        flow, *crop, CENTRAL_CROP_SIZE)
+    return scale_to_1_1(flow_to_uint8(cropped))
 
 
 class ExtractI3D(BaseExtractor):
@@ -179,20 +252,30 @@ class ExtractI3D(BaseExtractor):
         return [got[i] for i in kept], fps, [i * mspf for i in kept]
 
     def _decode(self, path: str, grid=None):
-        """(min-side-256 float32 frames, fps, timestamps_ms)."""
+        """(min-side-256 float32 frames, fps, timestamps_ms); under
+        ``--preprocess device`` the raw uint8 frames, resized on the
+        device."""
         frames, fps, timestamps_ms = self._sample_frames(path, grid)
         if not frames:
             raise CorruptVideoError(f"no frames decoded from {path}")
+        if self._device_preprocess_enabled():
+            return frames, fps, timestamps_ms
         return [pil_resize(f, MIN_SIDE_SIZE).astype(np.float32) for f in frames], fps, timestamps_ms
 
     def prepare(self, entry):
-        """Host half: (min-side-256 float32 frames, fps, timestamps_ms), or
-        ("deferred", entry) over the prefetch cap."""
+        """Host half: (min-side-256 float32 frames, fps, timestamps_ms),
+        raw frames under ``--preprocess device``, or ("deferred", entry)
+        over the prefetch cap (counted in resized float32 frames; raw
+        frames are restated in those units from the source resolution)."""
         path = video_path_of(entry)
         grid = self._sample_grid(path)
         cap = self._prefetch_frame_cap(self.PIPELINE_MAX_BYTES, self._FRAME_BYTES,
                                        floor=DEFAULT_STACK_SIZE + 1)
-        if len(grid[1]) > cap:
+        cost = len(grid[1])
+        if self._device_preprocess_enabled():
+            h, w = frame_size(path)
+            cost = max(cost * h * w * 3 // self._FRAME_BYTES, 1)
+        if cost > cap:
             return ("deferred", entry)
         return self._decode(path, grid)
 
@@ -216,18 +299,32 @@ class ExtractI3D(BaseExtractor):
         zero-padded to that size (so a fused group runs at the solo path's
         shapes), each stream's features on their way to the host."""
         device = device_of(models)
+        geom = None
+        if self._device_preprocess_enabled() and stacks:
+            frames0 = stacks[0][0]
+            geom = _device_geometry(*frames0[0].shape[:2], int(self.config.spatial_bucket),
+                                    self.flow_type)
+            taps = {k: self._device_taps(geom[k], device) for k in ("rgb", "flow")}
         outs = []
         with torch.inference_mode():
             for g0 in range(0, len(stacks), self.stack_batch):
                 chunk = stacks[g0 : g0 + self.stack_batch]
                 x = stack_group([np.stack(f[s:e]) for f, s, e in chunk], pad_to=self.stack_batch)
+                if geom is not None:  # raw uint8 onto the spatial bucket
+                    x = pad_hw(x, *geom["bucket"])
                 x = place_batch(x, device)  # (B, S+1, H, W, 3)
                 feats = {}
                 for stream in self.streams:
-                    if stream == "rgb":
+                    if stream == "rgb" and geom is None:
                         f, _ = models["rgb"](rgb_chain(x[:, :-1]))
-                    else:
+                    elif stream == "rgb":
+                        f, _ = models["rgb"](scale_to_1_1(
+                            device_resize_frames(x[:, :-1], *taps["rgb"])))
+                    elif geom is None:
                         f, _ = models["flow"](flow_chain(self.flow(models, x)))
+                    else:  # the taps put the frames on the flow net's grid
+                        flow = models[self.flow_type](device_resize_frames(x, *taps["flow"]))
+                        f, _ = models["flow"](flow_chain(flow, geom["crop"]))
                     feats[stream] = HostCopy(f[: len(chunk)])
                 outs.append(feats)
         return outs
@@ -268,6 +365,8 @@ class ExtractI3D(BaseExtractor):
         frames = payload[0]
         if len(frames) > self.AGG_MAX_FRAMES or len(frames) < self.stack_size + 1:
             return None
+        # under --preprocess device the frames are raw, so this is the source
+        # resolution, and the group shares one geometry
         return (frames[0].shape[:2], self.stack_size, self.step_size, tuple(self.streams),
                 self.flow_type)
 

@@ -4,7 +4,9 @@ Counterpart of ``video_features_tpu/models/raft/extract_raft.py``: the
 shared pair-window runtime (``models/common/flow_extract.py``) with RAFT,
 whose frames are replicate-padded to multiples of 8 (with a 128-px floor)
 before the model and whose flow is unpadded after it. Flow comes back at
-the frames' resolution as ``<stem>_raft.npy`` (T-1, 2, H, W).
+the frames' resolution as ``<stem>_raft.npy`` (T-1, 2, H, W). Under
+``--preprocess device`` the taps place the resized image on that padded
+grid, the replicate pad inside the resize (``_device_grid``).
 """
 
 from __future__ import annotations
@@ -65,3 +67,10 @@ class ExtractRAFT(PairwiseFlowExtractor):
 
     def _make_padder(self, shape):
         return InputPadder(shape)
+
+    def _device_grid(self, oh: int, ow: int):
+        # InputPadder's target grid, the image where its 'sintel' pad puts
+        # it (pad // 2 on the top and left), so the padder's unpad slices
+        # the same region
+        tgt_h, tgt_w = input_grid(oh, ow)
+        return tgt_h, tgt_w, (tgt_h - oh) // 2, (tgt_w - ow) // 2

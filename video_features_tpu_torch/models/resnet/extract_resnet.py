@@ -1,17 +1,23 @@
 """ResNet frame-feature extractor.
 
-Counterpart of the serial host path of
-``video_features_tpu/models/resnet/extract_resnet.py``. Per video: frames
-stream from the decoder (``--extraction_fps`` picks them on the target
-grid), each goes through torchvision's Resize(256) / CenterCrop(224) /
-Normalize chain on the host (``imagenet_preprocess``, byte-identical to
-the JAX package), and ``--batch_size`` frames go through the device at a
-time, the tail batch zero-padded to that size and its surplus rows cut.
-``--show_pred`` prints each frame's top-5 ImageNet classes. With
-``--video_batch N`` the frames of N videos re-chunk into
-``N * batch_size``-row forwards. Not ported yet: the JAX package's
-streaming fallback for a video too long to prefetch, and the
-``--preprocess device`` payloads of its hooks (ROADMAP queue 1, item 7).
+Counterpart of ``video_features_tpu/models/resnet/extract_resnet.py``.
+Per video: frames stream from the decoder (``--extraction_fps`` picks
+them on the target grid), each goes through torchvision's Resize(256) /
+CenterCrop(224) / Normalize chain on the host (``imagenet_preprocess``,
+byte-identical to the JAX package), and ``--batch_size`` frames go
+through the device at a time, the tail batch zero-padded to that size and
+its surplus rows cut. ``--show_pred`` prints each frame's top-5 ImageNet
+classes. With ``--video_batch N`` the frames of N videos re-chunk into
+``N * batch_size``-row forwards.
+
+``--preprocess device``: the batches hold the raw uint8 frames padded to
+their spatial bucket, with the bilinear resize + crop taps of their
+source resolution; the chain runs on the device before the model
+(``device_preprocess_frames``), and in a fused group each row carries its
+video's taps. A video longer than its prefetch cap (a byte budget over
+the resident prepared videos; under ``--preprocess device`` counted in
+bucket-sized uint8 frames) is handed over as ``("stream", entry)`` and
+decoded batch by batch at dispatch, so it is never held whole.
 
 Output: ``{resnetXX: (T, 512 * expansion), fps, timestamps_ms}``, 2048-d
 for resnet50 and deeper.
@@ -25,7 +31,7 @@ import numpy as np
 import torch
 
 from video_features_tpu_torch.extract.base import BaseExtractor, device_of
-from video_features_tpu_torch.extract.ingest import HostCopy, place_batch
+from video_features_tpu_torch.extract.ingest import HostCopy, place_batch, stack_taps
 from video_features_tpu_torch.io.paths import video_path_of
 from video_features_tpu_torch.io.video import (
     CorruptVideoError,
@@ -40,8 +46,14 @@ from video_features_tpu_torch.models.common.weights import (
 )
 from video_features_tpu_torch.models.resnet.convert import convert_state_dict
 from video_features_tpu_torch.models.resnet.model import ResNet, init_weights
-from video_features_tpu_torch.ops.preprocess import imagenet_preprocess
-from video_features_tpu_torch.ops.window import pad_batch
+from video_features_tpu_torch.ops.preprocess import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    device_preprocess_frames,
+    imagenet_preprocess,
+)
+from video_features_tpu_torch.ops.resize import fused_resize_crop_banded
+from video_features_tpu_torch.ops.window import pad_batch, pad_hw, spatial_bucket
 from video_features_tpu_torch.utils.labels import show_predictions_on_dataset
 
 
@@ -61,41 +73,114 @@ class ExtractResNet(BaseExtractor):
             init_weights(model)
         return model.to(device).eval()
 
+    # A prepared video holds its preprocessed fp32 224x224 frames (~600 KB
+    # each); the pipeline keeps decode_workers + 2 prepared videos, so the
+    # byte budget splits into a per-video frame cap. Under --preprocess
+    # device a frame costs its bucket's uint8 bytes instead, so the cap
+    # follows the first decoded frame's resolution.
+    PIPELINE_MAX_BYTES = 4 << 30
+    _FRAME_BYTES = 3 * 224 * 224 * 4
+
+    def _device_geometry(self, h: int, w: int):
+        """(bucket_h, bucket_w, (wt_y, idx_y), (wt_x, idx_x)) of a source
+        resolution: the bilinear Resize(256) + CenterCrop(224) as
+        bucket-padded banded taps."""
+        bh, bw = spatial_bucket(h, w, self.config.spatial_bucket)
+        wt_y, idx_y, wt_x, idx_x = fused_resize_crop_banded(
+            h, w, 256, 224, "bilinear", pad_h=bh, pad_w=bw
+        )
+        return bh, bw, (wt_y, idx_y), (wt_x, idx_x)
+
+    def _batch(self, frames: List[np.ndarray], geom) -> np.ndarray:
+        """Up to ``batch_size`` decoded frames -> one batch padded to
+        ``batch_size`` rows: (B, 3, 224, 224) float32 on the host chain;
+        (B, bh, bw, 3) uint8 on the device chain (``geom``)."""
+        if geom is None:
+            x = np.stack([imagenet_preprocess(f) for f in frames])
+        else:
+            x = pad_hw(np.stack(frames), geom[0], geom[1])
+        return pad_batch(x, self.batch_size)
+
+    def _fps(self, path: str) -> float:
+        return self.config.extraction_fps or fps_or_default(probe(path)[0], path)
+
     def prepare(self, entry):
-        """Host half: (list of (batch_size, 3, 224, 224) batches, their
-        valid row counts, fps, timestamps_ms)."""
+        """Host half: (batches, their valid row counts, fps, timestamps_ms,
+        taps), with taps None on the host chain and the video's
+        ((wt_y, idx_y), (wt_x, idx_x)) under ``--preprocess device``; or
+        ("stream", entry) over the prefetch cap."""
         path = video_path_of(entry)
+        device_pre = self._device_preprocess_enabled()
         frames: List[np.ndarray] = []
+        batches: List[np.ndarray] = []
+        counts: List[int] = []
         timestamps_ms: List[float] = []
+        geom = None
+        cap = self._prefetch_frame_cap(self.PIPELINE_MAX_BYTES, self._FRAME_BYTES, floor=64)
         for frame, ts in stream_frames(path, self.config.extraction_fps):
-            frames.append(imagenet_preprocess(frame))
+            if device_pre and geom is None:
+                geom = self._device_geometry(*frame.shape[:2])
+                cap = self._prefetch_frame_cap(self.PIPELINE_MAX_BYTES,
+                                               geom[0] * geom[1] * 3, floor=64)
+            if len(timestamps_ms) == cap:
+                return ("stream", entry)
+            frames.append(frame)
             timestamps_ms.append(ts)
-        if not frames:
+            if len(frames) == self.batch_size:
+                batches.append(self._batch(frames, geom))
+                counts.append(len(frames))
+                frames = []
+        if frames:
+            batches.append(self._batch(frames, geom))
+            counts.append(len(frames))
+        if not batches:
             raise CorruptVideoError(f"no frames decoded from {path}")
-        batches, counts = [], []
-        for i in range(0, len(frames), self.batch_size):
-            chunk = frames[i : i + self.batch_size]
-            batches.append(pad_batch(np.stack(chunk), self.batch_size))
-            counts.append(len(chunk))
-        fps = self.config.extraction_fps or fps_or_default(probe(path)[0], path)
-        return batches, counts, fps, timestamps_ms
+        return batches, counts, self._fps(path), timestamps_ms, geom and (geom[2], geom[3])
 
-    # --- the device half, split (extract/base.py): every batch's H2D,
-    # forward and D2H enqueued at dispatch, waited for at fetch
-    def dispatch_prepared(self, model: ResNet, payload):
-        batches, counts, fps, timestamps_ms = payload
+    def _forward(self, model: ResNet, x: torch.Tensor, taps):
+        """One placed batch -> (features, logits); under ``--preprocess
+        device`` the resize, crop and normalize run first."""
+        if taps is not None:
+            x = device_preprocess_frames(x, *taps, IMAGENET_MEAN, IMAGENET_STD)
+        return model(x)
+
+    def _dispatch_batch(self, model: ResNet, x: np.ndarray, n: int, taps):
+        """Enqueue one batch: its first ``n`` feature rows (and logits, for
+        ``--show_pred``) on their way to the host."""
+        f, logits = self._forward(model, place_batch(x, device_of(model)), taps)
+        # the 1000-class logits cross only for --show_pred
+        return HostCopy(f[:n]), HostCopy(logits[:n]) if self.config.show_pred else None
+
+    def _stream(self, model: ResNet, entry) -> Dict[str, np.ndarray]:
+        """A video over the prefetch cap: decode and preprocess one batch
+        at a time, interleaved with its forwards, so host memory holds one
+        batch."""
+        path = video_path_of(entry)
         device = device_of(model)
-        outs = []
-        with torch.inference_mode():
-            for x, n in zip(batches, counts):
-                f, logits = model(place_batch(x, device))
-                # the 1000-class logits cross only for --show_pred
-                outs.append((HostCopy(f[:n]),
-                             HostCopy(logits[:n]) if self.config.show_pred else None))
-        return outs, fps, timestamps_ms
+        device_pre = self._device_preprocess_enabled()
+        outs, frames, timestamps_ms = [], [], []
+        geom = taps = None
 
-    def fetch_dispatched(self, handle) -> Dict[str, np.ndarray]:
-        outs, fps, timestamps_ms = handle
+        def run():
+            outs.append(self._dispatch_batch(model, self._batch(frames, geom), len(frames), taps))
+
+        with torch.inference_mode():
+            for frame, ts in stream_frames(path, self.config.extraction_fps):
+                if device_pre and geom is None:
+                    geom = self._device_geometry(*frame.shape[:2])
+                    taps = self._device_taps((geom[2], geom[3]), device)
+                frames.append(frame)
+                timestamps_ms.append(ts)
+                if len(frames) == self.batch_size:
+                    run()
+                    frames = []
+            if frames:
+                run()
+        if not outs:
+            raise CorruptVideoError(f"no frames decoded from {path}")
+        return self._feature_dict(outs, self._fps(path), timestamps_ms)
+
+    def _feature_dict(self, outs, fps, timestamps_ms) -> Dict[str, np.ndarray]:
         feats: List[np.ndarray] = []
         for f, logits in outs:
             feats.append(f.numpy())
@@ -107,27 +192,65 @@ class ExtractResNet(BaseExtractor):
             "timestamps_ms": np.array(timestamps_ms),
         }
 
+    # --- the device half, split (extract/base.py): every batch's H2D,
+    # forward and D2H enqueued at dispatch, waited for at fetch. A streamed
+    # video decodes as it computes, so it completes at dispatch and fetch
+    # passes its dict through.
+    def dispatch_prepared(self, model: ResNet, payload):
+        if isinstance(payload[0], str):  # ("stream", entry): over the cap
+            return ("done", self._stream(model, payload[1]))
+        batches, counts, fps, timestamps_ms, taps = payload
+        if taps is not None:
+            taps = self._device_taps(taps, device_of(model))
+        with torch.inference_mode():
+            outs = [self._dispatch_batch(model, x, n, taps) for x, n in zip(batches, counts)]
+        return ("batched", outs, fps, timestamps_ms)
+
+    def fetch_dispatched(self, handle) -> Dict[str, np.ndarray]:
+        if handle[0] == "done":
+            return handle[1]
+        return self._feature_dict(*handle[1:])
+
     # --- cross-video aggregation (--video_batch): the valid frames of N
     # videos re-chunk into (N * batch_size)-row forwards, so short videos,
-    # whose lone tail batch is mostly padding, share a dispatch. Large
-    # videos (over AGG_MAX_FRAMES valid rows resident while a group fills)
-    # and --show_pred (per-video print order) take the solo path.
+    # whose lone tail batch is mostly padding, share a dispatch. Streamed
+    # and large videos (over AGG_MAX_FRAMES valid rows resident while a
+    # group fills) and --show_pred (per-video print order) take the solo
+    # path. Under --preprocess device the key is the bucketed uint8 batch
+    # shape, so videos of other source resolutions in one bucket fuse:
+    # each row gathers its own video's taps.
     AGG_MAX_FRAMES = 512
 
     def agg_key(self, payload):
-        batches, counts, _, _ = payload
-        if self.config.show_pred or sum(counts) > self.AGG_MAX_FRAMES:
+        if isinstance(payload[0], str) or self.config.show_pred:
             return None
-        return batches[0].shape  # (batch_size, 3, 224, 224)
+        batches, counts, _, _, taps = payload
+        if sum(counts) > self.AGG_MAX_FRAMES:
+            return None
+        shape = batches[0].shape  # (B, 3, 224, 224), or (B, bh, bw, 3) uint8
+        return shape if taps is None else ("dev", shape)
 
     def dispatch_group(self, model: ResNet, payloads):
         group = max(int(self.config.video_batch or 1), 1)
+        device = device_of(model)
         rows, totals = [], []
-        for batches, counts, _, _ in payloads:
+        for batches, counts, _, _, _ in payloads:
             rows.extend(x[:n] for x, n in zip(batches, counts))
             totals.append(sum(counts))
-        outs = self._dispatch_rows_grouped(rows, self.batch_size * group, device_of(model),
-                                           lambda x: model(x)[0])
+        chunk = self.batch_size * group
+        forward = lambda x: model(x)[0]  # noqa: E731
+        if payloads[0][4] is not None:  # --preprocess device: each row its video's taps
+            video_taps = stack_taps([self._device_taps(p[4], device) for p in payloads])
+            row_ids = np.repeat(np.arange(len(payloads)), totals)
+            # the chunks' video ids, in the order the chunks are dispatched
+            chunk_ids = (row_ids[i : i + chunk] for i in range(0, row_ids.size, chunk))
+
+            def forward(x):
+                ids = place_batch(next(chunk_ids), device)
+                taps = tuple((wt[ids], idx[ids]) for wt, idx in video_taps)
+                return self._forward(model, x, taps)[0]
+
+        outs = self._dispatch_rows_grouped(rows, chunk, device, forward)
         return outs, totals, [(p[2], p[3]) for p in payloads]
 
     def fetch_group(self, handle):

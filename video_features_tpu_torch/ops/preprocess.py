@@ -1,14 +1,20 @@
 """Preprocessing: the host PIL resize / center-crop / normalise chain
-(``imagenet_preprocess`` for ResNet), and the I3D input maps
-(``scale_to_1_1``, ``flow_to_uint8``).
+(``imagenet_preprocess`` for ResNet), its device half under
+``--preprocess device`` (``device_resize_frames``,
+``device_preprocess_frames``), and the I3D input maps (``scale_to_1_1``,
+``flow_to_uint8``, ``dynamic_center_crop``).
 
 Counterpart of ``video_features_tpu/ops/preprocess.py``; the PIL chain's
-output is byte-identical (both bottom out in the same PIL calls).
+output is byte-identical (both bottom out in the same PIL calls). The
+device half is plain torch ops, as the JAX package leaves it to XLA: no
+matmul, so TF32 cannot enter, and the taps accumulate in the JAX
+package's order.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import functools
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -98,3 +104,98 @@ def flow_to_uint8(flow: torch.Tensor, bound: float = 20.0) -> torch.Tensor:
     rounds half to even, as ``jnp.round`` does; exactly +bound maps to
     256.0, as in the reference."""
     return torch.round(128.0 + 255.0 / (2 * bound) * flow.clamp(-bound, bound))
+
+
+# --- device half of --preprocess device -------------------------------------
+
+def _banded_resample(x: torch.Tensor, wt: torch.Tensor, idx: torch.Tensor,
+                     axis: int) -> torch.Tensor:
+    """One separable resample pass as a K-tap banded accumulation,
+    ``sum_k x[..., idx[..., k], ...] * wt[..., k]`` along ``axis``, in
+    fp32, one gathered slice at a time in ascending ``k`` (PIL's own tap
+    order, which keeps the <=1/255 parity a dense matmul's reduction
+    order loses). ``idx`` is int64 on ``x``'s device. Taps of shape (P, K)
+    serve every frame; (N, P, K) taps give axis 0's entry i its own (a
+    video of a fused group, or a row of ResNet's re-chunked rows): the
+    gather then indexes axis 0 with an ``arange`` beside the taps, so no
+    index of the output's full shape is built."""
+    shared = wt.dim() == 2
+    bshape = [1] * x.dim()
+    if shared:
+        bshape[axis] = -1
+    else:
+        bshape[0], bshape[axis] = idx.shape[0], idx.shape[1]
+        moved = x.movedim(axis, 1)  # (N, in, ...): both indexed axes lead
+        rows = torch.arange(idx.shape[0], device=x.device).unsqueeze(1)
+    y = None
+    for k in range(wt.shape[-1]):
+        if shared:
+            g = x.index_select(axis, idx[:, k])
+        else:
+            g = moved[rows, idx[:, :, k]].movedim(1, axis)
+        term = g.float() * wt[..., k].reshape(bshape)
+        y = term if y is None else y + term
+    return y
+
+
+def quant8(v: torch.Tensor) -> torch.Tensor:
+    """PIL's uint8 round and clamp, kept as float (``torch.round`` rounds
+    half to even, as ``jnp.round`` does)."""
+    return torch.clamp(torch.round(v), 0.0, 255.0)
+
+
+def device_resize_frames(
+    frames: torch.Tensor,
+    wy: Tuple[torch.Tensor, torch.Tensor],
+    wx: Tuple[torch.Tensor, torch.Tensor],
+) -> torch.Tensor:
+    """Raw uint8 (..., H, W, C) frames -> two banded separable passes
+    against the host-built PIL-semantics taps -> float32 (..., P, Q, C)
+    in [0, 255]. Horizontal first, then vertical, with PIL's uint8
+    rounding after each pass (the identity on the integer outputs of
+    identity taps, so a no-resize contract is exact). ``wy``/``wx`` are
+    (weights, int64 indices) pairs in the layouts of
+    ``device_preprocess_frames``."""
+    w_axis = frames.dim() - 2
+    y = quant8(_banded_resample(frames, wx[0], wx[1], axis=w_axis))
+    return quant8(_banded_resample(y, wy[0], wy[1], axis=w_axis - 1))
+
+
+def device_preprocess_frames(
+    frames: torch.Tensor,
+    wy: Tuple[torch.Tensor, torch.Tensor],
+    wx: Tuple[torch.Tensor, torch.Tensor],
+    mean: Sequence[float],
+    std: Sequence[float],
+) -> torch.Tensor:
+    """``device_resize_frames``, then /255, mean/std normalize and CHW, in
+    fp32: the whole CLIP or ResNet host chain on the card. Tap layouts:
+
+    - frames (T, H, W, C) + wt (P, K) -> (T, C, P, Q): one video;
+    - frames (N, T, H, W, C) + wt (N, P, K) -> (N, T, C, P, Q): a fused
+      ``--video_batch`` group, each video with its own source
+      resolution's taps inside the shared bucket;
+    - frames (R, H, W, C) + wt (R, P, K) -> (R, C, P, Q): rows of several
+      videos (ResNet's re-chunked groups), each with its video's taps.
+    """
+    y = device_resize_frames(frames, wy, wx)
+    y = y.movedim(-1, -3)  # (..., P, Q, C) -> (..., C, P, Q)
+    mean_t, std_t = _channel_stats(tuple(mean), tuple(std), y.device)
+    return ((y / 255.0 - mean_t) / std_t).contiguous()
+
+
+@functools.lru_cache(maxsize=16)
+def _channel_stats(mean: tuple, std: tuple, device: torch.device):
+    """(C, 1, 1) fp32 mean and std on ``device``, made once: a tensor built
+    from a list copies from pageable memory, which would hold the host
+    until the device's queue drains."""
+    return tuple(torch.tensor(v, dtype=torch.float32, device=device).reshape(-1, 1, 1)
+                 for v in (mean, std))
+
+
+def dynamic_center_crop(x: torch.Tensor, top: int, left: int, crop: int) -> torch.Tensor:
+    """Crop ``crop`` x ``crop`` out of the (..., H, W, C) axes at
+    (``top``, ``left``): I3D's flow crop, measured from where the flow
+    grid places the image (a plain slice; eager PyTorch compiles no
+    shape, so the offsets need not be inputs)."""
+    return x[..., top : top + crop, left : left + crop, :]
