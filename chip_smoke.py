@@ -89,16 +89,32 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     split into decode and preprocess; CLIP's warm pipelined videos/s in
     both modes; the bytes and pinning time of a ``--video_batch 4`` group
     and a fused forward's idle share in both modes;
-15. a ``kernels`` JSON line (each kernel's launches on its main path, in
-    the fused runs and in the device preprocess runs, and its records at
-    the fused shapes), then the ``ok`` JSON line last.
+15. telemetry and preflight, at the CLI's defaults (``--telemetry on``,
+    ``--preflight on``): CLIP (full width, ``uni_12``, ``--attn flash
+    --decode_workers 2 --preprocess device --profile_dir``) on phase 12's
+    8 clips plus a 4 KiB file of random bytes and an empty file, both
+    failed at stage ``preflight``, permanent, one attempt, no retry; every
+    span row valid against ``telemetry/spans_schema.json``, every done
+    video with ``decode``/``prepare``/``dispatch``/``fetch``/``sink``
+    spans, ``summary.json``'s telemetry block with its throughput and
+    overlap report (printed), and K1's kernel 96 times in the
+    ``--profile_dir`` trace; I3D + PWC on one 129-frame clip under
+    ``--profile_dir`` with K2's kernel 10 times in its trace;
+    ``--telemetry off`` on 4 of the clips (no ``_telemetry/``, the same
+    features); and the telemetry's bookkeeping a video (on minus off over
+    2000 videos on this host) under 1% of CLIP's ms/video, cold and warm;
+16. a ``kernels`` JSON line (each kernel's launches on its main path, in
+    the fused runs, in the device preprocess runs and in the telemetry
+    runs, and its records at the fused shapes), then the ``ok`` JSON line
+    last.
 
 Every CLI run of phases 4-14 passes ``--strict``, so a video that fails
-in isolation fails its phase. Phases 7-11 launch no hand-written kernel:
+in isolation fails its phase (phase 15's first run leaves it out: two of
+its files must fail). Phases 7-11 launch no hand-written kernel:
 RAFT, ResNet, R(2+1)D and VGGish reach no ``pallas_call`` in the JAX
 package, nor does the device preprocess's resample (the JAX package
 leaves it to XLA). Every launch count is read from a run that starts with
-all counts at 0, and each of phases 4-14 prints its wall time.
+all counts at 0, and each of phases 4-15 prints its wall time.
 """
 
 from __future__ import annotations
@@ -202,6 +218,13 @@ INGEST_WAV_SECONDS = 10.0  # 10 examples, bucketed to 16
 # with no resize (RAFT, PWC) the model's input is the host's, bit for bit
 DEVICE_DRIFT = 5e-3
 DEVICE_VIDEO_BATCH = 4
+# the telemetry and preflight phase: the stages every done video's spans
+# cover, the clips of the --telemetry off run, and the bookkeeping cost's
+# sample and ceiling (the JAX package's 1% of a video)
+TELEMETRY_STAGES = ("decode", "prepare", "dispatch", "fetch", "sink")
+TELEMETRY_OFF_VIDEOS = 4
+TELEMETRY_COST_VIDEOS = 2000
+TELEMETRY_COST_CEILING = 0.01
 # the resample's shapes on the main paths: (label, leading axes, source
 # (h, w), taps, per-video taps of a group, normalize), with taps ('fused',
 # resize_to, crop, method) or ('contract', side, grid (h, w), (top, left))
@@ -1637,6 +1660,228 @@ def measure_resample(device):
     return records
 
 
+def schema_errors(row, schema) -> list:
+    """What in one span row breaks ``spans_schema.json`` (required keys,
+    JSON types, the stage enum, minLength, minimum): the schema is draft 7
+    and the card's machine has no validator package."""
+    kinds = {"string": str, "integer": int, "number": (int, float), "null": type(None)}
+    errors = [f"missing {k}" for k in schema["required"] if k not in row]
+    for key, rule in schema["properties"].items():
+        if key not in row:
+            continue
+        value, want = row[key], rule.get("type")
+        types = [want] if isinstance(want, str) else (want or [])
+        if types and not any(isinstance(value, kinds[t]) and not (
+                t in ("integer", "number") and isinstance(value, bool)) for t in types):
+            errors.append(f"{key}={value!r} is not {types}")
+        if "enum" in rule and value not in rule["enum"]:
+            errors.append(f"{key}={value!r} is not in the enum")
+        if isinstance(value, str) and len(value) < rule.get("minLength", 0):
+            errors.append(f"{key} is shorter than {rule['minLength']}")
+        if isinstance(value, (int, float)) and value < rule.get("minimum", value):
+            errors.append(f"{key}={value} is below {rule['minimum']}")
+    return errors
+
+
+def trace_kernel_launches(profile_dir: str, name: str) -> int:
+    """Launches of the device kernels whose name holds ``name`` in the
+    Chrome traces ``--profile_dir`` wrote (``trace-<pid>-<n>.json``)."""
+    paths = sorted(glob.glob(os.path.join(profile_dir, "trace-*.json")))
+    if not paths:
+        raise AssertionError(f"--profile_dir {profile_dir} holds no trace")
+    n = 0
+    for path in paths:
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        n += sum(1 for e in events if str(e.get("cat", "")).lower() == "kernel"
+                 and name in e.get("name", ""))
+    return n
+
+
+def telemetry_cost_us(n: int = TELEMETRY_COST_VIDEOS) -> tuple:
+    """(on, off) host µs a video of the pipelined loop's telemetry: the span
+    shape of a video (prepare with its decode, dispatch with the H2D count,
+    fetch, sink, two counters and a gauge) with ``--telemetry on`` (rows
+    buffered for the drain thread, written to a spans file) and ``off``
+    (the bare per-stage timer), ``n`` videos each, on this host."""
+    import timeit
+
+    from video_features_tpu_torch.runtime.telemetry import Telemetry
+
+    payload = np.zeros((16, 240, 320, 3), np.uint8)
+
+    def one_video(t, key):
+        with t.span("prepare", video=key, attempt=1, worker="cuda:0"):
+            with t.span("decode", video=key):
+                t.metrics.inc("frames_decoded", FRAMES)
+        with t.span("dispatch", video=key, attempt=1, worker="cuda:0"):
+            t.count_h2d(payload)
+        with t.span("fetch", video=key, attempt=1, worker="cuda:0"):
+            pass
+        with t.span("sink", video=key):
+            pass
+        t.metrics.inc("videos_done")
+        t.metrics.set_gauge("queue_depth.pending", 3)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tele_") as tmp:
+        off, on = Telemetry(enabled=False), Telemetry(output_root=tmp, enabled=True)
+        seq = iter(range(4 * n))
+        off_s = timeit.timeit(lambda: one_video(off, f"/videos/{next(seq)}.mp4"), number=n)
+        on_s = timeit.timeit(lambda: one_video(on, f"/videos/{next(seq)}.mp4"), number=n)
+        on.close()
+        if len(on.spans()) != 5 * n:
+            raise AssertionError(f"{len(on.spans())} spans written, expected {5 * n}")
+    return on_s / n * 1e6, off_s / n * 1e6
+
+
+def run_telemetry_path(root: str, device):
+    """Phase 15: the run telemetry and the preflight probe, at the CLI's
+    defaults (--telemetry on, --preflight on). CLIP (full width, uni_12,
+    --attn flash, --decode_workers 2, --preprocess device) on cell 9's 8
+    clips plus a 4 KiB file of random bytes and an empty file, under
+    --profile_dir; I3D + PWC on one 129-frame clip under --profile_dir;
+    --telemetry off on 4 of the clips; and the telemetry's bookkeeping
+    cost a video against CLIP's ms/video. Returns each kernel's launches
+    in its CLI runs."""
+    from video_features_tpu_torch import cli
+    from video_features_tpu_torch.config import ExtractionConfig
+    from video_features_tpu_torch.extract.registry import build_extractor
+    from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
+    from video_features_tpu_torch.ops.flash_attention import flash_attention
+    from video_features_tpu_torch.runtime import faults
+    from video_features_tpu_torch.runtime.telemetry import overlap_report, read_spans
+    from video_features_tpu_torch.telemetry import load_schema
+    from video_features_tpu_torch.utils.synth import synth_video
+
+    clips = [synth_video(os.path.join(root, f"telemetry{i}.mp4"), seed=20 + i)
+             for i in range(CONTRACT_VIDEOS)]
+    noise, empty = os.path.join(root, "noise.mp4"), os.path.join(root, "empty.mp4")
+    with open(noise, "wb") as f:
+        f.write(np.random.default_rng(15).integers(0, 256, 4096, np.uint8).tobytes())
+    open(empty, "wb").close()
+    clip_args = ["--feature_type", "CLIP-ViT-B/32", "--extract_method", f"uni_{FRAMES}",
+                 "--attn", "flash", "--decode_workers", "2", "--preprocess", "device",
+                 "--allow_random_init", "--on_extraction", "save_numpy",
+                 "--tmp_path", os.path.join(root, "tmp")]
+
+    def run(out, videos, *extra):
+        reset_counts()
+        t0 = time.perf_counter()
+        cli.main([*clip_args, "--output_path", os.path.join(root, out), *extra,
+                  "--video_paths", *videos])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, flash_attention.launches, read_features(
+            os.path.join(root, out))
+
+    # 1. CLIP at the defaults, with two files the probe must reject
+    prof = os.path.join(root, "tele_clip_profile")
+    wall, k1, on = run("tele_clip", clips + [noise, empty], "--profile_dir", prof)
+    out = os.path.join(root, "tele_clip")
+    with open(os.path.join(out, "_manifest", "summary.json")) as f:
+        summary = json.load(f)
+    records = list(faults.iter_manifest_records(out))
+    if summary["done"] != CONTRACT_VIDEOS or len(on) != CONTRACT_VIDEOS:
+        raise AssertionError(f"{summary['done']} done, {len(on)} files: {summary['videos']}")
+    for bad in (noise, empty):
+        rec = summary["videos"][bad]
+        retries = [r for r in records if r.get("video") == bad and r.get("status") == "retry"]
+        print(f"telemetry and preflight, {os.path.basename(bad)}: {rec['status']}, stage "
+              f"{rec.get('stage')}, {rec.get('error_class')}, {rec.get('error_type')}, "
+              f"attempts {rec.get('attempts')}: {rec.get('message')}")
+        if (rec["status"], rec.get("stage"), rec.get("error_class"), rec.get("attempts"),
+                retries) != ("failed", "preflight", "permanent", 1, []):
+            raise AssertionError(f"{bad}: {rec}, retries {retries}")
+    schema = load_schema()
+    rows = [r for p in sorted(glob.glob(os.path.join(out, "_telemetry", "spans-*.jsonl")))
+            for r in read_spans(p)]
+    bad_rows = [(r.get("span"), e) for r in rows for e in schema_errors(r, schema)]
+    if not rows or bad_rows:
+        raise AssertionError(f"{len(rows)} span rows; off the schema: {bad_rows[:5]}")
+    stages = {}
+    for r in rows:
+        stages.setdefault(r.get("video"), set()).add(r["stage"])
+    missing = {c: sorted(set(TELEMETRY_STAGES) - stages.get(c, set())) for c in clips}
+    missing = {c: m for c, m in missing.items() if m}
+    if missing:
+        raise AssertionError(f"done videos without spans of every stage: {missing}")
+    tele = summary.get("telemetry")
+    if "telemetry_error" in summary or not tele or not {"throughput", "overlap"} <= set(tele):
+        raise AssertionError(f"summary.json telemetry: {summary.get('telemetry_error')!r}, "
+                             f"keys {sorted(tele or {})}")
+    traced_k1 = trace_kernel_launches(prof, "flash_attention_kernel")
+    ov, tput = tele["overlap"], tele["throughput"]
+    ms_video = 1e3 / tput["videos_per_s"]
+    print(f"telemetry and preflight, CLIP at the defaults + --decode_workers 2 --preprocess "
+          f"device --profile_dir (cold CLI run, model build and profiler included): "
+          f"{CONTRACT_VIDEOS} done + 2 rejected in {wall:.3f} s; summary {tput['videos_per_s']:.3f} "
+          f"videos/s ({ms_video:.2f} ms/video), {tput['decode_fps']:.1f} decode fps; "
+          f"{len(rows)} spans, stages {dict(sorted(tele['stages'].items()))}; "
+          f"counters {tele['counters']}")
+    print(f"telemetry and preflight, CLIP overlap report: wall {ov['wall_s']:.4f} s, host busy "
+          f"{ov['host_busy_s']:.4f} s, device busy {ov['device_busy_s']:.4f} s, overlapped "
+          f"{ov['overlap_s']:.4f} s, efficiency {ov['overlap_efficiency']:.4f} of wall, "
+          f"{ov['overlap_of_device']:.4f} of device busy; device_utilization "
+          f"{tele['device_utilization']:.4f}")
+    print(f"telemetry and preflight, CLIP --profile_dir trace: flash_attention_kernel "
+          f"{traced_k1} launches (wrapper count {k1}, expected {CONTRACT_VIDEOS * LAYERS}); "
+          f"{', '.join(os.path.basename(p) for p in glob.glob(os.path.join(prof, '*')))}")
+    if traced_k1 != CONTRACT_VIDEOS * LAYERS or k1 != CONTRACT_VIDEOS * LAYERS:
+        raise AssertionError(f"K1 launches: trace {traced_k1}, wrapper {k1}")
+
+    # 2. I3D + PWC under --profile_dir
+    clip129 = synth_video(os.path.join(root, "tele_i3d.mp4"), n_frames=I3D_CLIP_FRAMES, seed=0)
+    prof_i3d = os.path.join(root, "tele_i3d_profile")
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(["--feature_type", "i3d", "--flow_type", "pwc", "--allow_random_init",
+              "--on_extraction", "save_numpy", "--strict", "--profile_dir", prof_i3d,
+              "--output_path", os.path.join(root, "tele_i3d"),
+              "--tmp_path", os.path.join(root, "tmp"), "--video_paths", clip129])
+    torch.cuda.synchronize()
+    i3d_wall, k2 = time.perf_counter() - t0, local_correlation_kernel.launches
+    traced_k2 = trace_kernel_launches(prof_i3d, "local_correlation_kernel")
+    want_k2 = I3D_STACKS * len(CORR_LEVELS)
+    print(f"telemetry and preflight, I3D + PWC --profile_dir on one {I3D_CLIP_FRAMES}-frame clip "
+          f"(cold CLI run): {i3d_wall:.3f} s; local_correlation_kernel in the trace {traced_k2} "
+          f"launches (wrapper count {k2}, expected {want_k2})")
+    if traced_k2 != want_k2 or k2 != want_k2:
+        raise AssertionError(f"K2 launches: trace {traced_k2}, wrapper {k2}")
+
+    # 3. --telemetry off on 4 of the clips
+    off_clips = clips[:TELEMETRY_OFF_VIDEOS]
+    _, k1_off, off = run("tele_off", off_clips, "--telemetry", "off", "--strict")
+    shared = {k: on[k] for k in off}
+    err = max_abs_diff(off, shared) if len(off) == len(off_clips) else float("inf")
+    has_dir = os.path.exists(os.path.join(root, "tele_off", "_telemetry"))
+    print(f"telemetry and preflight, --telemetry off on {len(off_clips)} clips: _telemetry/ "
+          f"{'present' if has_dir else 'absent'}; features vs the telemetry run max_abs_err "
+          f"{err:.3e} (tol {CONTRACT_ATOL:g}); flash_attention launches {k1_off}")
+    if has_dir or not err <= CONTRACT_ATOL or k1_off != TELEMETRY_OFF_VIDEOS * LAYERS:
+        raise AssertionError(f"--telemetry off: _telemetry {has_dir}, err {err}, K1 {k1_off}")
+
+    # 4. the bookkeeping cost, against CLIP's ms/video on the card: the
+    # cold run's above, and a warm pass of the same pipelined extractor
+    ex = build_extractor(ExtractionConfig(
+        feature_type="CLIP-ViT-B/32", video_paths=clips, extract_method=f"uni_{FRAMES}",
+        attn="flash", allow_random_init=True, decode_workers=2, preprocess="device"),
+        external_call=True)
+    ex(device=device)  # model build, cuBLAS and allocator set-up
+    t0 = time.perf_counter()
+    ex(device=device)  # ends in copies to the host
+    warm_ms = (time.perf_counter() - t0) / CONTRACT_VIDEOS * 1e3
+    on_us, off_us = telemetry_cost_us()
+    cost_us = max(on_us - off_us, 0.0)
+    shares = {"cold": cost_us / (ms_video * 1e3), "warm": cost_us / (warm_ms * 1e3)}
+    print(f"telemetry and preflight, bookkeeping over {TELEMETRY_COST_VIDEOS} videos on this "
+          f"host: on {on_us:.2f} µs/video, off {off_us:.2f} µs/video, cost {cost_us:.2f} "
+          f"µs/video = {shares['cold']:.4%} of the cold run's {ms_video:.2f} ms/video and "
+          f"{shares['warm']:.4%} of a warm pass's {warm_ms:.2f} ms/video (ceiling "
+          f"{TELEMETRY_COST_CEILING:.0%})")
+    if not max(shares.values()) < TELEMETRY_COST_CEILING:
+        raise AssertionError(f"telemetry bookkeeping {cost_us:.2f} µs/video: {shares}")
+    return {"flash_attention": k1 + k1_off, "local_correlation": k2}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1674,15 +1919,17 @@ def main() -> int:
             ("run contract", lambda: run_contract_path(root, device)),
             ("async ingest", lambda: run_ingest_path(root, device)),
             ("device preprocess", lambda: run_device_path(root, device)),
+            ("telemetry and preflight", lambda: run_telemetry_path(root, device)),
         ]
         results = {}
         for name, phase in phases:
             t0 = time.perf_counter()
             results[name] = phase()
             print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
-        # each kernel's launches: its main path's run, then the fused runs
-        # and the device preprocess runs
-        later = [results["async ingest"], results["device preprocess"]]
+        # each kernel's launches: its main path's run, then the fused runs,
+        # the device preprocess runs and the telemetry runs
+        later = [results["async ingest"], results["device preprocess"],
+                 results["telemetry and preflight"]]
         k1_launches = results["CLIP"] + sum(r["flash_attention"] for r in later)
         k2_launches = results["I3D + PWC"] + sum(r["local_correlation"] for r in later)
 

@@ -178,7 +178,8 @@ def _argv(videos, out, *extra):
 
 def test_strict_corrupt_clip_exits_nonzero(sample_video, tmp_path, small_tower):
     """A corrupt clip among good ones: the run exits nonzero under
-    --strict, the record says failed and permanent, the good clip's file
+    --strict, the record says failed and permanent (the default
+    ``--preflight on`` rejects it before any decode), the good clip's file
     is written, and the JAX package's merge reads the port's summary to
     the same counts."""
     bad = tmp_path / "broken.mp4"
@@ -190,7 +191,8 @@ def test_strict_corrupt_clip_exits_nonzero(sample_video, tmp_path, small_tower):
     assert (summary["done"], summary["failed"], summary["retries"]) == (1, 1, 0)
     rec = summary["videos"][str(bad)]
     assert rec["status"] == "failed" and rec["error_class"] == "permanent"
-    assert rec["error_type"] == "CorruptVideoError" and rec["attempts"] == 1
+    assert rec["error_type"] == "MediaRejected" and rec["stage"] == "preflight"
+    assert rec["attempts"] == 1
     assert (out / FT / "synth_CLIP-ViT-B-32.npy").exists()
     ref = jax_faults.merge_manifest(str(out))
     assert {k: ref[k] for k in ("done", "failed", "retries", "total")} == \

@@ -215,7 +215,7 @@ def test_decode_notes_reach_the_manifest_as_in_jax(media, tmp_path, workers):
     """No fps and a truncated stream are warnings in both packages' manifests,
     with the same stage, kind and message, so ``--strict`` fails both runs."""
     videos = [media["good"][0], media["fps_zero"], media["truncated"]]
-    port_cfg = _cfg(videos, tmp_path / "port", decode_workers=workers)
+    port_cfg = _cfg(videos, tmp_path / "port", decode_workers=workers, preflight="off")
     Means(port_cfg)(device=torch.device("cpu"))
     jax_cfg = JaxConfig(video_paths=videos, on_extraction="save_numpy", cpu=True, decoder="cv2",
                         preflight="off",

@@ -4,8 +4,9 @@ the ``video-features-tpu-torch`` script).
 The JAX package's flags and output files (``video_features_tpu/cli.py``).
 The run goes to ``cuda:<device_id>`` (one), or to the CPU with ``--cpu``.
 After the run, every record under ``<output_path>/_manifest/`` is merged
-into ``summary.json`` and its one-line outcome printed; with ``--strict``
-a failed video, an empty-feature warning or a worker death exits nonzero.
+into ``summary.json``, with the run's telemetry block, and its one-line
+outcome printed; with ``--strict`` a failed video, an empty-feature
+warning or a worker death exits nonzero.
 """
 
 from __future__ import annotations
@@ -30,8 +31,10 @@ def main(argv=None) -> None:
     try:
         extractor(device=device)
     finally:
-        # merged and printed even when the run raised, so a crashed run
-        # still leaves a record of what completed
+        # the last telemetry drain goes before the merge, so summary.json's
+        # telemetry block covers the whole run; both happen even when the
+        # run raised, so a crashed run still leaves a record of what completed
+        extractor.telemetry.close()
         if extractor.manifest.path is not None:
             summary = finalize_run(cfg.output_path)
             if summary is not None:

@@ -2,13 +2,16 @@
 
 Counterpart of ``video_features_tpu/config.py`` (``ExtractionConfig``,
 ``sanity_check``, ``parse_batch_args``), cut to the fields the CLIP,
-ResNet, R(2+1)D, RAFT, PWC, I3D and VGGish paths and the run contract
-(manifest, retries, ``--strict``, ``--decode_workers``) and the async
-ingest loop (``--video_batch``, ``--inflight_groups``) and the device
+ResNet, R(2+1)D, RAFT, PWC, I3D and VGGish paths read, with the run
+contract (manifest, retries, ``--strict``, ``--decode_workers``), the
+async ingest loop (``--video_batch``, ``--inflight_groups``), the device
 preprocess (``--preprocess``, ``--spatial_bucket``,
-``--frame_delta_threshold``) read. Flag names, meanings and defaults are
-the JAX package's; its ``--sharding mesh`` rules are left out, as the
-port runs on one device.
+``--frame_delta_threshold``), the run telemetry (``--telemetry``,
+``--heartbeat_s``, ``--profile_dir``) and the preflight probe with the
+input caps (``--preflight``, ``--decode_timeout``, ``--max_pixels``,
+``--max_duration_s``, ``--max_decode_bytes``). Flag names, meanings and
+defaults are the JAX package's; its ``--sharding mesh`` rules are left
+out, as the port runs on one device.
 """
 
 from __future__ import annotations
@@ -114,6 +117,30 @@ class ExtractionConfig:
     retry_failed: bool = False
     # test-only STAGE:KIND:EVERY_N fault injection (runtime/faults.py)
     fault_inject: Optional[List[str]] = None
+    # wall-clock seconds a decode may take: a reader past it raises
+    # DecodeTimeout (transient, so retried with a fresh deadline); None is off
+    decode_timeout: Optional[float] = None
+    # probe each input before its first attempt (io/probe.py): 'on' fails
+    # a corrupt or hostile file permanent at stage 'preflight' with zero
+    # retries and records the probe's warnings; 'off' leaves it to decode
+    preflight: str = "on"
+    # input caps, checked at preflight against the declared metadata and
+    # again by the reader over the actual decode; over a cap is a
+    # permanent ResourceCapExceeded; None is off
+    max_pixels: Optional[int] = None  # one frame's width * height
+    max_duration_s: Optional[float] = None  # declared / decoded clip length
+    max_decode_bytes: Optional[int] = None  # RGB bytes one reader may yield
+    # --- run telemetry (runtime/telemetry.py) ---
+    # 'on': per-stage spans to <output>/_telemetry/spans-*.jsonl, metrics
+    # snapshots, and a telemetry block in summary.json; 'off': the bare
+    # per-stage timer
+    telemetry: str = "on"
+    # seconds between heartbeat progress lines on stderr during save runs;
+    # 0 disables
+    heartbeat_s: float = 30.0
+    # write a torch.profiler trace (host and CUDA) of the run and print the
+    # per-stage wall time (utils/profiling.py)
+    profile_dir: Optional[str] = None
     # --- the async ingest loop (extract/base.py, extract/ingest.py) ---
     # fuse up to N prepared videos of one shape key into one device
     # dispatch (needs decode_workers >= 1); 1 is off
@@ -202,6 +229,18 @@ def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
         raise ValueError(f"retries must be >= 0, got {cfg.retries}")
     if cfg.retry_backoff < 0:
         raise ValueError(f"retry_backoff must be >= 0, got {cfg.retry_backoff}")
+    if cfg.decode_timeout is not None and cfg.decode_timeout <= 0:
+        raise ValueError(f"decode_timeout must be > 0, got {cfg.decode_timeout}")
+    if cfg.preflight not in ("on", "off"):
+        raise ValueError(f"preflight must be 'on' or 'off', got {cfg.preflight!r}")
+    if cfg.max_pixels is not None and cfg.max_pixels < 1:
+        raise ValueError(f"max_pixels must be >= 1, got {cfg.max_pixels}")
+    if cfg.max_duration_s is not None and cfg.max_duration_s <= 0:
+        raise ValueError(f"max_duration_s must be > 0, got {cfg.max_duration_s}")
+    if cfg.max_decode_bytes is not None and cfg.max_decode_bytes < 1:
+        raise ValueError(
+            f"max_decode_bytes must be >= 1, got {cfg.max_decode_bytes}"
+        )
     if cfg.retry_failed and not cfg.resume:
         raise ValueError(
             "--retry_failed only modifies --resume (it re-attempts videos "
@@ -255,6 +294,10 @@ def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
     if cfg.spatial_bucket < 1:
         raise ValueError(f"spatial_bucket must be >= 1, got {cfg.spatial_bucket}")
     parse_fault_specs(cfg.fault_inject)  # raises naming the bad spec
+    if cfg.telemetry not in ("on", "off"):
+        raise ValueError(f"telemetry must be 'on' or 'off', got {cfg.telemetry!r}")
+    if cfg.heartbeat_s < 0:
+        raise ValueError(f"heartbeat_s must be >= 0, got {cfg.heartbeat_s}")
     return cfg
 
 
@@ -324,6 +367,39 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="TEST-ONLY deterministic fault injection: raise/stall at "
                         "STAGE (decode|prepare|dispatch|sink) every N calls; KIND "
                         "in error|corrupt|hang|oom|compile|kill; repeatable")
+    p.add_argument("--decode_timeout", type=float, default=None,
+                   help="wall-clock seconds per decode before a DecodeTimeout "
+                        "(transient -> retried with a fresh deadline)")
+    p.add_argument("--preflight", choices=["on", "off"], default="on",
+                   help="probe each input before its first attempt "
+                        "(io/probe.py): hostile/corrupt media fails "
+                        "permanent with the probe's reason and zero "
+                        "retries; 'off' restores discover-at-decode")
+    p.add_argument("--max_pixels", type=int, default=None,
+                   help="reject/abort any input whose frames exceed this "
+                        "many pixels (width*height) — checked against "
+                        "declared metadata at preflight AND against "
+                        "actual decoded frames")
+    p.add_argument("--max_duration_s", type=float, default=None,
+                   help="reject/abort any input longer than this many "
+                        "seconds (declared at preflight; enforced again "
+                        "over actual decode)")
+    p.add_argument("--max_decode_bytes", type=int, default=None,
+                   help="abort any single video whose decoded RGB bytes "
+                        "exceed this budget (a lying frame_count/"
+                        "resolution header cannot blow host RAM)")
+    p.add_argument("--telemetry", choices=["on", "off"], default="on",
+                   help="structured telemetry: per-stage spans to "
+                        "<output>/_telemetry/spans-*.jsonl, metrics + "
+                        "overlap-efficiency block in summary.json, and a "
+                        "heartbeat progress line (default on)")
+    p.add_argument("--heartbeat_s", type=float, default=30.0,
+                   help="seconds between telemetry heartbeat lines "
+                        "(videos/sec, decode fps, ETA) on stderr; 0 "
+                        "disables")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace (host and CUDA, "
+                        "Chrome-trace JSON) + stage timing summary")
     p.add_argument("--video_batch", type=int, default=1,
                    help="aggregate up to N videos' prepared batches into "
                         "one device dispatch (every feature type); 1 = off")

@@ -20,7 +20,23 @@ The run contract (``runtime/faults.py``):
   video's failure plus one ``worker_death`` event, and stops the loop:
   the videos not yet attempted get no record, so ``--resume`` runs them;
 - ``--resume`` skips a video whose output files all exist, or that an
-  earlier run recorded as a permanent failure (unless ``--retry_failed``).
+  earlier run recorded as a permanent failure (unless ``--retry_failed``);
+- with ``--preflight on`` (the default) each video is probed before its
+  first attempt (``io/probe.py``): a file the probe rejects fails
+  permanent at stage ``preflight`` with zero retries, and the probe's
+  cautions are recorded as warnings.
+
+Run telemetry (``runtime/telemetry.py``, ``--telemetry on``, the
+default): each stage of a video is a span (``prepare``, ``decode`` from
+the reader, ``h2d``, ``dispatch``, ``fetch``, ``sink``; the serial loop's
+``extract``), with counters (``videos_done``, ``frames_decoded``,
+``h2d_bytes``, ``retries``, ``windows_skipped``), the pipelined loop's
+queue-depth gauges and the shape keys seen. A save run drains them to
+``<output_path>/_telemetry/``, and ``finalize_run`` puts the merged block
+in ``summary.json``; other runs keep the spans in memory. A failure
+record carries the id of the span it failed in. ``--profile_dir`` wraps
+the loop in a ``torch.profiler`` trace (``utils/profiling.py``) and
+prints the per-stage wall time.
 
 With ``--decode_workers N >= 1`` and more than one video the loop is the
 JAX package's ``_run_pipelined``: ``prepare`` runs on N host threads,
@@ -69,10 +85,18 @@ from video_features_tpu_torch.extract.ingest import (
     place_taps,
 )
 from video_features_tpu_torch.io.paths import form_list_from_user_input, video_path_of
-from video_features_tpu_torch.io.video import pop_decode_warnings
+from video_features_tpu_torch.io.probe import ResourceCaps, preflight
 from video_features_tpu_torch.io.sink import action_on_extraction, expected_output_files
+from video_features_tpu_torch.io.video import (
+    pop_decode_warnings,
+    set_decode_timeout,
+    set_resource_caps,
+)
 from video_features_tpu_torch.runtime import faults
+from video_features_tpu_torch.runtime import telemetry as telemetry_mod
 from video_features_tpu_torch.runtime.faults import NULL_MANIFEST, RunManifest
+from video_features_tpu_torch.runtime.telemetry import Telemetry
+from video_features_tpu_torch.utils.profiling import device_trace
 
 
 class LoopStopped(Exception):
@@ -88,6 +112,8 @@ def device_of(state) -> torch.device:
 
 class BaseExtractor:
     feature_type: str = ""
+    # what the preflight probe must find in an input: 'video' or 'audio'
+    media_need: str = "video"
 
     def __init__(self, config: ExtractionConfig, external_call: bool = False) -> None:
         self.config = config
@@ -116,7 +142,25 @@ class BaseExtractor:
         self.manifest = (
             RunManifest(self.config.output_path) if wants_manifest else NULL_MANIFEST
         )
+        # spans and metrics go to <output_path>/_telemetry on the runs that
+        # keep a manifest; external and print runs keep the spans in memory;
+        # --telemetry off leaves the bare per-stage timer
+        wants_telemetry = self.config.telemetry != "off"
+        tele_root = self.config.output_path if wants_manifest and wants_telemetry else None
+        self.telemetry = Telemetry(
+            output_root=tele_root,
+            enabled=wants_telemetry,
+            heartbeat_s=float(self.config.heartbeat_s or 0.0) if tele_root else 0.0,
+            total_videos=len(self.path_list),
+        )
+        self.timer = self.telemetry.timer
+        telemetry_mod.set_current(self.telemetry)
         faults.install_injector(self.config.fault_inject)
+        # --decode_timeout and the input caps: every reader opened from now
+        # on takes them (io/video.py); the probe checks the same caps
+        set_decode_timeout(self.config.decode_timeout)
+        self._resource_caps = ResourceCaps.from_config(self.config)
+        set_resource_caps(self._resource_caps)
         self._t0: Dict[str, float] = {}  # video key -> this attempt's start
         self._prior_failed: set = set()
         if self.config.resume and not external_call and not self.config.retry_failed:
@@ -247,12 +291,12 @@ class BaseExtractor:
             hit = self._taps[key] = (taps, place_taps(taps, device))
         return hit[1]
 
-    def _note_delta_gated(self, entry, skipped: int, total: int) -> None:
-        """``--frame_delta_threshold``: a video whose gate skipped frames
-        gets a ``delta_gated`` manifest event (the JAX package's
-        ``_note_windows_skipped``, whose ``windows_skipped`` metric waits
-        for telemetry, ROADMAP item 5)."""
+    def _note_windows_skipped(self, entry, skipped: int, total: int) -> None:
+        """``--frame_delta_threshold``: the frames a video's gate skipped
+        count into the ``windows_skipped`` metric and a ``delta_gated``
+        manifest event."""
         if skipped > 0:
+            self.telemetry.metrics.inc("windows_skipped", skipped)
             self.manifest.event("delta_gated", video=self._video_key(entry),
                                 skipped=skipped, total=total)
 
@@ -283,12 +327,18 @@ class BaseExtractor:
         indices = [int(i) for i in indices]
         results: List = []  # external_call: (position, feats_dict) pairs
         try:
-            if len(indices) > 1 and int(self.config.decode_workers or 0) >= 1:
-                self._run_pipelined(indices, state, results)
-            else:
-                self._run_serial(indices, state, results)
+            with device_trace(self.config.profile_dir):
+                if len(indices) > 1 and int(self.config.decode_workers or 0) >= 1:
+                    self._run_pipelined(indices, state, results)
+                else:
+                    self._run_serial(indices, state, results)
         finally:
             self.manifest.close()
+        # the stage totals reach summary.json through the metrics snapshot;
+        # the printed summary stays behind --profile_dir
+        self.telemetry.flush()
+        if self.config.profile_dir:
+            print(self.timer.summary())
         if self.external_call:
             return [d for _, d in sorted(results, key=lambda t: t[0])]
         return None
@@ -297,6 +347,7 @@ class BaseExtractor:
     def _run_serial(self, indices, state, results) -> None:
         """Each video prepared and computed in turn, over a retry deque: a
         retry goes to the back with its backoff deadline (``not_before``)."""
+        wid = self._device_label
         queue: deque = deque((pos, idx, 1, 0.0) for pos, idx in enumerate(indices))
         while queue:
             pos, idx, attempt, not_before = queue.popleft()
@@ -312,7 +363,11 @@ class BaseExtractor:
             self._mark_start(entry)
             try:
                 try:
-                    feats_dict = self.extract_prepared(state, self.prepare(entry))
+                    if attempt == 1:
+                        self._preflight_entry(entry)
+                    with self.telemetry.span("extract", video=self._video_key(entry),
+                                             attempt=attempt, worker=wid):
+                        feats_dict = self.extract_prepared(state, self.prepare(entry))
                 finally:
                     self._drain_decode_warnings(entry)  # decoded on this thread
                 self._sink_or_collect(feats_dict, entry, results, pos)
@@ -331,12 +386,14 @@ class BaseExtractor:
             self._on_success(entry, attempt)
 
     def _run_pipelined(self, indices, state, results) -> None:
-        """The JAX package's ``_run_pipelined`` (module docstring), without
-        its telemetry (ROADMAP queue 1, item 5: each span's place is
-        marked). ``prepare`` runs on ``--decode_workers`` host threads; the
-        device half on this thread. A retry re-enters ``pending`` as a
-        fresh prepare future once its backoff timer fires, from any drain,
-        so the final drain is one loop that also waits on armed timers."""
+        """The JAX package's ``_run_pipelined`` (module docstring), with its
+        spans, counters and queue-depth gauges. ``prepare`` (and the
+        preflight probe of a first attempt) runs on ``--decode_workers``
+        host threads; the device half on this thread. A retry re-enters
+        ``pending`` as a fresh prepare future once its backoff timer
+        fires, from any drain, so the final drain is one loop that also
+        waits on armed timers."""
+        wid = self._device_label
         workers = max(1, int(self.config.decode_workers))
         depth = workers + 1  # prepared and waiting beyond the one consumed
         split = self._supports_device_pipeline()
@@ -353,12 +410,15 @@ class BaseExtractor:
 
         def prep(entry, attempt: int):
             self._mark_start(entry)
-            # telemetry: the "prepare" span
-            faults.fire("prepare")
-            try:
-                return self.prepare(entry)
-            finally:
-                self._drain_decode_warnings(entry)  # this worker's notes
+            with self.telemetry.span("prepare", video=self._video_key(entry),
+                                     attempt=attempt, worker=wid):
+                faults.fire("prepare")
+                if attempt == 1:  # a reject fails permanent from the future
+                    self._preflight_entry(entry)
+                try:
+                    return self.prepare(entry)
+                finally:
+                    self._drain_decode_warnings(entry)  # this worker's notes
 
         def requeue(pos, idx, attempt):
             def do(delay: float) -> None:
@@ -391,8 +451,10 @@ class BaseExtractor:
                 try:
                     if inject:
                         faults.fire("dispatch")
-                    # telemetry: the "dispatch" span and the H2D count
-                    feats_dict = self.extract_prepared(state, payload)
+                    with self.telemetry.span("dispatch", video=self._video_key(entry),
+                                             attempt=attempt, worker=wid):
+                        self.telemetry.count_h2d(payload)
+                        feats_dict = self.extract_prepared(state, payload)
                 finally:
                     self._drain_decode_warnings(entry)  # a streamed payload decodes here
             except KeyboardInterrupt:
@@ -428,11 +490,12 @@ class BaseExtractor:
             if only_ready and not inflight.head_ready():
                 return False
             slots, handle, grouped, payloads = inflight.pop()
+            self.telemetry.metrics.set_gauge("queue_depth.inflight", len(inflight))
             if grouped:
                 fused_err = None
                 try:
-                    # telemetry: the "fetch" span
-                    dicts = self.fetch_group(handle)
+                    with self.telemetry.span("fetch", worker=wid, group_size=len(slots)):
+                        dicts = self.fetch_group(handle)
                 except KeyboardInterrupt:
                     raise
                 except Exception as exc:  # noqa: BLE001 - a fused fetch fails together
@@ -450,8 +513,9 @@ class BaseExtractor:
                 return True
             pos, idx, attempt, entry = slots[0]
             try:
-                # telemetry: the "fetch" span
-                feats_dict = self.fetch_dispatched(handle)
+                with self.telemetry.span("fetch", video=self._video_key(entry),
+                                         attempt=attempt, worker=wid):
+                    feats_dict = self.fetch_dispatched(handle)
             except KeyboardInterrupt:
                 raise
             except Exception:  # noqa: BLE001 - classify, maybe retry
@@ -474,10 +538,13 @@ class BaseExtractor:
             try:
                 # one dispatch injection per group: the group is one dispatch
                 faults.fire("dispatch")
-                # telemetry: the "h2d" span and the H2D count
-                staged = self.transfer_group(state, payloads)
-                # telemetry: the "dispatch" span
-                handle = self.dispatch_group(state, staged if staged is not None else payloads)
+                with self.telemetry.span("h2d", worker=wid, group_size=len(items)):
+                    for p in payloads:
+                        self.telemetry.count_h2d(p)
+                    staged = self.transfer_group(state, payloads)
+                with self.telemetry.span("dispatch", worker=wid, group_size=len(items)):
+                    handle = self.dispatch_group(state,
+                                                 staged if staged is not None else payloads)
             except KeyboardInterrupt:
                 raise
             except Exception as exc:  # noqa: BLE001 - a fused dispatch fails together
@@ -490,6 +557,7 @@ class BaseExtractor:
                 return
             inflight.push([(pos, idx, att, e) for pos, idx, att, e, _ in items],
                           handle, True, payloads)
+            self.telemetry.metrics.set_gauge("queue_depth.inflight", len(inflight))
             drain_to_capacity()
 
         def dispatch_single(pos, idx, attempt, entry, payload) -> None:
@@ -499,8 +567,10 @@ class BaseExtractor:
             try:
                 try:
                     faults.fire("dispatch")
-                    # telemetry: the "dispatch" span and the H2D count
-                    handle = self.dispatch_prepared(state, payload)
+                    with self.telemetry.span("dispatch", video=self._video_key(entry),
+                                             attempt=attempt, worker=wid):
+                        self.telemetry.count_h2d(payload)
+                        handle = self.dispatch_prepared(state, payload)
                 finally:
                     self._drain_decode_warnings(entry)  # a streamed payload decodes here
             except KeyboardInterrupt:
@@ -509,15 +579,24 @@ class BaseExtractor:
                 self._on_failure(entry, "dispatch", attempt, requeue=requeue(pos, idx, attempt))
             else:
                 inflight.push([(pos, idx, attempt, entry)], handle, False, None)
+                self.telemetry.metrics.set_gauge("queue_depth.inflight", len(inflight))
             drain_to_capacity()
 
         def consume_one() -> None:
             pos, idx, attempt, fut = pending.popleft()
-            # telemetry: the queue-depth gauges (pending, inflight, prepared)
+            # how full the host-to-device pipeline is at each consume:
+            # prepare futures, payloads waiting in group buffers, dispatches
+            metrics = self.telemetry.metrics
+            metrics.set_gauge("queue_depth.pending", len(pending))
+            metrics.set_gauge("queue_depth.inflight", len(inflight))
+            metrics.set_gauge("queue_depth.prepared",
+                              sum(len(b) for b in groups.values()) if agg else 0)
             entry = self.path_list[idx]
             try:
                 payload = fut.result()
                 key = self.agg_key(payload) if agg else None
+                if key is not None:
+                    self.telemetry.note_bucket(key)
             except KeyboardInterrupt:
                 raise
             except Exception:  # noqa: BLE001 - prepare or decode failed: classify
@@ -532,7 +611,8 @@ class BaseExtractor:
                 return
             dispatch_single(pos, idx, attempt, entry, payload)
 
-        with ThreadPoolExecutor(max_workers=workers, thread_name_prefix="decode") as pool:
+        with ThreadPoolExecutor(max_workers=workers,
+                                thread_name_prefix=f"decode-{wid}") as pool:
             try:
                 for pos, idx in enumerate(indices):
                     entry = self.path_list[idx]
@@ -566,10 +646,11 @@ class BaseExtractor:
         if self.external_call:
             results.append((order, feats_dict))
             return
-        warnings = action_on_extraction(
-            feats_dict, video_path_of(entry), self.output_path,
-            self.config.on_extraction, self.config.output_direct,
-        )
+        with self.telemetry.span("sink", video=self._video_key(entry)):
+            warnings = action_on_extraction(
+                feats_dict, video_path_of(entry), self.output_path,
+                self.config.on_extraction, self.config.output_direct,
+            )
         for w in warnings:  # empty features: --strict fails the run on them
             self.manifest.record(self._video_key(entry), "warning", stage="sink", message=w)
 
@@ -585,6 +666,7 @@ class BaseExtractor:
         return time.monotonic() - t0 if t0 is not None else None
 
     def _on_success(self, entry, attempt: int) -> None:
+        self.telemetry.metrics.inc("videos_done")
         self.manifest.record(
             self._video_key(entry), "done", attempts=attempt, wall_s=self._wall(entry)
         )
@@ -610,8 +692,14 @@ class BaseExtractor:
             message=str(exc) if exc is not None else None,
             attempts=attempt, wall_s=self._wall(entry),
         )
+        # the failing stage's span (stamped by Telemetry.span on the way
+        # out, innermost wins) links the record to _telemetry/spans-*.jsonl
+        span_id = getattr(exc, "telemetry_span", None)
+        if span_id is not None:
+            record["span"] = span_id
         if requeue is not None and faults.is_retryable(error_class) and attempt <= retries:
             delay = faults.backoff_delay(attempt, float(self.config.retry_backoff), video)
+            self.telemetry.metrics.inc("retries")
             self.manifest.record(video, "retry", **record)
             print(
                 f"Transient {stage} failure for {video} (attempt {attempt}/{retries + 1}): "
@@ -633,11 +721,13 @@ class BaseExtractor:
         record, for ``--resume``."""
         exc = sys.exc_info()[1]
         stage = getattr(exc, "stage", None) or stage
+        span_id = getattr(exc, "telemetry_span", None)
         for entry, attempt in members:
             self.manifest.record(
                 self._video_key(entry), "failed", stage=stage,
                 error_class=faults.classify_error(exc), error_type=type(exc).__name__,
                 message=str(exc), attempts=attempt, wall_s=self._wall(entry),
+                **({"span": span_id} if span_id is not None else {}),
             )
         self.manifest.event(
             "worker_death", device=getattr(self, "_device_label", None), phase=stage,
@@ -649,6 +739,21 @@ class BaseExtractor:
         print("Stopping: every later launch in this process would fail the same way; "
               "the videos not attempted yet are left for --resume.")
         raise LoopStopped(str(exc)) from exc
+
+    def _preflight_entry(self, entry) -> None:
+        """``--preflight on``: probe the input before its first attempt,
+        record the probe's cautions as warnings, and raise its permanent
+        error on a reject (``MediaRejected``, or ``ResourceCapExceeded``
+        over a cap), stage ``preflight``, before any decode or retry is
+        spent on it."""
+        if self.config.preflight != "on":
+            return
+        video = self._video_key(entry)
+        report = preflight(video, need=self.media_need, caps=self._resource_caps)
+        for w in report.warnings:
+            self.manifest.record(video, "warning", stage="preflight", message=w)
+        if report.verdict == "reject":
+            raise report.to_error()
 
     def _drain_decode_warnings(self, entry) -> None:
         """This thread's decode notes (``io/video.py``) into the manifest

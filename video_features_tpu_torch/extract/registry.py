@@ -11,6 +11,13 @@ from video_features_tpu_torch.config import (
 )
 
 
+def media_need_for(feature_type: str) -> str:
+    """What the preflight probe must find in this feature type's input
+    ('video' or 'audio'), without building the extractor: each extractor
+    class's ``media_need``."""
+    return "audio" if feature_type in VGGISH_FEATURE_TYPES else "video"
+
+
 def build_extractor(cfg: ExtractionConfig, external_call: bool = False):
     if cfg.feature_type in CLIP_FEATURE_TYPES:
         from video_features_tpu_torch.models.clip.extract_clip import ExtractCLIP

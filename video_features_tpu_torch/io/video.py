@@ -11,23 +11,41 @@ Decode notes: a source without a usable fps (timestamps then assume
 declared frame count (``partial_decode``) are noted on the decoding
 thread; ``extract/base.py`` drains them (``pop_decode_warnings``) into
 the run manifest as warnings, which ``--strict`` counts.
+
+Each reader is one ``decode`` telemetry span (open to close) and counts
+the frames it converts (``frames_decoded``), through the module hooks of
+``runtime/telemetry.py``. ``--decode_timeout`` (``set_decode_timeout``)
+bounds a reader's lifetime, and the input caps (``set_resource_caps``)
+bound what it decodes: ``--max_pixels`` per frame, ``--max_duration_s``
+in grabbed frames at the declared fps, ``--max_decode_bytes`` over the
+RGB bytes it returns.
 """
 
 from __future__ import annotations
 
 import math
 import threading
+import time
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import cv2
 import numpy as np
 
-from video_features_tpu_torch.runtime import faults
-from video_features_tpu_torch.runtime.faults import CorruptVideoError
+from video_features_tpu_torch.io.probe import MIN_SANE_FPS, NO_CAPS, ResourceCaps
+from video_features_tpu_torch.runtime import faults, telemetry
+from video_features_tpu_torch.runtime.faults import (
+    CorruptVideoError,
+    DecodeTimeout,
+    ResourceCapExceeded,
+)
 
-# declared fps below this is absent fps (hostile headers declare ~1e-10)
-MIN_SANE_FPS = 1e-3
 DEFAULT_FPS = 25.0
+# --decode_timeout and the input caps, installed from the config by
+# BaseExtractor; readers open deep inside the samplers, which take no
+# config, so these are module state, rebound under _CONFIG_LOCK
+_DECODE_TIMEOUT: Optional[float] = None
+_RESOURCE_CAPS: ResourceCaps = NO_CAPS
+_CONFIG_LOCK = threading.Lock()
 
 # decode notes accumulate per THREAD: readers open deep inside the
 # samplers with no manifest in reach, and prepare runs one video at a time
@@ -53,6 +71,25 @@ def pop_decode_warnings() -> List[Dict[str, object]]:
     return items
 
 
+def set_decode_timeout(seconds: Optional[float]) -> None:
+    """Wall-clock budget of a reader's lifetime (``--decode_timeout``): a
+    reader open longer raises :class:`DecodeTimeout` from its next
+    ``grab``. None disables."""
+    global _DECODE_TIMEOUT
+    with _CONFIG_LOCK:
+        _DECODE_TIMEOUT = float(seconds) if seconds else None
+
+
+def set_resource_caps(caps: Optional[ResourceCaps]) -> None:
+    """Install the ``--max_pixels`` / ``--max_duration_s`` /
+    ``--max_decode_bytes`` running budget: every reader opened later
+    takes a snapshot and raises :class:`ResourceCapExceeded` the moment
+    the actual decode crosses a cap."""
+    global _RESOURCE_CAPS
+    with _CONFIG_LOCK:
+        _RESOURCE_CAPS = caps or NO_CAPS
+
+
 def fps_or_default(fps: float, path: str) -> float:
     """``fps``, or the 25.0 fallback for an absent fps, noted so that it
     reaches the manifest instead of becoming a silent default."""
@@ -70,40 +107,99 @@ class _Reader:
     on its cv2 backend): sanitised fps and declared count, frames grabbed,
     and whether the stream ended; ``close`` notes a ``partial_decode``
     when the stream ended more than 5% (at least 2 frames) short of its
-    declared count. A sampler that stops early notes nothing."""
+    declared count. A sampler that stops early notes nothing.
+
+    Its lifetime is one ``decode`` span. A reader past its
+    ``--decode_timeout`` deadline raises :class:`DecodeTimeout` at the
+    next ``grab``; past a cap, :class:`ResourceCapExceeded`."""
 
     def __init__(self, path: str) -> None:
+        self._span = telemetry.begin("decode", video=str(path))
         self._path = str(path)
         self._cap = cv2.VideoCapture(self._path)
         if not self._cap.isOpened():
             self._cap.release()
             raise CorruptVideoError(f"cannot open video: {path}")
-        try:
-            faults.fire("decode")
-        except BaseException:
-            self._cap.release()
-            raise
         fps = self._cap.get(cv2.CAP_PROP_FPS) or 0.0
         self.fps = float(fps) if math.isfinite(fps) and fps >= MIN_SANE_FPS else 0.0
         count = int(self._cap.get(cv2.CAP_PROP_FRAME_COUNT))
         self.frame_count = count if 0 <= count <= 10 ** 9 else 0
+        self.width = int(self._cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+        self.height = int(self._cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+        # a snapshot: a rebind mid-read does not change this reader's budget
+        with _CONFIG_LOCK:
+            timeout, self._caps = _DECODE_TIMEOUT, _RESOURCE_CAPS
+        self._timeout = timeout
+        self._deadline = time.monotonic() + timeout if timeout else None
         self._grabs = 0
+        self._retrieved_bytes = 0
         self._eof = False
+        self._closed = False
+        caps = self._caps
+        if caps.max_pixels is not None and self.width * self.height > caps.max_pixels:
+            self._cap.release()
+            raise ResourceCapExceeded(
+                f"declared frame size {self.width}x{self.height} exceeds "
+                f"--max_pixels {caps.max_pixels}: {path}"
+            )
+        self._max_frames = (
+            int(caps.max_duration_s * (self.fps or DEFAULT_FPS)) + 1
+            if caps.max_duration_s is not None
+            else None
+        )
+        try:
+            # an injected 'decode' fault lands after the open: a hang eats
+            # into this reader's deadline as a stalled demuxer would
+            faults.fire("decode")
+        except BaseException:
+            self._cap.release()
+            raise
 
     def grab(self) -> bool:
-        ok = self._cap.grab()
-        if ok:
-            self._grabs += 1
-        else:
+        if self._deadline is not None and time.monotonic() > self._deadline:
+            raise DecodeTimeout(
+                f"decode exceeded --decode_timeout {self._timeout:g}s: {self._path}"
+            )
+        if not self._cap.grab():
             self._eof = True
-        return ok
+            return False
+        self._grabs += 1
+        if self._max_frames is not None and self._grabs > self._max_frames:
+            raise ResourceCapExceeded(
+                f"decoded past --max_duration_s {self._caps.max_duration_s:g} "
+                f"(~{self._max_frames} frames at {self.fps or DEFAULT_FPS:g} fps) — "
+                f"declared metadata lied: {self._path}"
+            )
+        return True
 
     def retrieve(self) -> Optional[np.ndarray]:
         """The grabbed frame as RGB uint8 HWC, or None."""
         ok, frame = self._cap.retrieve()
-        return cv2.cvtColor(frame, cv2.COLOR_BGR2RGB) if ok else None
+        if not ok:
+            return None
+        frame = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+        caps = self._caps
+        if caps.max_pixels is not None:
+            px = int(frame.shape[0]) * int(frame.shape[1])
+            if px > caps.max_pixels:
+                raise ResourceCapExceeded(
+                    f"decoded frame {frame.shape[1]}x{frame.shape[0]} ({px} pixels) "
+                    f"exceeds --max_pixels {caps.max_pixels}: {self._path}"
+                )
+        if caps.max_decode_bytes is not None:
+            self._retrieved_bytes += int(frame.nbytes)
+            if self._retrieved_bytes > caps.max_decode_bytes:
+                raise ResourceCapExceeded(
+                    f"decoded {self._retrieved_bytes} bytes, over --max_decode_bytes "
+                    f"{caps.max_decode_bytes}: {self._path}"
+                )
+        telemetry.frame_decoded()
+        return frame
 
     def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
         self._cap.release()
         declared = self.frame_count
         if (self._eof and declared > 0 and self._grabs < declared
@@ -115,6 +211,7 @@ class _Reader:
                 decoded=self._grabs,
                 declared=declared,
             )
+        telemetry.end(self._span)
 
     def __enter__(self) -> "_Reader":
         return self
@@ -126,9 +223,8 @@ class _Reader:
 def probe(path: str) -> Tuple[float, int]:
     """(fps, frame_count) from the container's metadata; fps is 0.0 and
     the count 0 where they are absent or insane."""
-    r = _Reader(path)
-    r._cap.release()  # metadata only: no stream read, nothing to note
-    return r.fps, r.frame_count
+    with _Reader(path) as r:  # metadata only: no stream read, nothing to note
+        return r.fps, r.frame_count
 
 
 def frame_size(path: str) -> Tuple[int, int]:

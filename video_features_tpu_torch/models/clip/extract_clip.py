@@ -105,7 +105,7 @@ class ExtractCLIP(BaseExtractor):
             mask = frame_delta_keep_mask(frames, float(self.config.frame_delta_threshold))
             skipped = int(mask.size - mask.sum())
             if skipped:
-                self._note_delta_gated(entry, skipped, int(mask.size))
+                self._note_windows_skipped(entry, skipped, int(mask.size))
                 keep = mask
                 frames = [f for f, k in zip(frames, mask) if k]
         T = len(frames)

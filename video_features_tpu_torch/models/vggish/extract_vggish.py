@@ -35,6 +35,8 @@ from video_features_tpu_torch.ops.window import bucket_size, pad_batch
 
 
 class ExtractVGGish(BaseExtractor):
+    media_need = "audio"  # the preflight probe checks a wav's header, or opens a video's
+
     def _build(self, device: torch.device) -> VGGish:
         model = VGGish()
         if self.config.weights_path:

@@ -7,8 +7,8 @@ rows' features are dropped after the forward, so both packages run the
 model on the same batch. Under ``--preprocess device`` raw frames pad up
 to a spatial bucket as well (``spatial_bucket``), so videos of nearby
 resolutions share one shape and can fuse into one ``--video_batch``
-group. The JAX package's ``telemetry.note_bucket`` calls are left out:
-telemetry is not ported yet.
+group. Each spatial and flow-output bucket is noted to the run's
+telemetry (``buckets_seen``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+
+from video_features_tpu_torch.runtime import telemetry
 
 
 def bucket_size(n: int, multiple: int = 8, buckets: Optional[Sequence[int]] = None) -> int:
@@ -49,8 +51,11 @@ def spatial_bucket(
     if buckets:
         for bh, bw in sorted(buckets, key=lambda b: b[0] * b[1]):
             if h <= bh and w <= bw:
+                telemetry.note_bucket((int(bh), int(bw)))
                 return int(bh), int(bw)
-    return bucket_size(h, multiple), bucket_size(w, multiple)
+    out = bucket_size(h, multiple), bucket_size(w, multiple)
+    telemetry.note_bucket(out)
+    return out
 
 
 def flow_output_bucket(
@@ -62,7 +67,9 @@ def flow_output_bucket(
     the bucket the exact padder grid."""
     tgt_h = max(int(math.ceil(oh / div) * div), min_size)
     tgt_w = max(int(math.ceil(ow / div) * div), min_size)
-    return bucket_size(tgt_h, multiple), bucket_size(tgt_w, multiple)
+    out = bucket_size(tgt_h, multiple), bucket_size(tgt_w, multiple)
+    telemetry.note_bucket(("flow",) + out)
+    return out
 
 
 def pad_hw(x: np.ndarray, to_h: int, to_w: int) -> np.ndarray:

@@ -466,11 +466,23 @@ def merge_manifest(output_root: str) -> Optional[Dict[str, Any]]:
 
 
 def finalize_run(output_root: str) -> Optional[Dict[str, Any]]:
-    """Merge and atomically write ``_manifest/summary.json``. Returns the
+    """Merge and atomically write ``_manifest/summary.json``, with the
+    run's ``telemetry`` block (``runtime/telemetry.py::collect``: merged
+    metrics and the overlap report over the span files). Returns the
     summary, or None when there is no manifest."""
     summary = merge_manifest(output_root)
     if summary is None:
         return None
+    # a telemetry fault must never lose the run record: it lands as a
+    # string in the summary instead of raising
+    try:
+        from video_features_tpu_torch.runtime import telemetry
+
+        tblock = telemetry.collect(output_root)
+        if tblock:
+            summary["telemetry"] = tblock
+    except Exception as e:  # noqa: BLE001 - keep the manifest writable
+        summary["telemetry_error"] = repr(e)
     # lazy import: io/sink.py imports this module for fault injection
     from video_features_tpu_torch.io.sink import atomic_write_json
 
@@ -480,7 +492,8 @@ def finalize_run(output_root: str) -> Optional[Dict[str, Any]]:
 
 
 def format_summary(summary: Dict[str, Any]) -> str:
-    """The run's one-line outcome, then up to five failed videos."""
+    """The run's one-line outcome (with videos/s and decode fps when the
+    run recorded telemetry), then up to five failed videos."""
     parts = [
         f"run manifest: {summary['done']}/{summary['total']} done",
         f"{summary['failed']} failed",
@@ -497,6 +510,10 @@ def format_summary(summary: Dict[str, Any]) -> str:
         parts.append(f"{len(summary['warnings'])} warning(s)")
     if summary["worker_deaths"]:
         parts.append(f"{len(summary['worker_deaths'])} worker death(s)")
+    tput = summary.get("telemetry", {}).get("throughput")
+    if tput:
+        parts.append(f"{tput.get('videos_per_s', 0.0):.2f} videos/s")
+        parts.append(f"{tput.get('decode_fps', 0.0):.0f} decode fps")
     line = ", ".join(parts)
     failed = [k for k, v in summary["videos"].items() if v["status"] == "failed"]
     if failed:

@@ -1,0 +1,111 @@
+"""CLI: ``python -m video_features_tpu_torch.telemetry <export|report> ...``.
+
+Counterpart of ``video_features_tpu/telemetry/__main__.py``: consumers
+for the span files a run leaves under ``<output>/_telemetry/``.
+
+- ``export SPANS... [-o trace.json] [--device-lanes]`` — Chrome-trace /
+  Perfetto JSON. Arguments are spans-*.jsonl files, a ``_telemetry``
+  directory, or the run's output root (the ``_telemetry`` subdir is found
+  either way). Open the result in Perfetto or chrome://tracing.
+- ``report PATHS... [--json]`` — the overlap-efficiency summary (the same
+  math as the ``overlap`` block of ``summary.json``): host-busy vs
+  device-busy vs overlapped wall time, from the span intervals.
+
+The JAX package's ``trace`` (one serve request's spans) and ``ledger``
+(the device cost ledger) subcommands wait for serve (ROADMAP item 11).
+
+Exit codes: 0 ok, 2 usage error or no spans found.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import sys
+from typing import List
+
+from video_features_tpu_torch.runtime.telemetry import (
+    overlap_report,
+    read_spans,
+    spans_to_chrome_trace,
+)
+
+
+def _resolve_span_files(paths: List[str]) -> List[str]:
+    out: List[str] = []
+    for p in paths:
+        if os.path.isdir(p):
+            tdir = p
+            if os.path.isdir(os.path.join(p, "_telemetry")):
+                tdir = os.path.join(p, "_telemetry")
+            out.extend(sorted(glob.glob(os.path.join(tdir, "spans-*.jsonl"))))
+        else:
+            out.append(p)
+    return out
+
+
+def main(argv: List[str]) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m video_features_tpu_torch.telemetry",
+        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    p_export = sub.add_parser("export", help="spans JSONL -> Chrome-trace JSON")
+    p_export.add_argument("paths", nargs="+",
+                          help="spans-*.jsonl files, a _telemetry dir, or an output root")
+    p_export.add_argument("-o", "--output", default=None,
+                          help="trace JSON path (default: stdout)")
+    p_export.add_argument("--device-lanes", action="store_true",
+                          help="mirror device-stage spans (h2d/dispatch/"
+                               "fetch) into one Perfetto lane per device")
+    p_report = sub.add_parser("report", help="overlap-efficiency summary")
+    p_report.add_argument("paths", nargs="+",
+                          help="spans-*.jsonl files, a _telemetry dir, or an output root")
+    p_report.add_argument("--json", action="store_true", help="emit the raw report dict")
+    args = parser.parse_args(argv)
+
+    rows = []
+    for f in _resolve_span_files(args.paths):
+        try:
+            rows.extend(read_spans(f))
+        except OSError as e:
+            print(f"telemetry: cannot read {f}: {e}", file=sys.stderr)
+            return 2
+    if not rows:
+        print("telemetry: no spans found", file=sys.stderr)
+        return 2
+
+    if args.cmd == "export":
+        trace = spans_to_chrome_trace(rows, device_lanes=args.device_lanes)
+        text = json.dumps(trace)
+        if args.output:
+            with open(args.output, "w", encoding="utf-8") as f:
+                f.write(text)
+            print(
+                f"telemetry: wrote {len(trace['traceEvents'])} events to "
+                f"{args.output} — open at https://ui.perfetto.dev",
+                file=sys.stderr,
+            )
+        else:
+            print(text)
+        return 0
+
+    rep = overlap_report(rows)
+    if args.json:
+        print(json.dumps(rep, indent=2))
+        return 0
+    print(
+        f"spans: {rep['spans']} | wall {rep['wall_s']:.2f}s | "
+        f"host busy {rep['host_busy_s']:.2f}s | device busy {rep['device_busy_s']:.2f}s"
+    )
+    print(
+        f"overlap: {rep['overlap_s']:.2f}s = {rep['overlap_efficiency']:.1%} of wall, "
+        f"{rep['overlap_of_device']:.1%} of device-busy time"
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main(sys.argv[1:]))
