@@ -103,22 +103,36 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     ``--telemetry off`` on 4 of the clips (no ``_telemetry/``, the same
     features); and the telemetry's bookkeeping a video (on minus off over
     2000 videos on this host) under 1% of CLIP's ms/video, cold and warm;
-16. a ``kernels`` JSON line (each kernel's launches on its main path, in
-    the fused runs, in the device preprocess runs and in the telemetry
-    runs, and its records at the fused shapes), then the ``ok`` JSON line
+16. ``--dtype bfloat16``: CLIP (``uni_12 --attn flash``, phase 4's 4
+    clips), ResNet-50, R(2+1)D-18, RAFT and PWC (the clips of phases 9,
+    10, 8 and 6) and I3D + PWC and I3D + RAFT (one 129-frame clip of
+    phases 5 and 7) through the CLI at ``--dtype float32`` and
+    ``bfloat16``: the bf16 files fp32 at the fp32 shapes and within the
+    family's relative L2 ceiling of them (``config.PARITY_CEILINGS``:
+    "e2e", I3D's flow "e2e_flow", else "model"); K1 48 and K2 40 (PWC)
+    and 10 (I3D + PWC) launches at both dtypes, equal in a
+    ``--profile_dir`` trace of the bf16 run, with K1 fed bf16 q/k/v and K2
+    fp32 inputs; warm videos/s at both dtypes and one bf16 forward's top
+    kernels, beside the card's name and power limit; and K1 in bf16 at
+    the CLIP path's shape against its plain version;
+17. a ``kernels`` JSON line (each kernel's launches on its main path, in
+    the fused runs, in the device preprocess runs, in the telemetry runs
+    and in the bf16 phase, its records at the fused shapes, and K1's
+    bf16 record at the CLIP path's shape), then the ``ok`` JSON line
     last.
 
-Every CLI run of phases 4-14 passes ``--strict``, so a video that fails
+Every CLI run of phases 4-14 and 16 passes ``--strict``, so a video that fails
 in isolation fails its phase (phase 15's first run leaves it out: two of
 its files must fail). Phases 7-11 launch no hand-written kernel:
 RAFT, ResNet, R(2+1)D and VGGish reach no ``pallas_call`` in the JAX
 package, nor does the device preprocess's resample (the JAX package
 leaves it to XLA). Every launch count is read from a run that starts with
-all counts at 0, and each of phases 4-15 prints its wall time.
+all counts at 0, and each of phases 4-16 prints its wall time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import os
@@ -126,6 +140,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -157,12 +172,14 @@ LAYERS = 12
 PAIRS = 64
 CORR_LEVELS = [(2, 32, 64, 96), (3, 64, 32, 48), (4, 96, 16, 24), (5, 128, 8, 12),
                (6, 196, 4, 6)]
+# K1 at the CLIP path's shape in bf16: its --dtype bfloat16 graph
+BF16_ATTENTION_CASE = ((16, 12, 50, 64), torch.bfloat16, None)
 # K1's cases in phase 3: (shape, dtype, kv_len); the first is the main path
 ATTENTION_CASES = [
     ((16, 12, 50, 64), torch.float32, None),  # the main path: B/32, uni_12
     ((16, 12, 197, 64), torch.float32, None),  # B/16
     ((16, 12, 50, 64), torch.float32, 37),  # ragged KV
-    ((16, 12, 50, 64), torch.bfloat16, None),
+    BF16_ATTENTION_CASE,
     ((16, 12, 65, 64), torch.float32, None),  # one row past a KV tile: two stages
     ((16, 12, 197, 128), torch.float32, None),  # d=128, the most shared memory
 ]
@@ -397,10 +414,12 @@ def hold_flash_attention(device, shape, dtype, kv_len, seed: int):
 
 
 def check_flash_attention(device):
-    """Phase 3 for K1; returns the main path case's record."""
+    """Phase 3 for K1; returns the main path case's record and that of
+    the main path's shape in bf16 (CLIP's --dtype bfloat16 graph), taken
+    here, early, where the profiler keeps every launch."""
     records = [hold_flash_attention(device, shape, dtype, kv_len, seed=i)
                for i, (shape, dtype, kv_len) in enumerate(ATTENTION_CASES)]
-    return records[0]
+    return records[0], records[ATTENTION_CASES.index(BF16_ATTENTION_CASE)]
 
 
 def us_or_not(ms) -> str:
@@ -1683,19 +1702,26 @@ def schema_errors(row, schema) -> list:
     return errors
 
 
-def trace_kernel_launches(profile_dir: str, name: str) -> int:
-    """Launches of the device kernels whose name holds ``name`` in the
-    Chrome traces ``--profile_dir`` wrote (``trace-<pid>-<n>.json``)."""
+def trace_kernel_names(profile_dir: str, name: str) -> list:
+    """The full name of each launch of the device kernels whose name holds
+    ``name`` in the Chrome traces ``--profile_dir`` wrote
+    (``trace-<pid>-<n>.json``); a name carries its template arguments."""
     paths = sorted(glob.glob(os.path.join(profile_dir, "trace-*.json")))
     if not paths:
         raise AssertionError(f"--profile_dir {profile_dir} holds no trace")
-    n = 0
+    names = []
     for path in paths:
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-        n += sum(1 for e in events if str(e.get("cat", "")).lower() == "kernel"
-                 and name in e.get("name", ""))
-    return n
+        names += [e["name"] for e in events if str(e.get("cat", "")).lower() == "kernel"
+                  and name in e.get("name", "")]
+    return names
+
+
+def trace_kernel_launches(profile_dir: str, name: str) -> int:
+    """Launches of the device kernels whose name holds ``name`` in the
+    Chrome traces ``--profile_dir`` wrote."""
+    return len(trace_kernel_names(profile_dir, name))
 
 
 def telemetry_cost_us(n: int = TELEMETRY_COST_VIDEOS) -> tuple:
@@ -1882,6 +1908,170 @@ def run_telemetry_path(root: str, device):
     return {"flash_attention": k1 + k1_off, "local_correlation": k2}
 
 
+def bf16_ceiling(feature_type: str, name: str):
+    """(kind, ceiling) of a bf16 feature file against its fp32 run: the
+    port's copy of the committed ceilings, "e2e" where the family has one
+    (I3D's flow stream "e2e_flow"), else "model"."""
+    from video_features_tpu_torch.config import PARITY_CEILINGS, model_family
+
+    family = model_family(feature_type)
+    if family == "i3d":
+        kind = "e2e_flow" if name.endswith("_flow.npy") else "model"
+    else:
+        kind = "e2e" if (family, "bfloat16", "e2e") in PARITY_CEILINGS else "model"
+    return kind, PARITY_CEILINGS[(family, "bfloat16", kind)]
+
+
+@contextlib.contextmanager
+def kernel_inputs():
+    """Yields {"K1": set, "K2": set} of the dtypes K1 and K2 get while it
+    is open: CLIP's flash core and PWC's cost volume wrapped by recorders
+    that call the real wrappers (whose launch counts stay the only
+    counts)."""
+    from video_features_tpu_torch.models.clip import extract_clip
+    from video_features_tpu_torch.models.pwc import model as pwc_model
+
+    seen = {"K1": set(), "K2": set()}
+    flash, corr = extract_clip.CORES["flash"], pwc_model.local_correlation
+
+    def k1(q, k, v, **kw):
+        seen["K1"].add(str(q.dtype)[6:])
+        return flash(q, k, v, **kw)
+
+    def k2(f1, f2, *a, **kw):
+        seen["K2"].add(str(f1.dtype)[6:])
+        return corr(f1, f2, *a, **kw)
+
+    with mock.patch.dict(extract_clip.CORES, {"flash": k1}), \
+            mock.patch.object(pwc_model, "local_correlation", k2):
+        yield seen
+
+
+def bf16_families(root: str):
+    """(label, CLI feature args, clips, expected K1 and K2 launches a run,
+    the kernel a bf16 run is profiled for) of each admitted family, on the
+    clips of its earlier phase."""
+    pwc_windows = -(-(PWC_CLIP_FRAMES - 1) // PWC_BATCH)
+    i3d_k2 = I3D_STACKS * len(CORR_LEVELS)
+    return [
+        ("CLIP", ["--feature_type", "CLIP-ViT-B/32", "--extract_method", f"uni_{FRAMES}",
+                  "--attn", "flash"],
+         [os.path.join(root, f"clip{i}.mp4") for i in range(N_VIDEOS)], N_VIDEOS * LAYERS, 0,
+         "flash_attention_kernel"),
+        ("ResNet-50", ["--feature_type", "resnet50", "--batch_size", str(RESNET_BATCH)],
+         [os.path.join(root, "resnet50.mp4")], 0, 0, None),
+        ("R(2+1)D-18", ["--feature_type", "r21d_rgb"], [os.path.join(root, "r21d_rgb.mp4")],
+         0, 0, None),
+        ("RAFT", ["--feature_type", "raft", "--batch_size", str(RAFT_BATCH)],
+         [os.path.join(root, "raft.mp4")], 0, 0, None),
+        ("PWC", ["--feature_type", "pwc", "--batch_size", str(PWC_BATCH)],
+         [os.path.join(root, "pwc.mp4")], 0, pwc_windows * len(CORR_LEVELS),
+         "local_correlation_kernel"),
+        ("I3D + PWC", ["--feature_type", "i3d", "--flow_type", "pwc"],
+         [os.path.join(root, "i3d0.mp4")], 0, i3d_k2, "local_correlation_kernel"),
+        ("I3D + RAFT", ["--feature_type", "i3d", "--flow_type", "raft"],
+         [os.path.join(root, "i3d_raft0.mp4")], 0, 0, None),
+    ]
+
+
+def run_bf16_path(root: str, device):
+    """Phase 16: --dtype bfloat16. Each admitted family through the CLI at
+    --dtype float32 and bfloat16 in this process, on its earlier phase's
+    clips: the bf16 features fp32 at the fp32 run's shapes and within the
+    family's ceiling of them; K1's and K2's launches at the fp32 counts,
+    read from the wrappers and from a --profile_dir trace of the bf16 run,
+    K1 fed bf16 and K2 fp32; warm videos/s at both dtypes and one bf16
+    forward's top kernels; and K1 in bf16 at the CLIP path's shape against
+    its plain version. Returns each kernel's launches in the CLI runs."""
+    from video_features_tpu_torch import cli
+    from video_features_tpu_torch.config import parse_args
+    from video_features_tpu_torch.extract.registry import build_extractor
+    from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
+    from video_features_tpu_torch.ops.flash_attention import flash_attention
+
+    card = card_line()
+    launches = {"flash_attention": 0, "local_correlation": 0}
+    for label, args, clips, want_k1, want_k2, traced in bf16_families(root):
+        tag = label.replace(" ", "").replace("+", "_").replace("(", "").replace(")", "")
+        feats, inputs = {}, {}
+        for dtype in ("float32", "bfloat16"):
+            out = os.path.join(root, f"bf16_{tag}_{dtype}")
+            prof = out + "_profile" if dtype == "bfloat16" and traced else None
+            reset_counts()
+            with kernel_inputs() as seen:
+                cli.main([*args, "--dtype", dtype, "--allow_random_init", "--on_extraction",
+                          "save_numpy", "--strict", "--output_path", out, "--tmp_path",
+                          os.path.join(root, "tmp"), "--video_paths", *clips]
+                         + (["--profile_dir", prof] if prof else []))
+                torch.cuda.synchronize()
+            k1, k2 = flash_attention.launches, local_correlation_kernel.launches
+            launches["flash_attention"] += k1
+            launches["local_correlation"] += k2
+            if (k1, k2) != (want_k1, want_k2):
+                raise AssertionError(f"bfloat16 {label} --dtype {dtype}: K1 {k1}, K2 {k2} "
+                                     f"launches, expected {want_k1}, {want_k2}")
+            feats[dtype], inputs[dtype] = read_features(out), (seen["K1"], seen["K2"])
+            if prof:
+                names = trace_kernel_names(prof, traced)
+                kinds = sorted({"bfloat16" if "bfloat16" in n else "float32" for n in names})
+                print(f"bfloat16 {label}: {traced} in the --dtype bfloat16 --profile_dir trace "
+                      f"{len(names)} launches (wrapper count {k1 or k2}), their types {kinds}")
+                if len(names) != k1 + k2:
+                    raise AssertionError(f"bfloat16 {label}: the trace holds {len(names)} "
+                                         f"{traced} launches, the wrapper {k1 + k2}")
+        k1_in, k2_in = inputs["bfloat16"]
+        if (want_k1 and k1_in != {"bfloat16"}) or (want_k2 and k2_in != {"float32"}):
+            raise AssertionError(f"bfloat16 {label}: K1 got {sorted(k1_in)}, K2 got "
+                                 f"{sorted(k2_in)} (want bf16 q/k/v, fp32 cost volumes)")
+        f32, b16 = feats["float32"], feats["bfloat16"]
+        if sorted(f32) != sorted(b16) or not f32:
+            raise AssertionError(f"bfloat16 {label}: files {sorted(b16)} vs {sorted(f32)}")
+        drifts = []
+        for name in sorted(f32):
+            a, b = f32[name], b16[name]
+            if b.dtype != np.float32 or b.shape != a.shape or not np.isfinite(b).all():
+                raise AssertionError(f"bfloat16 {label} {name}: {b.dtype} {b.shape}, fp32 run "
+                                     f"{a.shape}, finite {np.isfinite(b).all()}")
+            kind, ceiling = bf16_ceiling(args[1], name)
+            drift = rel_l2(b, a)
+            drifts.append((name, drift, kind, ceiling))
+            if not 0 < drift <= ceiling:
+                raise AssertionError(f"bfloat16 {label} {name}: rel_l2 {drift} against fp32, "
+                                     f"ceiling {ceiling} ({kind})")
+        worst = max(drifts, key=lambda d: d[1] / d[3])
+        print(f"bfloat16 {label}: {len(f32)} files fp32 at the fp32 shapes; rel_l2 against "
+              f"--dtype float32 max {worst[1]:.3e} ({worst[0]}; ceiling {worst[3]:g}, "
+              f"{worst[2]}); " + ", ".join(f"{n} {d:.3e}" for n, d, _, _ in drifts[:4])
+              + f"; K1 inputs {sorted(k1_in) or '-'}, K2 inputs {sorted(k2_in) or '-'}")
+
+        warm = {}
+        for dtype in ("float32", "bfloat16"):
+            ex = build_extractor(parse_args([*args, "--dtype", dtype, "--allow_random_init",
+                                             "--video_paths", *clips]), external_call=True)
+            prep, fwd = warm_split(ex, clips, device)
+            warm[dtype] = (prep, fwd)
+        n = len(clips)
+        line = ", ".join(f"{d} {n / sum(t):.3f} videos/s ({sum(t) / n * 1e3:.2f} ms/video = "
+                         f"host {t[0] / n * 1e3:.2f} + forward {t[1] / n * 1e3:.2f})"
+                         for d, t in warm.items())
+        print(f"bfloat16 {label} (warm extractor, {n} video(s)): {line}; {card}")
+        model, payload = ex.warmup(device), ex.prepare(clips[0])
+        t0 = time.perf_counter()
+        ex.forward(model, payload)
+        one_ms = (time.perf_counter() - t0) * 1e3
+        mark = "flash_attention" if want_k1 else ("local_correlation" if want_k2 else "")
+        expect = LAYERS if want_k1 else (want_k2 // n if want_k2 else 0)
+        print_top_kernels(device_kernels(lambda: ex.forward(model, payload)), one_ms,
+                          f"bfloat16 {label}, one --dtype bfloat16 forward on the device "
+                          f"({card})", mark=mark, expect=expect)
+
+    # K1 in bf16 at the CLIP path's shape (N=16, H=12, L=50, d=64); the
+    # kernels line takes phase 3's record of it, as late in a long process
+    # a profiler window may lose the launches
+    hold_flash_attention(device, *BF16_ATTENTION_CASE, seed=60)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1899,7 +2089,7 @@ def main() -> int:
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})")
 
-    k1 = check_flash_attention(device)
+    k1, k1_bf16 = check_flash_attention(device)
     k2 = check_local_correlation(device)
     fused_shapes = hold_fused_shapes(device)
     measure_resample(device)
@@ -1920,6 +2110,7 @@ def main() -> int:
             ("async ingest", lambda: run_ingest_path(root, device)),
             ("device preprocess", lambda: run_device_path(root, device)),
             ("telemetry and preflight", lambda: run_telemetry_path(root, device)),
+            ("bfloat16", lambda: run_bf16_path(root, device)),
         ]
         results = {}
         for name, phase in phases:
@@ -1927,9 +2118,9 @@ def main() -> int:
             results[name] = phase()
             print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
         # each kernel's launches: its main path's run, then the fused runs,
-        # the device preprocess runs and the telemetry runs
+        # the device preprocess runs, the telemetry runs and the bf16 phase's
         later = [results["async ingest"], results["device preprocess"],
-                 results["telemetry and preflight"]]
+                 results["telemetry and preflight"], results["bfloat16"]]
         k1_launches = results["CLIP"] + sum(r["flash_attention"] for r in later)
         k2_launches = results["I3D + PWC"] + sum(r["local_correlation"] for r in later)
 
@@ -1942,6 +2133,7 @@ def main() -> int:
             "launches": k1_launches,
             **k1,
             "fused_shapes": fused_shapes["flash_attention"],
+            "bf16_main_path": k1_bf16,
         },
         {
             "name": "local_correlation",

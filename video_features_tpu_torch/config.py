@@ -9,7 +9,8 @@ preprocess (``--preprocess``, ``--spatial_bucket``,
 ``--frame_delta_threshold``), the run telemetry (``--telemetry``,
 ``--heartbeat_s``, ``--profile_dir``) and the preflight probe with the
 input caps (``--preflight``, ``--decode_timeout``, ``--max_pixels``,
-``--max_duration_s``, ``--max_decode_bytes``). Flag names, meanings and
+``--max_duration_s``, ``--max_decode_bytes``) and the numerics flag
+``--dtype`` with its admission table. Flag names, meanings and
 defaults are the JAX package's; its ``--sharding mesh`` rules are left
 out, as the port runs on one device.
 """
@@ -48,6 +49,45 @@ DEVICE_PREPROCESS_FEATURE_TYPES = CLIP_FEATURE_TYPES + RESNET_FEATURE_TYPES + ["
 PREPROCESS_MODES = ("host", "device")
 ATTN_CORES = ("fused", "flash", "blockwise")
 ON_EXTRACTION = ("print", "save_numpy", "save_pickle")
+DTYPES = ("float32", "bfloat16")
+
+# --dtype admission: the model families whose low-precision graph has a
+# committed relative-drift ceiling (PARITY_CEILINGS), each held end to end
+# by a test; sanity_check refuses a low-precision dtype for any other
+# family. VGGish stays fp32 only, as in the JAX package.
+LOW_PRECISION_MODEL_FAMILIES = {
+    "bfloat16": ("clip", "resnet", "r21d", "i3d", "raft", "pwc"),
+}
+# the ceilings: the largest relative L2 drift, ||low - fp32|| / ||fp32||
+# in float64, that a (family, dtype, kind) may show against its fp32
+# graph; kind "model" is one full-width forward on random weights, "e2e"
+# an extraction end to end, "e2e_flow" I3D's flow stream with its flow
+# net. The JAX package's committed max_rel values
+# (analysis/parity_budget.json), copied so the port reads none of it.
+PARITY_CEILINGS = {
+    ("clip", "bfloat16", "e2e"): 0.03,
+    ("clip", "bfloat16", "model"): 0.03,
+    ("i3d", "bfloat16", "e2e_flow"): 0.05,
+    ("i3d", "bfloat16", "model"): 0.03,
+    ("pwc", "bfloat16", "e2e"): 0.05,
+    ("pwc", "bfloat16", "model"): 0.02,
+    ("r21d", "bfloat16", "model"): 0.03,
+    ("raft", "bfloat16", "e2e"): 0.05,
+    ("raft", "bfloat16", "model"): 0.02,
+    ("resnet", "bfloat16", "model"): 0.03,
+}
+
+
+def model_family(feature_type: str) -> str:
+    """The admission family of a feature type ('resnet50' -> 'resnet',
+    'CLIP-ViT-B/16' -> 'clip', 'r21d_rgb' -> 'r21d')."""
+    if feature_type in CLIP_FEATURE_TYPES:
+        return "clip"
+    if feature_type in RESNET_FEATURE_TYPES:
+        return "resnet"
+    if feature_type == "r21d_rgb":
+        return "r21d"
+    return feature_type
 
 
 @dataclass
@@ -94,6 +134,10 @@ class ExtractionConfig:
     # 'flash' (the CUDA kernel, csrc/flash_attention.cu) or 'blockwise'
     # (the kernel's plain online-softmax version) ---
     attn: str = "fused"
+    # numerics: 'float32', or 'bfloat16' for the mixed-precision graph of
+    # an admitted family (LOW_PRECISION_MODEL_FAMILIES); features are
+    # written fp32 either way
+    dtype: str = "float32"
     # print the top-5 classes of each frame (resnet, ImageNet) or stack
     # (r21d, Kinetics-400)
     show_pred: bool = False
@@ -179,6 +223,17 @@ def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
             f"--show_pred is not ported yet for {cfg.feature_type} (this package "
             f"prints predictions for {', '.join(SHOW_PRED_FEATURE_TYPES)})"
         )
+    if cfg.dtype != "float32":
+        fams = LOW_PRECISION_MODEL_FAMILIES.get(cfg.dtype)
+        if fams is None:
+            raise ValueError(f"unknown dtype: {cfg.dtype!r}")
+        if model_family(cfg.feature_type) not in fams:
+            raise ValueError(
+                f"--dtype {cfg.dtype} is not admitted for {cfg.feature_type!r}: "
+                "admission needs a committed drift ceiling (config.PARITY_CEILINGS) "
+                "and an end-to-end parity test; the admitted families are "
+                f"{', '.join(fams)}"
+            )
     if cfg.attn not in ATTN_CORES:
         raise ValueError(f"unknown attn core: {cfg.attn}")
     for flag, val in (
@@ -341,6 +396,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "blockwise version")
     p.add_argument("--show_pred", action="store_true", default=False,
                    help="print the top-5 classes (resnet: ImageNet, r21d: Kinetics-400)")
+    p.add_argument("--dtype", default="float32", choices=list(DTYPES),
+                   help="bfloat16: the mixed-precision graph (convs and matmuls in "
+                        "bf16, norms, softmax, flow recurrences and heads in fp32; "
+                        "clip, resnet*, r21d_rgb, i3d, raft, pwc); features stay fp32")
     p.add_argument("--resume", action="store_true", default=False,
                    help="skip videos whose outputs already exist or that the "
                         "manifest records as permanently failed")

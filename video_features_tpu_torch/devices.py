@@ -15,9 +15,13 @@ import torch
 def pin_fp32() -> None:
     """fp32 means fp32: cuBLAS matmuls and cuDNN convolutions off TF32
     (cuDNN's default is TF32, which the JAX reference's fp32 patch conv
-    does not use)."""
+    does not use). That holds inside a ``--dtype bfloat16`` graph too: its
+    fp32-pinned parts (PWC's cost volumes, RAFT's volume and GRU gates,
+    the heads) stay true fp32. And bf16 GEMMs accumulate in fp32, as
+    XLA's do: cuBLAS may not reduce in bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def check_one_device(device_ids) -> None:

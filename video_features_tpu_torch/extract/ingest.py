@@ -5,10 +5,11 @@ Counterpart of ``video_features_tpu/extract/ingest.py``. The JAX package
 gets asynchronous transfers and results from XLA's dispatch; here they
 are explicit:
 
-- ``place_batch`` stages a host array in pinned memory and copies it to
-  the device with ``non_blocking=True`` on a dedicated copy stream; the
-  compute stream waits on the copy's event, so a group's H2D overlaps the
-  previous group's compute;
+- ``place_batch`` stages a host array (or a host tensor: numpy has no
+  bf16, so CLIP's ``--dtype bfloat16`` batch is one) in pinned memory and
+  copies it to the device with ``non_blocking=True`` on a dedicated copy
+  stream; the compute stream waits on the copy's event, so a group's H2D
+  overlaps the previous group's compute;
 - ``HostCopy`` starts a device tensor's D2H into pinned memory with
   ``non_blocking=True`` and records an event after it; ``numpy()``
   synchronizes that event before it reads the host tensor (reading it
@@ -34,7 +35,7 @@ from __future__ import annotations
 
 import threading
 from collections import deque
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -71,25 +72,37 @@ def _stager(device: torch.device) -> _Stager:
         return stager
 
 
-def pinned_copy(x: np.ndarray) -> torch.Tensor:
+HostBatch = Union[np.ndarray, torch.Tensor]
+
+
+def _host_tensor(x: HostBatch) -> torch.Tensor:
+    """A host array or tensor as a contiguous CPU tensor (no copy where it
+    already is one)."""
+    if isinstance(x, torch.Tensor):
+        return x.contiguous()
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def pinned_copy(x: HostBatch) -> torch.Tensor:
     """``x`` copied into page-locked host memory (PyTorch's caching host
     allocator: a block is allocated once and reused)."""
-    host = torch.empty(x.shape, dtype=torch.from_numpy(x).dtype, pin_memory=True)
-    host.numpy()[...] = x
+    x = _host_tensor(x)
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x)
     return host
 
 
-def place_batch(x: np.ndarray, device: torch.device) -> torch.Tensor:
+def place_batch(x: HostBatch, device: torch.device) -> torch.Tensor:
     """``x`` on ``device``. On a CUDA device: a pinned staging copy, then
     a non-blocking H2D on the device's copy stream; the current (compute)
     stream waits on the copy's event, and the device tensor is recorded
     on the compute stream, so the caching allocator does not hand its
     memory out while the compute stream may still read it. Call it on the
-    loop thread, never in ``prepare``. On the CPU: the array itself, no
-    copy."""
-    x = np.ascontiguousarray(x)
+    loop thread, never in ``prepare``. On the CPU: the array itself (as a
+    tensor), no copy."""
+    x = _host_tensor(x)
     if device.type != "cuda":
-        return torch.from_numpy(x)
+        return x
     host = pinned_copy(x)
     stager = _stager(device)
     compute = torch.cuda.current_stream(device)

@@ -20,6 +20,13 @@ the tower. Videos of one (T_pad, bucket) shape fuse under
 taps. ``--frame_delta_threshold``: near-duplicate sampled frames are
 dropped in ``prepare`` (``ops/sampler.py``) and their rows copied forward
 at fetch.
+
+``--dtype bfloat16``: the tower's bf16 graph (``models/clip/model.py``),
+its weights cast after loading with ``proj`` kept fp32. The host batch
+is rounded to bf16 on the decode thread (``Tensor.to``: round to nearest
+even, as the JAX package's ``ml_dtypes`` cast; the patch conv would
+round it there anyway), which halves its transfer; the device
+preprocess returns bf16. Features are fp32.
 """
 
 from __future__ import annotations
@@ -41,8 +48,15 @@ from video_features_tpu_torch.extract.ingest import (
 from video_features_tpu_torch.io.paths import video_path_of
 from video_features_tpu_torch.io.video import extract_frames
 from video_features_tpu_torch.models.clip.convert import convert_state_dict
-from video_features_tpu_torch.models.clip.model import CONFIGS, VisionTransformer, init_weights
+from video_features_tpu_torch.models.clip.model import (
+    CONFIGS,
+    FP32_PARAMS,
+    VisionTransformer,
+    init_weights,
+)
 from video_features_tpu_torch.models.common.weights import (
+    cast_for_compute,
+    compute_dtype,
     load_state_dict,
     random_init_fallback,
 )
@@ -70,6 +84,7 @@ class ExtractCLIP(BaseExtractor):
         if self.config.extract_method is None:
             raise ValueError("CLIP extraction needs --extract_method (e.g. uni_12 or fix_2)")
         self.model_cfg = CONFIGS[self.feature_type]
+        self.dtype = compute_dtype(self.config)
 
     def _build(self, device: torch.device) -> VisionTransformer:
         model = VisionTransformer(self.model_cfg, core=CORES[self.config.attn])
@@ -84,7 +99,7 @@ class ExtractCLIP(BaseExtractor):
                 "an OpenAI CLIP / HF CLIP-vision state dict (.pt/.npz)",
             )
             init_weights(model, seed=0)
-        return model.to(device).eval()
+        return cast_for_compute(model.to(device).eval(), self.dtype, exclude=FP32_PARAMS)
 
     def _preprocess(self, frame: np.ndarray) -> np.ndarray:
         size = self.model_cfg.image_size
@@ -93,7 +108,8 @@ class ExtractCLIP(BaseExtractor):
 
     def prepare(self, entry):
         """Host half: (padded batch, T, fps, timestamps, keep). The batch is
-        (T_pad, 3, S, S) float32, or under ``--preprocess device`` the
+        (T_pad, 3, S, S) float32 (a bf16 tensor under ``--dtype
+        bfloat16``), or under ``--preprocess device`` the
         (uint8 (T_pad, bh, bw, 3) frames, (wt_y, idx_y), (wt_x, idx_x))
         triple. ``keep`` is the frame-delta gate's mask, or None when the
         gate is off or kept every frame (the ungated payload)."""
@@ -120,14 +136,16 @@ class ExtractCLIP(BaseExtractor):
             )
             raw = pad_hw(pad_batch(arr, T_pad), bh, bw)
             return (raw, (wt_y, idx_y), (wt_x, idx_x)), T, fps, timestamps_ms, keep
-        batch = np.stack([self._preprocess(f) for f in frames])
-        return pad_batch(batch, T_pad), T, fps, timestamps_ms, keep
+        batch = pad_batch(np.stack([self._preprocess(f) for f in frames]), T_pad)
+        if self.dtype != torch.float32:
+            batch = torch.from_numpy(batch).to(self.dtype)
+        return batch, T, fps, timestamps_ms, keep
 
     def _encode_raw(self, model: VisionTransformer, x_u8: torch.Tensor, taps) -> torch.Tensor:
         """uint8 frames -> resize, crop and normalize on the device -> the
         tower; a fused group's (N, T_pad, ...) frames flatten to N * T_pad
         images."""
-        x = device_preprocess_frames(x_u8, *taps, CLIP_MEAN, CLIP_STD)
+        x = device_preprocess_frames(x_u8, *taps, CLIP_MEAN, CLIP_STD, out_dtype=self.dtype)
         return model(x.flatten(0, x.dim() - 4))
 
     # --- the device half, split (extract/base.py): H2D, forward and D2H
@@ -194,7 +212,9 @@ class ExtractCLIP(BaseExtractor):
             x = place_batch(np.stack([p[0][0] for p in payloads]), device)
             taps = stack_taps([self._device_taps(p[0][1:], device) for p in payloads])
             return StagedGroup((x, taps), metas)
-        x = np.concatenate([p[0] for p in payloads], axis=0)
+        heads = [p[0] for p in payloads]
+        x = (torch.cat(heads) if isinstance(heads[0], torch.Tensor)
+             else np.concatenate(heads, axis=0))
         return StagedGroup((place_batch(x, device),), metas)
 
     def dispatch_group(self, model: VisionTransformer, payloads):

@@ -6,6 +6,12 @@ names follow OpenAI's ``visual.*`` layout (``conv1``, fused
 an OpenAI checkpoint loads as it is. Pre-LN blocks, QuickGELU, LayerNorm
 eps 1e-5 computed in fp32, class token + learned position embeddings,
 ``ln_post`` on the class token, then an fp32 ``@ proj`` to the embedding.
+
+``--dtype bfloat16`` (``models/common/weights.py::cast_for_compute`` with
+``exclude=FP32_PARAMS``): the patch conv, the residual stream, the q/k/v
+and output projections and the MLP run in bf16, so the attention core
+gets bf16 q/k/v; LayerNorm statistics, the softmax (inside every core),
+``ln_post`` and the ``@ proj`` stay fp32. The output is fp32 either way.
 """
 
 from __future__ import annotations
@@ -43,6 +49,9 @@ CONFIGS = {
     "CLIP-ViT-B/16": CLIP_VIT_B16,
     "CLIP4CLIP-ViT-B-32": CLIP_VIT_B32,
 }
+
+# the parameters a bf16 tower keeps fp32: the final projection
+FP32_PARAMS = ("proj",)
 
 AttnCore = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -127,12 +136,12 @@ class VisionTransformer(nn.Module):
         self.proj = nn.Parameter(torch.empty(w, cfg.embed_dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv1(x)  # (N, width, grid, grid)
+        x = self.conv1(x.to(self.conv1.weight.dtype))  # (N, width, grid, grid)
         x = x.flatten(2).transpose(1, 2)  # (N, grid*grid, width), row-major patches
-        cls = self.class_embedding.expand(x.shape[0], 1, -1)
+        cls = self.class_embedding.to(x.dtype).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding
         x = self.transformer(self.ln_pre(x))
-        x = self.ln_post(x[:, 0])
+        x = self.ln_post(x[:, 0].float())
         # the 512-d embedding is the user-facing contract: fp32 projection
         return x.float() @ self.proj.float()
 

@@ -33,6 +33,11 @@ taps are the identity band, so the model's input equals the host's
 resolutions share a key when their bucket and grid agree, each with its
 video's taps.
 
+``--dtype bfloat16``: the flow net's mixed-precision graph
+(``models/raft/model.py``, ``models/pwc/model.py``), its weights cast
+after loading, those in ``_fp32_params`` kept fp32. The windows stay
+fp32 [0, 255] frames; the flow is fp32.
+
 Output: ``{<feature_type>: (T-1, 2, H, W), fps, timestamps_ms}``, flow at
 the frames' resolution.
 """
@@ -59,6 +64,8 @@ from video_features_tpu_torch.io.video import (
     stream_frames,
 )
 from video_features_tpu_torch.models.common.weights import (
+    cast_for_compute,
+    compute_dtype,
     load_checked,
     load_state_dict,
     random_init_fallback,
@@ -80,11 +87,12 @@ class NullPadder:
 
 class PairwiseFlowExtractor(BaseExtractor):
     """Subclasses set ``checkpoint`` (what ``--weights_path`` should
-    hold) and implement ``_model()`` (the module),
-    ``_convert_state_dict(sd)`` and ``_init_weights(model)``, and
-    optionally ``_make_padder(shape)``."""
+    hold) and ``_fp32_params`` (the parameters a bf16 model keeps fp32),
+    implement ``_model()`` (the module), ``_convert_state_dict(sd)`` and
+    ``_init_weights(model)``, and optionally ``_make_padder(shape)``."""
 
     checkpoint = ""
+    _fp32_params: tuple = ()
 
     def __init__(self, config, external_call: bool = False) -> None:
         super().__init__(config, external_call)
@@ -112,7 +120,8 @@ class PairwiseFlowExtractor(BaseExtractor):
         else:
             random_init_fallback(self.config, self.feature_type, self.checkpoint)
             self._init_weights(model)
-        return model.to(device).eval()
+        return cast_for_compute(model.to(device).eval(), compute_dtype(self.config),
+                                exclude=self._fp32_params)
 
     def _preprocess(self, frame: np.ndarray) -> np.ndarray:
         if self.config.side_size is not None:

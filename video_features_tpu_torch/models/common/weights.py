@@ -2,13 +2,15 @@
 
 Counterpart of ``video_features_tpu/models/common/weights.py``. Weights
 come from local files only: ``.pt``/``.pth`` torch pickles (loaded with
-``weights_only``) or ``.npz`` archives.
+``weights_only``) or ``.npz`` archives. ``compute_dtype`` and
+``cast_for_compute`` give a built model the parameters of its
+``--dtype bfloat16`` graph; converters stay fp32 in and fp32 out.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -73,3 +75,36 @@ def load_checked(model: torch.nn.Module, sd, model_name: str) -> None:
     ]
     if bad:
         raise ValueError(f"{model_name} state dict does not fit the model, e.g. {bad[:5]}")
+
+
+def compute_dtype(config) -> torch.dtype:
+    """The torch dtype of ``--dtype`` (``config.dtype``)."""
+    return torch.bfloat16 if getattr(config, "dtype", "float32") == "bfloat16" else torch.float32
+
+
+def cast_for_compute(module: torch.nn.Module, dtype: torch.dtype,
+                     exclude: Sequence[str] = ()) -> torch.nn.Module:
+    """Cast, in place, the floating parameters of ``ndim >= 2`` (conv and
+    linear weights, embeddings) to ``dtype``, the JAX package's
+    ``cast_floats_for_compute`` rule: 1-d parameters and buffers (norm
+    scales and statistics) stay fp32, and so does every parameter with a
+    name component in ``exclude`` (a head kept fp32, e.g. CLIP's
+    ``proj``). The bias beside a cast weight (``<prefix>bias`` next to
+    ``<prefix>weight``) is cast with it, since ``F.conv*``/``F.linear``
+    take the input's dtype: the rounding of JAX's ``b.astype(dtype)`` at
+    use. fp32 returns the module untouched. Call it after the weights are
+    loaded."""
+    if dtype == torch.float32:
+        return module
+    params = dict(module.named_parameters())
+    cast = {
+        name for name, p in params.items()
+        if p.is_floating_point() and p.dim() >= 2
+        and not set(name.split(".")) & set(exclude)
+    }
+    cast |= {name for name in params
+             if name.endswith("bias") and name[: -len("bias")] + "weight" in cast}
+    with torch.no_grad():
+        for name in cast:
+            params[name].data = params[name].data.to(dtype)
+    return module

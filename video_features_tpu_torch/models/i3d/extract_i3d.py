@@ -40,6 +40,13 @@ pass; the flow stream's min-edge-256 resize onto the flow net's grid
 edge-replicated where the padder puts it; PWC's exact resized grid, as
 its /64 stretch is part of its forward), and the 224 crop of the flow at
 the offsets where the host crops the padded flow.
+
+``--dtype bfloat16``: both I3D streams run their bf16 graph
+(``models/i3d/model.py``, the logits head fp32), and the flow net its own
+mixed-precision graph (``models/raft/model.py``, ``models/pwc/model.py``:
+PWC's cost volumes get fp32 inputs), each with its family's parameters
+kept fp32; the flow goes through ``flow_to_uint8`` in fp32. Features are
+fp32.
 """
 
 from __future__ import annotations
@@ -62,18 +69,23 @@ from video_features_tpu_torch.io.video import (
     read_frames_at_indices,
 )
 from video_features_tpu_torch.models.common.weights import (
+    cast_for_compute,
+    compute_dtype,
     load_checked,
     load_state_dict,
     random_init_fallback,
 )
 from video_features_tpu_torch.models.i3d import convert as i3d_convert
+from video_features_tpu_torch.models.i3d.model import FP32_PARAMS as I3D_FP32_PARAMS
 from video_features_tpu_torch.models.i3d.model import I3D, I3D_FEATURE_DIM, IN_CHANNELS
 from video_features_tpu_torch.models.i3d.model import init_weights as i3d_init
 from video_features_tpu_torch.models.pwc import convert as pwc_convert
+from video_features_tpu_torch.models.pwc.model import FP32_PARAMS as PWC_FP32_PARAMS
 from video_features_tpu_torch.models.pwc.model import PWCNet
 from video_features_tpu_torch.models.pwc.model import init_weights as pwc_init
 from video_features_tpu_torch.models.raft import convert as raft_convert
 from video_features_tpu_torch.models.raft.extract_raft import InputPadder
+from video_features_tpu_torch.models.raft.model import FP32_PARAMS as RAFT_FP32_PARAMS
 from video_features_tpu_torch.models.raft.model import RAFT, input_grid
 from video_features_tpu_torch.models.raft.model import init_weights as raft_init
 from video_features_tpu_torch.ops.preprocess import (
@@ -97,6 +109,9 @@ DEFAULT_STEP_SIZE = 64
 # checkpoint file names looked up under --weights_path (a directory)
 WEIGHT_FILES = {"rgb": "i3d_rgb.pt", "flow": "i3d_flow.pt", "raft": "raft-sintel.pth",
                 "pwc": "pwc_net_sintel.pt"}
+# the parameters each model keeps fp32 under --dtype bfloat16
+FP32_PARAMS = {"rgb": I3D_FP32_PARAMS, "flow": I3D_FP32_PARAMS, "raft": RAFT_FP32_PARAMS,
+               "pwc": PWC_FP32_PARAMS}
 
 
 @functools.lru_cache(maxsize=256)
@@ -213,7 +228,10 @@ class ExtractI3D(BaseExtractor):
 
     def _build(self, device: torch.device) -> Dict[str, torch.nn.Module]:
         kinds = self.streams + ([self.flow_type] if "flow" in self.streams else [])
-        return {kind: self._model(kind).to(device).eval() for kind in kinds}
+        dt = compute_dtype(self.config)
+        return {kind: cast_for_compute(self._model(kind).to(device).eval(), dt,
+                                       exclude=FP32_PARAMS[kind])
+                for kind in kinds}
 
     # --- host: decode and resize -------------------------------------------
     # A prepared video is T x 256 x W x 3 float32 and the pipeline keeps

@@ -14,6 +14,12 @@ as they are.
 The public forward keeps the JAX contract: (B, T, H, W, C) in [-1, 1]
 (C = 3 for rgb, 2 for flow) -> (features (B, 1024), logits (B, 400)).
 NCDHW inside.
+
+``--dtype bfloat16`` (``cast_for_compute`` with ``exclude=FP32_PARAMS``):
+the convolutions, max pools and branch concatenations in bf16, each
+BatchNorm's fold in fp32 (``models/common/layers.py``); the average pool,
+the time mean and the logits head in fp32 (torch has no bf16
+``avg_pool3d`` on the CPU, and the features are the contract).
 """
 
 from __future__ import annotations
@@ -24,9 +30,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from video_features_tpu_torch.models.common.layers import BatchNorm3d
+
 I3D_FEATURE_DIM = 1024
 I3D_NUM_CLASSES = 400
 IN_CHANNELS = {"rgb": 3, "flow": 2}
+# the parameters a bf16 network keeps fp32: the logits head
+FP32_PARAMS = ("conv3d_0c_1x1",)
 
 
 def tf_same_pads(kernel: Sequence[int], stride: Sequence[int]) -> List[Tuple[int, int]]:
@@ -66,7 +76,7 @@ class Unit3D(nn.Module):
         super().__init__()
         self.pads = _f_pad(kernel, stride)
         self.conv3d = nn.Conv3d(cin, cout, kernel, stride, bias=use_bias)
-        self.batch3d = nn.BatchNorm3d(cout, eps=1e-5) if use_bn else None
+        self.batch3d = BatchNorm3d(cout, eps=1e-5) if use_bn else None
         self.activation = activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -118,13 +128,13 @@ class I3D(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = x.permute(0, 4, 1, 2, 3).contiguous()
+        x = x.permute(0, 4, 1, 2, 3).contiguous().to(self.conv3d_1a_7x7.conv3d.weight.dtype)
         for name, layer in self.named_children():  # in the order defined above
             if name == "conv3d_0c_1x1":
                 break
             x = layer(x)
         # AvgPool3d((2, 7, 7), stride 1), then the time (and space) mean
-        x = F.avg_pool3d(x, (2, 7, 7), stride=1)
+        x = F.avg_pool3d(x.float(), (2, 7, 7), stride=1)
         feats = x.mean(dim=(2, 3, 4))
         logits = self.conv3d_0c_1x1(x).mean(dim=(2, 3, 4))
         return feats, logits

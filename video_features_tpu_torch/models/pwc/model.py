@@ -16,6 +16,15 @@ frames and the pairs are its views ``feat[:-1]`` / ``feat[1:]``. Each
 cost volume goes through ``ops/correlation.py::local_correlation`` with
 ``corr_method`` ('auto': the CUDA kernel on the card; 'plain': the plain
 version anywhere).
+
+``--dtype bfloat16`` (``cast_for_compute`` with ``exclude=FP32_PARAMS``):
+the extractor pyramid, the dense decoder convs, ``moduleUpfeat`` and the
+refiner compute in bf16, while everything the coarse-to-fine cascade
+steers by stays fp32: ``moduleUpflow`` and every flow estimate, the
+backward warp and its mask, both cost volumes (the kernel gets fp32
+inputs, as the JAX package's ``local_correlation`` does), and the final
+resize and rescale. A decoder's input is assembled in fp32 and rounded
+once into its dense stack. The flow is fp32 either way.
 """
 
 from __future__ import annotations
@@ -39,6 +48,8 @@ BACKWARD_SCALE = {5: 0.625, 4: 1.25, 3: 2.5, 2: 5.0}
 DECODER_IN = {6: 81, 5: 81 + 128 + 4, 4: 81 + 96 + 4, 3: 81 + 64 + 4, 2: 81 + 32 + 4}
 DENSE = (128, 128, 96, 64, 32)
 REFINER = ((128, 1), (128, 2), (128, 4), (96, 8), (64, 16), (32, 1))
+# the parameters a bf16 network keeps fp32: the flow upsampling deconvs
+FP32_PARAMS = ("moduleUpflow",)
 
 
 def _lrelu(x: torch.Tensor) -> torch.Tensor:
@@ -83,6 +94,7 @@ class Extractor(nn.Module):
             cin = dim
 
     def forward(self, x: torch.Tensor):
+        x = x.to(self.moduleOne[0].weight.dtype)
         feats = []
         for name in _ORDINAL:
             x = getattr(self, f"module{name}")(x)
@@ -93,7 +105,8 @@ class Extractor(nn.Module):
 class Decoder(nn.Module):
     """One pyramid level: correlation (after the warp below level 6) ->
     dense conv stack, each conv's output placed before its input ->
-    2-channel flow."""
+    2-channel flow. Returns the fp32 flow and the dense features in the
+    convs' dtype."""
 
     def __init__(self, level: int) -> None:
         super().__init__()
@@ -111,16 +124,17 @@ class Decoder(nn.Module):
     def forward(self, feat1, feat2, prev: Optional[Tuple[torch.Tensor, torch.Tensor]],
                 corr_method: str):
         if prev is None:
-            feat = _lrelu(local_correlation(feat1, feat2, method=corr_method))
+            feat = _lrelu(local_correlation(feat1.float(), feat2.float(), method=corr_method))
         else:
             flow_up = self.moduleUpflow(prev[0])
             feat_up = self.moduleUpfeat(prev[1])
-            warped = backward_warp(feat2, flow_up * BACKWARD_SCALE[self.level])
-            volume = _lrelu(local_correlation(feat1, warped, method=corr_method))
-            feat = torch.cat([volume, feat1, flow_up, feat_up], dim=1)
+            warped = backward_warp(feat2.float(), flow_up * BACKWARD_SCALE[self.level])
+            volume = _lrelu(local_correlation(feat1.float(), warped, method=corr_method))
+            feat = torch.cat([volume, feat1.float(), flow_up, feat_up.float()], dim=1)
+        feat = feat.to(self.moduleOne[0].weight.dtype)  # one cast into the dense stack
         for name in _ORDINAL[:5]:
             feat = torch.cat([getattr(self, f"module{name}")(feat), feat], dim=1)
-        return self.moduleSix(feat), feat
+        return self.moduleSix(feat).float(), feat
 
 
 class Refiner(nn.Module):
@@ -137,7 +151,7 @@ class Refiner(nn.Module):
         self.moduleMain = nn.Sequential(*layers)
 
     def forward(self, feat: torch.Tensor) -> torch.Tensor:
-        return self.moduleMain(feat)
+        return self.moduleMain(feat).float()
 
 
 def internal_grid(h: int, w: int, div: int = 64) -> Tuple[int, int]:

@@ -14,8 +14,13 @@ antialias), Kinetics normalisation, center crop 112 at rounded offsets.
 ``--video_batch N`` the stacks of N same-resolution videos re-chunk into
 ``N * batch_size``-stack forwards.
 
-Output: ``{r21d_rgb: (S, 512), fps, timestamps_ms}``, one timestamp per
-decoded frame.
+``--dtype bfloat16``: the network's bf16 graph (``models/r21d/
+model.py``), its weights cast after loading with ``fc`` kept fp32;
+``kinetics_preprocess`` stays fp32 and its output is rounded to bf16 at
+the first conv.
+
+Output: ``{r21d_rgb: (S, 512), fps, timestamps_ms}``, fp32, one timestamp
+per decoded frame.
 """
 
 from __future__ import annotations
@@ -35,12 +40,19 @@ from video_features_tpu_torch.io.video import (
     stream_frames,
 )
 from video_features_tpu_torch.models.common.weights import (
+    cast_for_compute,
+    compute_dtype,
     load_checked,
     load_state_dict,
     random_init_fallback,
 )
 from video_features_tpu_torch.models.r21d.convert import convert_state_dict
-from video_features_tpu_torch.models.r21d.model import R21D_FEATURE_DIM, R2Plus1D, init_weights
+from video_features_tpu_torch.models.r21d.model import (
+    FP32_PARAMS,
+    R21D_FEATURE_DIM,
+    R2Plus1D,
+    init_weights,
+)
 from video_features_tpu_torch.ops.preprocess import KINETICS_MEAN, KINETICS_STD
 from video_features_tpu_torch.ops.resize import resize_bilinear
 from video_features_tpu_torch.utils.labels import show_predictions_on_dataset
@@ -82,7 +94,8 @@ class ExtractR21D(BaseExtractor):
             random_init_fallback(self.config, self.feature_type,
                                  "a torchvision r2plus1d_18 (Kinetics-400) state dict (.pt/.pth)")
             init_weights(model)
-        return model.to(device).eval()
+        return cast_for_compute(model.to(device).eval(), compute_dtype(self.config),
+                                exclude=FP32_PARAMS)
 
     def prepare(self, entry):
         """Host half: ((T, H, W, 3) uint8 clip, stack slices, fps,

@@ -13,6 +13,11 @@ NCTHW inside. Module names are torchvision's (``stem.{0,1,3,4}``,
 ``downsample.{0,1}``, ``fc``), so its state dicts load as they are. The
 forward returns ``(features (N, 512), logits (N, 400))``; pool and head
 run in fp32.
+
+``--dtype bfloat16`` (``cast_for_compute`` with ``exclude=FP32_PARAMS``):
+the convolutions and the residual stream in bf16 from the first conv on,
+each BatchNorm's fold in fp32 (``models/common/layers.py``), the pool and
+``fc`` in fp32.
 """
 
 from __future__ import annotations
@@ -23,7 +28,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from video_features_tpu_torch.models.common.layers import BatchNorm3d
+
 R21D_FEATURE_DIM = 512
+# the parameters a bf16 network keeps fp32: the classifier head
+FP32_PARAMS = ("fc",)
 
 
 def midplanes(cin: int, cout: int) -> int:
@@ -39,7 +48,7 @@ class Conv2Plus1D(nn.Sequential):
         super().__init__(
             nn.Conv3d(cin, mid, (1, 3, 3), stride=(1, stride, stride), padding=(0, 1, 1),
                       bias=False),
-            nn.BatchNorm3d(mid),
+            BatchNorm3d(mid),
             nn.ReLU(),
             nn.Conv3d(mid, cout, (3, 1, 1), stride=(stride, 1, 1), padding=(1, 0, 0),
                       bias=False),
@@ -52,12 +61,12 @@ class BasicBlock(nn.Module):
         # one midplane width from (cin, planes), for both factorised convs
         mid = midplanes(cin, planes)
         self.conv1 = nn.Sequential(Conv2Plus1D(cin, planes, mid, stride),
-                                   nn.BatchNorm3d(planes), nn.ReLU())
-        self.conv2 = nn.Sequential(Conv2Plus1D(planes, planes, mid), nn.BatchNorm3d(planes))
+                                   BatchNorm3d(planes), nn.ReLU())
+        self.conv2 = nn.Sequential(Conv2Plus1D(planes, planes, mid), BatchNorm3d(planes))
         self.downsample = None
         if stride != 1 or cin != planes:
             self.downsample = nn.Sequential(nn.Conv3d(cin, planes, 1, stride=stride, bias=False),
-                                            nn.BatchNorm3d(planes))
+                                            BatchNorm3d(planes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.conv2(self.conv1(x))
@@ -72,10 +81,10 @@ class R2Plus1D(nn.Module):
         super().__init__()
         self.stem = nn.Sequential(
             nn.Conv3d(3, 45, (1, 7, 7), stride=(1, 2, 2), padding=(0, 3, 3), bias=False),
-            nn.BatchNorm3d(45),
+            BatchNorm3d(45),
             nn.ReLU(),
             nn.Conv3d(45, 64, (3, 1, 1), padding=(1, 0, 0), bias=False),
-            nn.BatchNorm3d(64),
+            BatchNorm3d(64),
             nn.ReLU(),
         )
         cin = 64
@@ -89,7 +98,8 @@ class R2Plus1D(nn.Module):
         self.fc = nn.Linear(cin, num_classes)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = self.layer4(self.layer3(self.layer2(self.layer1(self.stem(x)))))
+        x = self.stem(x.to(self.stem[0].weight.dtype))
+        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         feats = x.float().mean(dim=(2, 3, 4))
         return feats, self.fc(feats)
 

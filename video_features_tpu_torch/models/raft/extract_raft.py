@@ -18,7 +18,7 @@ import torch
 
 from video_features_tpu_torch.models.common.flow_extract import PairwiseFlowExtractor
 from video_features_tpu_torch.models.raft.convert import convert_state_dict
-from video_features_tpu_torch.models.raft.model import RAFT, init_weights, input_grid
+from video_features_tpu_torch.models.raft.model import FP32_PARAMS, RAFT, init_weights, input_grid
 
 
 class InputPadder:
@@ -61,6 +61,7 @@ class ExtractRAFT(PairwiseFlowExtractor):
     checkpoint = "the princeton-vl RAFT state dict (raft-sintel.pth)"
     _convert_state_dict = staticmethod(convert_state_dict)
     _init_weights = staticmethod(init_weights)
+    _fp32_params = FP32_PARAMS
 
     def _model(self) -> RAFT:
         return RAFT()

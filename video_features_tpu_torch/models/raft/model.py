@@ -19,6 +19,17 @@ einsums), so here they are a batched fp32 matmul and ``grid_sample``
 (``devices.pin_fp32`` keeps TF32 off). The upsampling mask is computed
 in the last iteration only: the earlier iterations' masks are never
 read.
+
+``--dtype bfloat16`` (``cast_for_compute``; RAFT keeps no parameter
+fp32): every convolution computes in bf16 (both encoders, the motion
+encoder, the six GRU gate convs, the flow and mask heads) and so do the
+encoders' residual streams, while what the 20-step recurrence
+accumulates through stays fp32: the correlation volume and its lookup,
+the gate nonlinearities and the hidden-state carry, ``coords1``, and the
+upsampling softmax. The norms keep fp32 statistics
+(``models/common/layers.py``). The JAX package keeps RAFT's parameters
+fp32 and casts them at each conv; casting them once after loading is the
+same rounding. The flow is fp32 either way.
 """
 
 from __future__ import annotations
@@ -29,17 +40,22 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from video_features_tpu_torch.models.common.layers import BatchNorm2d, InstanceNorm2d
+
 CORR_LEVELS = 4
 CORR_RADIUS = 4
 HIDDEN_DIM = 128
 CONTEXT_DIM = 128
 WINDOW = (2 * CORR_RADIUS + 1) ** 2
+# the parameters a bf16 network keeps fp32: none
+FP32_PARAMS = ()
 
 
 def _norm(kind: str, planes: int) -> nn.Module:
     # torch InstanceNorm2d defaults: no affine parameters, eps 1e-5, the
-    # sample's own statistics; eval BatchNorm reads its running stats
-    return nn.BatchNorm2d(planes) if kind == "batch" else nn.InstanceNorm2d(planes)
+    # sample's own statistics; eval BatchNorm reads its running stats; both
+    # with fp32 statistics for a bf16 input
+    return BatchNorm2d(planes) if kind == "batch" else InstanceNorm2d(planes)
 
 
 class ResidualBlock(nn.Module):
@@ -77,7 +93,7 @@ class BasicEncoder(nn.Module):
         self.conv2 = nn.Conv2d(128, output_dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.norm1(self.conv1(x)))
+        x = F.relu(self.norm1(self.conv1(x.to(self.conv1.weight.dtype))))
         x = self.layer3(self.layer2(self.layer1(x)))
         return self.conv2(x)
 
@@ -92,14 +108,20 @@ class BasicMotionEncoder(nn.Module):
         self.conv = nn.Conv2d(64 + 192, 128 - 2, 3, padding=1)
 
     def forward(self, flow: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
-        cor = F.relu(self.convc2(F.relu(self.convc1(corr))))
-        flo = F.relu(self.convf2(F.relu(self.convf1(flow))))
+        """fp32 ``flow`` and ``corr`` -> features in the convs' dtype; the
+        raw flow channels appended are a rounded copy, the fp32 flow
+        accumulator lives in ``RAFT.forward``."""
+        dt = self.convc1.weight.dtype
+        cor = F.relu(self.convc2(F.relu(self.convc1(corr.to(dt)))))
+        flo = F.relu(self.convf2(F.relu(self.convf1(flow.to(dt)))))
         out = F.relu(self.conv(torch.cat([cor, flo], dim=1)))
-        return torch.cat([out, flow], dim=1)
+        return torch.cat([out, flow.to(dt)], dim=1)
 
 
 class SepConvGRU(nn.Module):
-    """Separable 1x5 + 5x1 ConvGRU."""
+    """Separable 1x5 + 5x1 ConvGRU. The gate convs take ``x``'s dtype; the
+    gate nonlinearities and the update of the hidden state ``h`` run in
+    fp32 on an fp32 ``h``, which the 20 steps carry."""
 
     def __init__(self, hidden: int = HIDDEN_DIM, input_dim: int = 128 + CONTEXT_DIM) -> None:
         super().__init__()
@@ -109,11 +131,13 @@ class SepConvGRU(nn.Module):
                                 nn.Conv2d(hidden + input_dim, hidden, kernel, padding=pad))
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
         for sfx in "12":
-            hx = torch.cat([h, x], dim=1)
-            z = torch.sigmoid(getattr(self, f"convz{sfx}")(hx))
-            r = torch.sigmoid(getattr(self, f"convr{sfx}")(hx))
-            q = torch.tanh(getattr(self, f"convq{sfx}")(torch.cat([r * h, x], dim=1)))
+            hx = torch.cat([h.to(dt), x], dim=1)
+            z = torch.sigmoid(getattr(self, f"convz{sfx}")(hx).float())
+            r = torch.sigmoid(getattr(self, f"convr{sfx}")(hx).float())
+            q = torch.tanh(getattr(self, f"convq{sfx}")(
+                torch.cat([(r * h).to(dt), x], dim=1)).float())
             h = (1 - z) * h + z * q
         return h
 
@@ -125,7 +149,7 @@ class FlowHead(nn.Module):
         self.conv2 = nn.Conv2d(256, 2, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv2(F.relu(self.conv1(x)))
+        return self.conv2(F.relu(self.conv1(x.to(self.conv1.weight.dtype))))
 
 
 class BasicUpdateBlock(nn.Module):
@@ -142,9 +166,11 @@ class BasicUpdateBlock(nn.Module):
                                   nn.Conv2d(256, 64 * 9, 1))
 
     def forward(self, net, inp, corr, flow):
+        """fp32 ``net`` (the carry), ``inp``, ``corr`` and ``flow`` -> the
+        next fp32 carry and the fp32 flow delta."""
         motion = self.encoder(flow, corr)
-        net = self.gru(net, torch.cat([inp, motion], dim=1))
-        return net, self.flow_head(net)
+        net = self.gru(net, torch.cat([inp.to(motion.dtype), motion], dim=1))
+        return net, self.flow_head(net).float()
 
 
 def build_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
@@ -244,14 +270,16 @@ class RAFT(nn.Module):
                              "(extract_raft.InputPadder pads them)")
         x = (2.0 * (frames / 255.0) - 1.0).permute(0, 1, 4, 2, 3)  # (B, T, 3, H, W)
 
-        fmap = self.fnet(x.reshape(B * T, 3, H, W))
+        # the volume feeds 20 lookups: built and sampled in fp32, whatever
+        # the encoders computed in
+        fmap = self.fnet(x.reshape(B * T, 3, H, W)).float()
         fmap = fmap.reshape(B, T, *fmap.shape[1:])
         pairs = B * (T - 1)
         pyramid = build_corr_pyramid(fmap[:, :-1].reshape(pairs, *fmap.shape[2:]),
                                      fmap[:, 1:].reshape(pairs, *fmap.shape[2:]))
         del fmap
 
-        cnet = self.cnet(x[:, :-1].reshape(pairs, 3, H, W))
+        cnet = self.cnet(x[:, :-1].reshape(pairs, 3, H, W)).float()
         net, inp = torch.split(cnet, [HIDDEN_DIM, CONTEXT_DIM], dim=1)
         net, inp = torch.tanh(net), F.relu(inp)
 
@@ -262,7 +290,8 @@ class RAFT(nn.Module):
             net, delta = self.update_block(net, inp, corr, coords1 - coords0)
             coords1 = coords1 + delta
         del pyramid
-        flow = upsample_flow(coords1 - coords0, 0.25 * self.update_block.mask(net))
+        mask_in = net.to(self.update_block.mask[0].weight.dtype)
+        flow = upsample_flow(coords1 - coords0, 0.25 * self.update_block.mask(mask_in).float())
         flow = flow.permute(0, 2, 3, 1).reshape(B, T - 1, H, W, 2)
         return flow if batched else flow[0]
 

@@ -19,8 +19,12 @@ the resident prepared videos; under ``--preprocess device`` counted in
 bucket-sized uint8 frames) is handed over as ``("stream", entry)`` and
 decoded batch by batch at dispatch, so it is never held whole.
 
+``--dtype bfloat16``: the network's bf16 graph (``models/resnet/
+model.py``), its weights cast after loading with ``fc`` kept fp32; the
+device preprocess returns bf16.
+
 Output: ``{resnetXX: (T, 512 * expansion), fps, timestamps_ms}``, 2048-d
-for resnet50 and deeper.
+for resnet50 and deeper, fp32.
 """
 
 from __future__ import annotations
@@ -40,12 +44,14 @@ from video_features_tpu_torch.io.video import (
     stream_frames,
 )
 from video_features_tpu_torch.models.common.weights import (
+    cast_for_compute,
+    compute_dtype,
     load_checked,
     load_state_dict,
     random_init_fallback,
 )
 from video_features_tpu_torch.models.resnet.convert import convert_state_dict
-from video_features_tpu_torch.models.resnet.model import ResNet, init_weights
+from video_features_tpu_torch.models.resnet.model import FP32_PARAMS, ResNet, init_weights
 from video_features_tpu_torch.ops.preprocess import (
     IMAGENET_MEAN,
     IMAGENET_STD,
@@ -61,6 +67,7 @@ class ExtractResNet(BaseExtractor):
     def __init__(self, config, external_call: bool = False) -> None:
         super().__init__(config, external_call)
         self.batch_size = max(int(self.config.batch_size or 1), 1)
+        self.dtype = compute_dtype(self.config)
 
     def _build(self, device: torch.device) -> ResNet:
         model = ResNet(self.feature_type)
@@ -71,7 +78,7 @@ class ExtractResNet(BaseExtractor):
             random_init_fallback(self.config, self.feature_type,
                                  f"a torchvision {self.feature_type} state dict (.pt/.pth)")
             init_weights(model)
-        return model.to(device).eval()
+        return cast_for_compute(model.to(device).eval(), self.dtype, exclude=FP32_PARAMS)
 
     # A prepared video holds its preprocessed fp32 224x224 frames (~600 KB
     # each); the pipeline keeps decode_workers + 2 prepared videos, so the
@@ -141,7 +148,8 @@ class ExtractResNet(BaseExtractor):
         """One placed batch -> (features, logits); under ``--preprocess
         device`` the resize, crop and normalize run first."""
         if taps is not None:
-            x = device_preprocess_frames(x, *taps, IMAGENET_MEAN, IMAGENET_STD)
+            x = device_preprocess_frames(x, *taps, IMAGENET_MEAN, IMAGENET_STD,
+                                         out_dtype=self.dtype)
         return model(x)
 
     def _dispatch_batch(self, model: ResNet, x: np.ndarray, n: int, taps):

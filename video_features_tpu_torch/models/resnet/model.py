@@ -8,6 +8,11 @@ global average pool, 1000-way fc. Module names are torchvision's
 ``downsample.{0,1}``, ``fc``), so its state dicts load as they are. The
 forward returns ``(features, logits)`` in one pass; pool and head run in
 fp32.
+
+``--dtype bfloat16`` (``cast_for_compute`` with ``exclude=FP32_PARAMS``):
+the convolutions, the residual stream and the max pool in bf16, each
+BatchNorm's fold in fp32 (``models/common/layers.py``), the pool and
+``fc`` in fp32.
 """
 
 from __future__ import annotations
@@ -17,6 +22,11 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from video_features_tpu_torch.models.common.layers import BatchNorm2d
+
+# the parameters a bf16 network keeps fp32: the classifier head
+FP32_PARAMS = ("fc",)
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
@@ -30,9 +40,9 @@ class BasicBlock(nn.Module):
                  downsample: nn.Module = None) -> None:
         super().__init__()
         self.conv1 = _conv(cin, planes, 3, stride)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = _conv(planes, planes, 3)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.downsample = downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -49,11 +59,11 @@ class Bottleneck(nn.Module):
                  downsample: nn.Module = None) -> None:
         super().__init__()
         self.conv1 = _conv(cin, planes, 1)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = _conv(planes, planes, 3, stride)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = _conv(planes, planes * 4, 1)
-        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.bn3 = BatchNorm2d(planes * 4)
         self.downsample = downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -81,7 +91,7 @@ class ResNet(nn.Module):
         super().__init__()
         block, layers = ARCHS[arch]
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         cin = 64
         for stage, n_blocks in enumerate(layers):
             planes = 64 * 2 ** stage
@@ -91,14 +101,14 @@ class ResNet(nn.Module):
                 downsample = None
                 if stride != 1 or cin != planes * block.expansion:
                     downsample = nn.Sequential(_conv(cin, planes * block.expansion, 1, stride),
-                                               nn.BatchNorm2d(planes * block.expansion))
+                                               BatchNorm2d(planes * block.expansion))
                 blocks.append(block(cin, planes, stride, downsample))
                 cin = planes * block.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
         self.fc = nn.Linear(cin, num_classes)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn1(self.conv1(x.to(self.conv1.weight.dtype))))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         feats = x.float().mean(dim=(2, 3))

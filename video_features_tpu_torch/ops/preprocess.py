@@ -167,9 +167,11 @@ def device_preprocess_frames(
     wx: Tuple[torch.Tensor, torch.Tensor],
     mean: Sequence[float],
     std: Sequence[float],
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """``device_resize_frames``, then /255, mean/std normalize and CHW, in
-    fp32: the whole CLIP or ResNet host chain on the card. Tap layouts:
+    fp32, returned in ``out_dtype`` (bf16 for a ``--dtype bfloat16``
+    model): the whole CLIP or ResNet host chain on the card. Tap layouts:
 
     - frames (T, H, W, C) + wt (P, K) -> (T, C, P, Q): one video;
     - frames (N, T, H, W, C) + wt (N, P, K) -> (N, T, C, P, Q): a fused
@@ -181,7 +183,7 @@ def device_preprocess_frames(
     y = device_resize_frames(frames, wy, wx)
     y = y.movedim(-1, -3)  # (..., P, Q, C) -> (..., C, P, Q)
     mean_t, std_t = _channel_stats(tuple(mean), tuple(std), y.device)
-    return ((y / 255.0 - mean_t) / std_t).contiguous()
+    return ((y / 255.0 - mean_t) / std_t).to(out_dtype).contiguous()
 
 
 @functools.lru_cache(maxsize=16)
