@@ -115,19 +115,43 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     fp32 inputs; warm videos/s at both dtypes and one bf16 forward's top
     kernels, beside the card's name and power limit; and K1 in bf16 at
     the CLIP path's shape against its plain version;
-17. a ``kernels`` JSON line (each kernel's launches on its main path, in
-    the fused runs, in the device preprocess runs, in the telemetry runs
-    and in the bf16 phase, its records at the fused shapes, and K1's
-    bf16 record at the CLIP path's shape), then the ``ok`` JSON line
-    last.
+17. the serve daemon (``video_features_tpu_torch/serve/``): the batch
+    CLI twice on phase 12's 8 clips with ``--cache_dir`` (the repeat is 8
+    ``cache_hit`` records, no K1 launch, byte-equal files); ``--feature_types
+    CLIP-ViT-B/32 resnet50`` on phase 9's clip (one decode in the frame
+    cache, both models' files within their gates of the single-model
+    runs); then the daemon in this process on the card (``--feature_types
+    CLIP-ViT-B/32 i3d --flow_type pwc --attn flash --max_group_size 4
+    --port 0 --cache_dir``, CLIP warmed at 320x240): over HTTP on
+    127.0.0.1 a burst of the 8 CLIP requests, the 2 I3D requests of
+    phase 5's clips and one fan-out request naming both models on its
+    65-frame clip, each polled to a terminal state; CLIP within 1e-4 of
+    the batch run (the fan-out's CLIP file too, against a batch run on its
+    clip), I3D + PWC within phase 5's gates (the fan-out's against phase
+    5's card features of its clip), K1 = 12 x CLIP
+    forwards and K2 = 5 x I3D + PWC forwards (the CLIP groups printed,
+    and 2 when the burst lands inside ``--max_batch_wait_ms``); the burst
+    again, all cache hits at admission with no launch and byte-equal
+    files; ``/healthz``, ``/metrics`` (valid Prometheus text with the
+    stage and SLO families) and ``/v1/requests/<id>``; CLIP evicted and
+    rebuilt by one more request, with ``torch.cuda.memory_allocated``
+    before, between and after; shutdown with drain leaving no request
+    non-terminal; the warmup seconds, the burst's p50/p95 latency on a
+    miss and on a hit, and the phase's wall, beside the card's name and
+    power limit;
+18. a ``kernels`` JSON line (each kernel's launches on its main path, in
+    the fused runs, in the device preprocess runs, in the telemetry runs,
+    in the bf16 phase and in the served burst, its records at the fused
+    shapes, and K1's bf16 record at the CLIP path's shape), then the
+    ``ok`` JSON line last.
 
-Every CLI run of phases 4-14 and 16 passes ``--strict``, so a video that fails
+Every CLI run of phases 4-14, 16 and 17 passes ``--strict``, so a video that fails
 in isolation fails its phase (phase 15's first run leaves it out: two of
 its files must fail). Phases 7-11 launch no hand-written kernel:
 RAFT, ResNet, R(2+1)D and VGGish reach no ``pallas_call`` in the JAX
 package, nor does the device preprocess's resample (the JAX package
 leaves it to XLA). Every launch count is read from a run that starts with
-all counts at 0, and each of phases 4-16 prints its wall time.
+all counts at 0, and each of phases 4-17 prints its wall time.
 """
 
 from __future__ import annotations
@@ -737,6 +761,8 @@ def run_i3d_path(root: str, device):
     ex65 = build_extractor(ExtractionConfig(feature_type="i3d", video_paths=[clip65],
                                             allow_random_init=True), external_call=True)
     (card,) = ex65(device=device)
+    for stream in ("rgb", "flow"):  # phase 17 holds its served fan-out against these
+        np.save(os.path.join(root, f"i3d65_card_{stream}.npy"), card[stream])
     (cpu,) = ex65(device=torch.device("cpu"))
     stack65 = torch.from_numpy(np.stack(ex65.prepare(clip65)[0]))
     card_steps = stack_streams(ex65, ex65.warmup(device), stack65.to(device))
@@ -2072,6 +2098,350 @@ def run_bf16_path(root: str, device):
     return launches
 
 
+def http_json(port: int, path: str, payload=None, method=None):
+    """(status, body) of one request to the daemon's HTTP door on
+    127.0.0.1; the body parsed as JSON, or as text for /metrics."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            body = resp.read().decode()
+            status = resp.status
+    except urllib.error.HTTPError as exc:
+        body, status = exc.read().decode(), exc.code
+    return status, (body if path == "/metrics" else json.loads(body))
+
+
+def quantile(values, q: float) -> float:
+    return float(np.quantile(np.asarray(values, np.float64), q))
+
+
+def param_mib(state) -> float:
+    """MiB of a built model state's parameters and buffers (a module, or
+    a dict of them)."""
+    modules = state.values() if isinstance(state, dict) else [state]
+    return sum(t.numel() * t.element_size() for m in modules
+               for t in [*m.parameters(), *m.buffers()]) / 2**20
+
+
+def span_ms(spans, stage: str, ids) -> list:
+    """Durations (ms) of the daemon's ``stage`` spans of the requests ``ids``."""
+    return [(s["t1"] - s["t0"]) * 1e3 for s in spans
+            if s["stage"] == stage and s.get("request") in ids]
+
+
+def run_serve_cache(root: str, clips) -> None:
+    """Phase 17, step 1: the batch CLI twice over cell 9's clips with
+    --cache_dir: the repeat is 8 cache hits, no K1 launch, the same bytes."""
+    from video_features_tpu_torch.runtime.faults import iter_manifest_records
+
+    args = ["--feature_type", "CLIP-ViT-B/32", "--extract_method", f"uni_{FRAMES}",
+            "--attn", "flash", "--cache_dir", os.path.join(root, "serve_cache_D")]
+    runs = []
+    for out in ("serve_batch_1", "serve_batch_2"):
+        wall, k1, _, feats = ingest_cli(root, out, args, clips)
+        blobs = {f: open(f, "rb").read() for f in sorted(glob.glob(
+            os.path.join(root, out, "**", "*.npy"), recursive=True))}
+        notes = [r.get("note") for r in iter_manifest_records(os.path.join(root, out))
+                 if r.get("status") == "done"]
+        runs.append((wall, k1, feats, list(blobs.values()), notes))
+    (w1, k1a, _, b1, _), (w2, k1b, _, b2, notes) = runs
+    print(f"serve, batch cache: first run {w1:.3f} s, {k1a} K1 launches; repeat {w2:.3f} s, "
+          f"{k1b} K1 launches, {notes.count('cache_hit')} cache_hit records, files byte-equal "
+          f"{b1 == b2}")
+    if k1a != CONTRACT_VIDEOS * LAYERS or k1b != 0 or b1 != b2 or len(b1) != CONTRACT_VIDEOS \
+            or notes != ["cache_hit"] * CONTRACT_VIDEOS:
+        raise AssertionError(f"batch cache repeat: K1 {k1a}/{k1b}, notes {notes}")
+
+
+def run_serve_fanout(root: str) -> None:
+    """Phase 17, step 2: --feature_types CLIP-ViT-B/32 resnet50 on cell
+    6's clip decodes it once and writes what the single-model runs write."""
+    from video_features_tpu_torch.extract import plan
+
+    clip = os.path.join(root, "resnet50.mp4")
+    common = ["--extract_method", f"uni_{FRAMES}", "--attn", "flash",
+              "--batch_size", str(RESNET_BATCH)]
+    seen = []
+    make = plan.cache_for
+
+    def spy(cfg, fts):
+        seen.append(make(cfg, fts))
+        return seen[-1]
+
+    with mock.patch.object(plan, "cache_for", spy):
+        wall, k1, _, both = ingest_cli(root, "serve_fanout", ["--feature_types",
+                                       "CLIP-ViT-B/32", "resnet50", *common], [clip])
+    stats = seen[0].stats()
+    single = {}
+    for ft in ("CLIP-ViT-B/32", "resnet50"):
+        single.update(ingest_cli(root, f"serve_single_{ft[:4]}", ["--feature_type", ft,
+                                 *common], [clip])[3])
+    errs = {}
+    for name, ref in single.items():
+        if name not in both or both[name].shape != ref.shape:
+            raise AssertionError(f"fan-out: {name} missing or reshaped: {sorted(both)}")
+        errs[name] = (float(np.abs(both[name] - ref).max()) if "CLIP" in name
+                      else rel_l2(both[name], ref))
+    print(f"serve, batch fan-out --feature_types CLIP-ViT-B/32 resnet50 on one "
+          f"{RESNET_CLIP_FRAMES}-frame clip: {wall:.3f} s, frame cache {stats}; against the "
+          f"single-model runs: " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + f" (CLIP abs tol {FEATURE_ATOL:g}, ResNet rel_l2 tol {CNN_FEATURE_RTOL:g}); "
+          f"K1 launches {k1}")
+    if stats["populated"] != 1 or stats["clips"] != 1 or len(both) != 2 or k1 != LAYERS:
+        raise AssertionError(f"fan-out decoded {stats}, files {sorted(both)}, K1 {k1}")
+    if not all(e <= (FEATURE_ATOL if "CLIP" in n else CNN_FEATURE_RTOL) for n, e in errs.items()):
+        raise AssertionError(f"fan-out features disagree with the single runs: {errs}")
+
+
+def run_serve_path(root: str, device):
+    """Phase 17: the serve daemon (module docstring). Returns each
+    kernel's launches in the served burst."""
+    from video_features_tpu_torch.config import parse_serve_args
+    from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
+    from video_features_tpu_torch.ops.flash_attention import flash_attention
+    from video_features_tpu_torch.serve.daemon import ServeDaemon
+    from video_features_tpu_torch.telemetry.exposition import validate_exposition
+    from video_features_tpu_torch.utils.synth import synth_video
+
+    t_phase = time.perf_counter()
+    print(f"serve: {card_line()}")
+    clips = [os.path.join(root, f"contract{i}.mp4") for i in range(CONTRACT_VIDEOS)]
+    run_serve_cache(root, clips)
+    run_serve_fanout(root)
+
+    clip_ft = "CLIP-ViT-B/32"
+    i3d_clips = [os.path.join(root, f"i3d{i}.mp4") for i in range(I3D_VIDEOS)]
+    fan_clip = os.path.join(root, "i3d65.mp4")
+    # the batch CLI's CLIP features of the fan-out request's clip
+    fan_ref = ingest_cli(root, "serve_batch_fan", ["--feature_type", clip_ft, "--extract_method",
+                                                   f"uni_{FRAMES}", "--attn", "flash"],
+                         [fan_clip])[3]
+    out = os.path.join(root, "serve_out")
+    t0 = time.perf_counter()
+    daemon = ServeDaemon(parse_serve_args([
+        "--feature_types", clip_ft, "i3d", "--flow_type", "pwc", "--attn", "flash",
+        "--extract_method", f"uni_{FRAMES}", "--allow_random_init", "--max_group_size", "4",
+        "--port", "0", "--cache_dir", os.path.join(root, "serve_cache_D2"),
+        "--warmup", f"{clip_ft}:320x240", "--output_path", out,
+        "--tmp_path", os.path.join(root, "tmp"), "--heartbeat_s", "0"]))
+    if daemon.device != device:
+        raise AssertionError(f"the daemon resolved {daemon.device}, not {device}")
+    try:
+        daemon.start()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        port = daemon.http_port
+        print(f"serve: cold start to warm (daemon built, CLIP loaded, warmup clip 320x240 "
+              f"served, HTTP open) {warm_s:.3f} s; warmup record "
+              f"{daemon.tracker.get('warmup-CLIP-ViT-B-32-320x240')['state']}")
+
+        def post_all(payloads):
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(len(payloads)) as pool:
+                t_start = time.monotonic()
+                got = list(pool.map(lambda p: http_json(port, "/v1/extract", p), payloads))
+            return got, time.monotonic() - t_start
+
+        def wait_terminal(ids, timeout=300.0):
+            deadline = time.monotonic() + timeout
+            while time.monotonic() < deadline:
+                recs = {i: daemon.tracker.get(i) or {} for i in ids}
+                if all(r.get("state") in ("done", "failed", "rejected", "expired", "cancelled")
+                       for r in recs.values()):
+                    return recs
+                time.sleep(0.01)
+            raise AssertionError(f"requests not terminal after {timeout} s: {recs}")
+
+        clip_ex = daemon.pool.get(clip_ft)
+        t_burst = time.monotonic()
+        reset_counts()
+        burst = [{"feature_type": clip_ft, "video_path": c, "id": f"clip-{i}", "bucket": "320x240"}
+                 for i, c in enumerate(clips)]
+        others = [{"feature_type": "i3d", "video_path": c, "id": f"i3d-{i}"}
+                  for i, c in enumerate(i3d_clips)]
+        others.append({"feature_types": [clip_ft, "i3d"], "video_path": fan_clip, "id": "fan"})
+        answers, post_s = post_all(burst)
+        answers += post_all(others)[0]
+        if any(code != 202 for code, _ in answers):
+            raise AssertionError(f"a POST was refused: {answers}")
+        fan_ids = [f"fan.{clip_ft.replace('/', '-')}", "fan.i3d"]
+        ids = [p["id"] for p in burst + others[:-1]] + fan_ids
+        recs = wait_terminal(ids)
+        torch.cuda.synchronize()
+        k1, k2 = flash_attention.launches, local_correlation_kernel.launches
+        bad = {i: r for i, r in recs.items() if r.get("state") != "done"}
+        if bad:
+            raise AssertionError(f"served requests failed: {bad}")
+
+        # what the CLIP extractor dispatched in the burst: each 'request'
+        # span is a group, each dispatch (pipelined) or extract (serial)
+        # span one forward
+        spans = [s for s in clip_ex.telemetry.spans() if s["t0"] >= t_burst]
+        groups = sorted((len(s["requests"]) for s in spans if s["stage"] == "request"),
+                        reverse=True)
+        forwards = sum(1 for s in spans if s["stage"] in ("dispatch", "extract"))
+        burst_groups = [s for s in spans if s["stage"] == "request"
+                        and set(s["requests"]) <= {p["id"] for p in burst}]
+        wait_s = daemon.scfg.max_batch_wait_ms / 1e3
+        print(f"serve, burst of {len(burst)} CLIP requests (posted in {post_s * 1e3:.1f} ms, "
+              f"--max_batch_wait_ms {daemon.scfg.max_batch_wait_ms:g}): CLIP groups "
+              f"{[len(s['requests']) for s in burst_groups]} (all CLIP groups with the fan-out's "
+              f"{groups}), {forwards} CLIP forwards, K1 launches {k1}; K2 launches {k2}")
+        if k1 != LAYERS * forwards:
+            raise AssertionError(f"K1 launched {k1} times over {forwards} CLIP forwards")
+        if post_s <= wait_s and len(burst_groups) != -(-len(burst) // 4):
+            raise AssertionError(f"a burst inside the wait ran in {len(burst_groups)} groups")
+
+        batch_dir = os.path.join(root, "serve_batch_1", "CLIP-ViT-B", "32")
+        clip_errs = []
+        for p in burst:
+            (path,) = recs[p["id"]]["features"]
+            ref = np.load(os.path.join(batch_dir, os.path.basename(path)))
+            clip_errs.append(float(np.abs(np.load(path) - ref).max()))
+        print(f"serve, CLIP features against the batch CLI's (cell 9): max_abs_err "
+              f"{max(clip_errs):.3e} (tol {INGEST_ATOL:g})")
+        if not max(clip_errs) <= INGEST_ATOL:
+            raise AssertionError(f"served CLIP disagrees with batch: {clip_errs}")
+
+        # I3D + PWC against phase 5's files; the flow tolerance from the
+        # share of uint8 flow levels two runs of one stack flip on the card
+        def run_to_run_tol():
+            ex = daemon.pool.get("i3d")
+            models = ex.warmup(device)
+            stack = torch.from_numpy(np.stack(ex.prepare(i3d_clips[0])[0][: STACK + 1]))
+            a, b = (stack_streams(ex, models, stack.to(device)) for _ in range(2))
+            return flow_feature_rtol(float(np.mean(a[1] != b[1])), a[1])
+
+        flow_tol = run_to_run_tol()
+        stacks = 0
+        for p in others[:-1] + [{"id": "fan.i3d"}]:
+            for path in recs[p["id"]]["features"]:
+                stacks += np.load(path).shape[0] if path.endswith("_rgb.npy") else 0
+        i3d_errs = []
+        for p in others[:-1]:
+            for path in recs[p["id"]]["features"]:
+                ref = np.load(os.path.join(root, "i3d_out", "i3d", os.path.basename(path)))
+                tol = flow_tol if path.endswith("_flow.npy") else I3D_FEATURE_RTOL
+                i3d_errs.append((os.path.basename(path), rel_l2(np.load(path), ref), tol))
+        print("serve, I3D + PWC features against phase 5's: " + ", ".join(
+            f"{n} rel_l2 {e:.3e} (tol {t:.3e})" for n, e, t in i3d_errs)
+            + f"; {stacks} stacks served, K2 launches {k2} (5 x {stacks})")
+        if any(not e <= t for _, e, t in i3d_errs) or len(i3d_errs) != 2 * I3D_VIDEOS:
+            raise AssertionError(f"served I3D disagrees with batch: {i3d_errs}")
+        if k2 != len(CORR_LEVELS) * stacks:
+            raise AssertionError(f"K2 launched {k2} times over {stacks} I3D + PWC forwards")
+        # the fan-out: its CLIP file against the batch CLI's on that clip,
+        # its I3D files against phase 5's card features of the clip
+        fan_errs = []
+        fan_files = {os.path.basename(f): f for i in fan_ids for f in recs[i]["features"]}
+        want = sorted([*fan_ref, "i3d65_flow.npy", "i3d65_rgb.npy"])
+        if sorted(fan_files) != want:
+            raise AssertionError(f"fan-out files {sorted(fan_files)}, not {want}")
+        for name, path in sorted(fan_files.items()):
+            got = np.load(path)
+            if name in fan_ref:
+                err = float(np.abs(got - fan_ref[name]).max()) if got.shape == \
+                    fan_ref[name].shape else float("inf")
+                fan_errs.append((name, "max_abs_err", err, INGEST_ATOL))
+            else:
+                stream = name[len("i3d65_"):-len(".npy")]
+                ref = np.load(os.path.join(root, f"i3d65_card_{stream}.npy"))
+                err = rel_l2(got, ref) if got.shape == ref.shape else float("inf")
+                fan_errs.append((name, "rel_l2", err,
+                                 flow_tol if stream == "flow" else I3D_FEATURE_RTOL))
+        fan = daemon.stats()["cache"].get("frame_cache", {})
+        print(f"serve, fan-out request on {os.path.basename(fan_clip)}: "
+              f"{[recs[i]['state'] for i in fan_ids]}; " + ", ".join(
+                  f"{n} {m} {e:.3e} (tol {t:.3e})" for n, m, e, t in fan_errs)
+              + f" (CLIP against the batch CLI, I3D against phase 5); frame cache {fan}")
+        if any(not e <= t for _, _, e, t in fan_errs):
+            raise AssertionError(f"the served fan-out disagrees: {fan_errs}")
+
+        # the repeat: every request a cache hit at admission, no launch
+        before = {p["id"]: open(recs[p["id"]]["features"][0], "rb").read() for p in burst}
+        reset_counts()
+        again = [dict(p, id=p["id"] + "-again") for p in burst]
+        hits, hit_post_s = post_all(again)
+        k1_hit = flash_attention.launches
+        same = all(open(r["features"][0], "rb").read() == before[p["id"]]
+                   for p, (_, r) in zip(burst, hits))
+        print(f"serve, the burst again: states {sorted({r['state'] for _, r in hits})} at the "
+              f"POST ({hit_post_s * 1e3:.1f} ms for all {len(again)}), K1 launches {k1_hit}, "
+              f"files byte-equal {same}; cache {daemon.stats()['cache']}")
+        if any(r["state"] != "done" for _, r in hits) or k1_hit or not same:
+            raise AssertionError(f"repeat not served from the cache: {hits}, K1 {k1_hit}")
+
+        miss = [recs[p["id"]]["wall_s"] for p in burst]
+        hit = [daemon.tracker.get(p["id"])["wall_s"] for p in again]
+        print(f"serve, request latency (received to terminal), {card_line()}: burst miss p50 "
+              f"{quantile(miss, 0.5) * 1e3:.1f} ms, p95 {quantile(miss, 0.95) * 1e3:.1f} ms; "
+              f"hit p50 {quantile(hit, 0.5) * 1e3:.2f} ms, p95 "
+              f"{quantile(hit, 0.95) * 1e3:.2f} ms")
+        # where a request's time goes, from the daemon's and the CLIP
+        # extractor's spans: admission (preflight probe, hash, cache
+        # lookup, and for a hit the copy), the queue wait, the group
+        dspans = daemon.telemetry.spans()
+        burst_ids = {p["id"] for p in burst}
+        parts = {"miss admission": span_ms(dspans, "admission", burst_ids),
+                 "miss queue_wait": span_ms(dspans, "queue_wait", burst_ids),
+                 "hit admission": span_ms(dspans, "admission", {p["id"] for p in again}),
+                 "CLIP group service": [(s["t1"] - s["t0"]) * 1e3 for s in burst_groups]}
+        print("serve, spans (ms, p50/max): " + ", ".join(
+            f"{k} {quantile(v, 0.5):.2f}/{max(v):.2f} (n={len(v)})" for k, v in parts.items()
+            if v))
+
+        code, health = http_json(port, "/healthz")
+        code_m, text = http_json(port, "/metrics")
+        problems = validate_exposition(text)
+        code_r, rec = http_json(port, "/v1/requests/clip-0")
+        print(f"serve, endpoints: /healthz {code} {health['status']} warm {health['warm']}; "
+              f"/metrics {code_m}, {len(text.splitlines())} lines, {len(problems)} problems; "
+              f"/v1/requests/clip-0 {code_r} {rec.get('state')}")
+        if code != 200 or health["status"] != "ok" or code_m != 200 or problems \
+                or "vft_stage_seconds" not in text or "vft_slo_latency_seconds" not in text \
+                or code_r != 200 or rec.get("state") != "done":
+            raise AssertionError(f"endpoints: {code} {health}, {problems[:5]}, {code_r} {rec}")
+
+        # evict CLIP and serve one more request: what stays allocated
+        weights = {ft: param_mib(daemon.pool.get(ft).warmup(device)) for ft in (clip_ft, "i3d")}
+        del clip_ex
+        torch.cuda.synchronize()
+        mem = [torch.cuda.memory_allocated(device)]
+        daemon.pool.evict(clip_ft)
+        import gc
+
+        gc.collect()
+        mem.append(torch.cuda.memory_allocated(device))
+        reset_counts()
+        code, _ = http_json(port, "/v1/extract", {"feature_type": clip_ft, "id": "rebuilt",
+                                                  "video_path": os.path.join(root, "clip0.mp4")})
+        (rebuilt,) = wait_terminal(["rebuilt"]).values()
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated(device))
+        print(f"serve, evict CLIP and serve one more request: {rebuilt['state']}, builds "
+              f"{daemon.pool.build_count}, K1 launches {flash_attention.launches}; "
+              f"torch.cuda.memory_allocated before {mem[0] / 2**20:.1f} MiB, after the evict "
+              f"{mem[1] / 2**20:.1f} MiB, after the rebuild and request {mem[2] / 2**20:.1f} MiB; "
+              f"resident weights and buffers: CLIP {weights[clip_ft]:.1f} MiB, I3D + PWC "
+              f"{weights['i3d']:.1f} MiB")
+        if code != 202 or rebuilt["state"] != "done" or daemon.pool.build_count[clip_ft] != 2:
+            raise AssertionError(f"rebuild: {code} {rebuilt} {daemon.pool.build_count}")
+    finally:
+        daemon.shutdown(drain=True)
+    counts = daemon.tracker.counts()
+    print(f"serve, shutdown with drain: {counts}")
+    if counts["queued"] or counts["dispatched"]:
+        raise AssertionError(f"requests left non-terminal at shutdown: {counts}")
+    print(f"serve: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"flash_attention": k1, "local_correlation": k2}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2111,6 +2481,7 @@ def main() -> int:
             ("device preprocess", lambda: run_device_path(root, device)),
             ("telemetry and preflight", lambda: run_telemetry_path(root, device)),
             ("bfloat16", lambda: run_bf16_path(root, device)),
+            ("serve", lambda: run_serve_path(root, device)),
         ]
         results = {}
         for name, phase in phases:
@@ -2118,9 +2489,10 @@ def main() -> int:
             results[name] = phase()
             print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
         # each kernel's launches: its main path's run, then the fused runs,
-        # the device preprocess runs, the telemetry runs and the bf16 phase's
+        # the device preprocess runs, the telemetry runs, the bf16 phase's
+        # and the served burst's
         later = [results["async ingest"], results["device preprocess"],
-                 results["telemetry and preflight"], results["bfloat16"]]
+                 results["telemetry and preflight"], results["bfloat16"], results["serve"]]
         k1_launches = results["CLIP"] + sum(r["flash_attention"] for r in later)
         k2_launches = results["I3D + PWC"] + sum(r["local_correlation"] for r in later)
 

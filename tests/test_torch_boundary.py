@@ -57,6 +57,23 @@ def test_no_forbidden_imports(path):
         assert not bad, f"{path.relative_to(ROOT)}:{node.lineno} imports {bad}"
 
 
+@pytest.mark.parametrize("module", [
+    "video_features_tpu_torch.serve",
+    "video_features_tpu_torch.serve.daemon",
+    "video_features_tpu_torch.serve.server",
+    "video_features_tpu_torch.serve.sources",
+    "video_features_tpu_torch.extract.cache",
+    "video_features_tpu_torch.extract.plan",
+    "video_features_tpu_torch.telemetry.exposition",
+])
+def test_serve_cache_and_exposition_are_scanned(module):
+    """The scan and the import check below reach the daemon's subpackage
+    (its ``__init__.py`` makes it a package) and its companions."""
+    assert module in _modules()
+    path = ROOT.joinpath(*module.split("."))
+    assert (path / "__init__.py" if path.is_dir() else path.with_suffix(".py")) in _port_files()
+
+
 def test_every_module_imports_without_jax():
     code = (
         "import sys, importlib\n"

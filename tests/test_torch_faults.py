@@ -101,9 +101,15 @@ def test_parse_fault_specs_matches_jax(specs):
 
 
 def test_serve_stages_are_not_ported():
-    assert jax_faults.parse_fault_specs(["admission:error:1"])
+    """The serve stages are ported, but for hbm_squeeze, which waits with
+    the preemptor."""
+    for stage in ("admission", "serve_dispatch", "extractor", "tracker_write",
+                  "replica_kill", "lease_stall"):
+        assert faults.parse_fault_specs([f"{stage}:error:1"]) == [
+            faults.FaultSpec(stage, "error", 1)]
+    assert jax_faults.parse_fault_specs(["hbm_squeeze:error:1"])
     with pytest.raises(ValueError, match="stage"):
-        faults.parse_fault_specs(["admission:error:1"])
+        faults.parse_fault_specs(["hbm_squeeze:error:1"])
 
 
 def _write_events(mod, root):

@@ -467,10 +467,12 @@ def test_cli_usage_errors(tmp_path, capsys):
     assert "no spans" in capsys.readouterr().err
     assert tele_main(["report", str(tmp_path / "missing.jsonl")]) == 2
     assert "cannot read" in capsys.readouterr().err
-    for argv in ([], ["trace", "r1", str(tmp_path)], ["ledger", str(tmp_path)]):
+    assert tele_main(["trace", "r1", str(tmp_path)]) == 2  # no spans files
+    assert "no spans" in capsys.readouterr().err
+    for argv in ([], ["ledger", str(tmp_path)]):
         with pytest.raises(SystemExit) as exc:
             tele_main(argv)
-        assert exc.value.code == 2  # argparse: trace and ledger wait for serve
+        assert exc.value.code == 2  # argparse: ledger waits for the cost ledger
 
 
 def test_config_flags_validate_as_jax():

@@ -1,41 +1,54 @@
 """CLI: ``python -m video_features_tpu_torch --feature_type <X> ...`` (or
-the ``video-features-tpu-torch`` script).
+the ``video-features-tpu-torch`` script), and ``... serve ...``.
 
 The JAX package's flags and output files (``video_features_tpu/cli.py``).
 The run goes to ``cuda:<device_id>`` (one), or to the CPU with ``--cpu``.
-After the run, every record under ``<output_path>/_manifest/`` is merged
-into ``summary.json``, with the run's telemetry block, and its one-line
+``--feature_types A B ...`` runs several models over the same videos,
+one after another, with the shared-decode frame cache installed
+(``extract/plan.py::run_multi``): each clip is decoded once. After the run, every
+record under ``<output_path>/_manifest/`` is merged into
+``summary.json``, with the run's telemetry block, and its one-line
 outcome printed; with ``--strict`` a failed video, an empty-feature
 warning or a worker death exits nonzero.
+
+``serve [warmup] ...`` starts the long-lived daemon
+(``serve/daemon.py::serve_main``) on the same device rules.
 """
 
 from __future__ import annotations
 
 import sys
 
-from video_features_tpu_torch.config import parse_args
+from video_features_tpu_torch.config import parse_batch_args
 from video_features_tpu_torch.devices import resolve_device
-from video_features_tpu_torch.extract.registry import build_extractor
+from video_features_tpu_torch.extract.plan import run_multi
 from video_features_tpu_torch.runtime.faults import finalize_run, format_summary, strict_failures
 
 
 def main(argv=None) -> None:
-    cfg = parse_args(sys.argv[1:] if argv is None else list(argv))
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "serve":
+        # the long-lived daemon (serve/): loads models once, keeps them
+        # resident, serves requests over HTTP and/or a spool dir;
+        # `serve warmup ...` runs the declared warmup pairs and exits
+        from video_features_tpu_torch.serve.daemon import serve_main
+
+        return serve_main(argv[1:])
+    cfg, feature_types = parse_batch_args(argv)
     device = resolve_device(cfg)  # raises before any work when CUDA is absent
     if cfg.on_extraction in ("save_numpy", "save_pickle"):
         print(f"Saving features to {cfg.output_path}")
     if cfg.keep_tmp_files:
         print(f"Keeping temp files in {cfg.tmp_path}")
-    extractor = build_extractor(cfg)
     summary = None
+    built = []
     try:
-        extractor(device=device)
+        run_multi(cfg, feature_types, device=device, built=built)
     finally:
-        # the last telemetry drain goes before the merge, so summary.json's
-        # telemetry block covers the whole run; both happen even when the
-        # run raised, so a crashed run still leaves a record of what completed
-        extractor.telemetry.close()
-        if extractor.manifest.path is not None:
+        # the merge happens even when the run raised, so a crashed run
+        # still leaves a record of what completed; one <output>/_manifest
+        # covers every model's pass
+        if any(ext.manifest.path is not None for ext in built):
             summary = finalize_run(cfg.output_path)
             if summary is not None:
                 print(format_summary(summary))

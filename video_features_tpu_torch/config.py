@@ -9,19 +9,27 @@ preprocess (``--preprocess``, ``--spatial_bucket``,
 ``--frame_delta_threshold``), the run telemetry (``--telemetry``,
 ``--heartbeat_s``, ``--profile_dir``) and the preflight probe with the
 input caps (``--preflight``, ``--decode_timeout``, ``--max_pixels``,
-``--max_duration_s``, ``--max_decode_bytes``) and the numerics flag
-``--dtype`` with its admission table. Flag names, meanings and
-defaults are the JAX package's; its ``--sharding mesh`` rules are left
-out, as the port runs on one device.
+``--max_duration_s``, ``--max_decode_bytes``), the numerics flag
+``--dtype`` with its admission table, the content-addressed feature
+cache (``--cache_dir``, ``--cache_hash``), the shared-decode fan-out
+(``--feature_types``, ``--ingest_cache_mb``) and the serve daemon's
+``ServeConfig`` (``parse_serve_args``, ``sanity_check_serve``). Flag
+names, meanings and defaults are the JAX package's; its ``--sharding
+mesh`` rules are left out, as the port runs on one device, and so are
+serve's ``--preempt on`` and ``--hbm_budget_bytes``, which
+``sanity_check_serve`` refuses until the device cost ledger is ported;
+the preemptor's own tuning flags (``--preempt_cooldown_s``,
+``--preempt_min_residency_s``) are not parsed at all until then.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import re
-from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence, Tuple
 
 from video_features_tpu_torch.devices import check_one_device
 from video_features_tpu_torch.runtime.faults import parse_fault_specs
@@ -205,6 +213,25 @@ class ExtractionConfig:
     # kept frame is below this is not encoded; its row is copied from that
     # frame's (ops/sampler.py). None is off; 0 keeps every frame
     frame_delta_threshold: Optional[float] = None
+    # --- the content-addressed feature cache (extract/cache.py): completed
+    # features keyed by (content hash, config digest), reused as a file
+    # copy on a repeat; None is off ---
+    cache_dir: Optional[str] = None
+    # 'fast' hashes size + head + sampled chunks + tail; 'full' every byte
+    cache_hash: str = "fast"
+    # byte budget (MiB) of the shared-decode frame cache of a multi-model
+    # run (extract/plan.py); 0 is off
+    ingest_cache_mb: int = 512
+
+    @classmethod
+    def from_namespace(cls, args: argparse.Namespace) -> "ExtractionConfig":
+        """The config of a parsed command line: keys that are not fields
+        (``--feature_types``, serve's flags) are dropped."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in vars(args).items() if k in known})
+
+    def replace(self, **kw) -> "ExtractionConfig":
+        return dataclasses.replace(self, **kw)
 
 
 def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
@@ -353,12 +380,25 @@ def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
         raise ValueError(f"telemetry must be 'on' or 'off', got {cfg.telemetry!r}")
     if cfg.heartbeat_s < 0:
         raise ValueError(f"heartbeat_s must be >= 0, got {cfg.heartbeat_s}")
+    if cfg.cache_hash not in ("fast", "full"):
+        raise ValueError(
+            f"cache_hash must be 'fast' or 'full', got {cfg.cache_hash!r}"
+        )
+    if cfg.ingest_cache_mb < 0:
+        raise ValueError(
+            f"ingest_cache_mb must be >= 0, got {cfg.ingest_cache_mb}"
+        )
+    if cfg.cache_dir is not None and not str(cfg.cache_dir).strip():
+        raise ValueError("--cache_dir must be a non-empty path")
     return cfg
 
 
-def build_arg_parser() -> argparse.ArgumentParser:
+def build_arg_parser(feature_required: bool = True) -> argparse.ArgumentParser:
+    """The batch CLI's parser. Serve passes ``feature_required=False``:
+    its feature type is per request, and it adds its own
+    ``--feature_types`` (the resident models)."""
     p = argparse.ArgumentParser(description="Extract video features (PyTorch/CUDA)")
-    p.add_argument("--feature_type", required=True, choices=FEATURE_TYPES)
+    p.add_argument("--feature_type", choices=FEATURE_TYPES)
     p.add_argument("--video_paths", nargs="+", help="space-separated paths to videos")
     p.add_argument("--file_with_video_paths", help=".txt file where each line is a path")
     p.add_argument("--device_ids", type=int, nargs="+",
@@ -424,7 +464,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--fault_inject", action="append", default=None,
                    metavar="STAGE:KIND:EVERY_N",
                    help="TEST-ONLY deterministic fault injection: raise/stall at "
-                        "STAGE (decode|prepare|dispatch|sink) every N calls; KIND "
+                        "STAGE (decode|prepare|dispatch|sink, or a serve stage: "
+                        "admission|serve_dispatch|extractor|tracker_write|"
+                        "replica_kill|lease_stall) every N calls; KIND "
                         "in error|corrupt|hang|oom|compile|kill; repeatable")
     p.add_argument("--decode_timeout", type=float, default=None,
                    help="wall-clock seconds per decode before a DecodeTimeout "
@@ -479,9 +521,388 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="CLIP: skip a sampled frame whose mean |uint8 delta| "
                         "vs the last kept frame is below this; its feature row "
                         "is copied forward (0 keeps every frame)")
+    p.add_argument("--cache_dir", type=str, default=None,
+                   help="content-addressed feature store root: completed "
+                        "features keyed by (content hash, config digest) "
+                        "are reused as a file copy instead of re-"
+                        "extracting; omit to disable")
+    p.add_argument("--cache_hash", choices=["fast", "full"], default="fast",
+                   help="content hash mode: 'fast' samples head + spread "
+                        "chunks + tail (default; never streams a huge "
+                        "file), 'full' streams every byte")
+    p.add_argument("--ingest_cache_mb", type=int, default=512,
+                   help="byte budget (MiB) for the shared-decode frame "
+                        "cache used by multi-model fan-out: decode each "
+                        "clip once and serve all requested models from "
+                        "the cached frames; 0 disables")
+    if feature_required:
+        # batch fan-out: the serve parser adds its own --feature_types in
+        # the serve group, so this one only exists on the batch surface
+        p.add_argument(
+            "--feature_types", nargs="+", choices=FEATURE_TYPES,
+            help="extract SEVERAL feature types in one run, decoding each "
+                 "video once (shared-ingest fan-out, extract/plan.py); "
+                 "alternative to --feature_type")
     return p
 
 
+def parse_batch_args(
+    argv: Optional[Sequence[str]] = None,
+) -> Tuple[ExtractionConfig, List[str]]:
+    """Parse the batch CLI into ``(config, feature_types)``. Exactly one
+    of ``--feature_type`` / ``--feature_types`` is required; a multi-
+    model list routes cli.py through the shared-ingest fan-out
+    (extract/plan.py) — one decode per clip, every model served from it.
+    The returned config carries the FIRST feature type; callers re-key
+    with ``cfg.replace(feature_type=ft)`` per model."""
+    p = build_arg_parser()
+    args = p.parse_args(argv)
+    fts = list(dict.fromkeys(
+        args.feature_types or ([args.feature_type] if args.feature_type else [])
+    ))
+    if not fts:
+        p.error("one of --feature_type or --feature_types is required")
+    args.feature_type = fts[0]
+    return sanity_check(ExtractionConfig.from_namespace(args)), fts
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> ExtractionConfig:
-    # every flag's dest is a field of the config
-    return sanity_check(ExtractionConfig(**vars(build_arg_parser().parse_args(argv))))
+    cfg, _ = parse_batch_args(argv)
+    return cfg
+
+
+# ---------------------------------------------------------------------------
+# serve mode (video_features_tpu_torch/serve/): the long-lived daemon's knobs
+# ---------------------------------------------------------------------------
+
+# the serve flags the JAX package has and this package refuses so far
+SERVE_TO_PORT = "ROADMAP.md queue 1, item 11"
+
+# every extraction flag the serve parser inherits still applies (device,
+# dtype, weights, --preprocess device, telemetry...);
+# ServeConfig only adds what a daemon needs on top: which models stay
+# resident, the request sources, and the admission-control bounds.
+
+
+@dataclass
+class ServeConfig:
+    """Knobs for ``python -m video_features_tpu_torch serve``."""
+
+    extraction: ExtractionConfig
+    # models kept resident; requests naming anything else are rejected
+    feature_types: List[str] = field(default_factory=list)
+    # HTTP source (port=None disables; port=0 binds ephemeral, for tests)
+    host: str = "127.0.0.1"
+    port: Optional[int] = None
+    # spool source (air-gapped twin of the HTTP door; None disables)
+    spool_dir: Optional[str] = None
+    spool_poll_s: float = 0.5
+    # admission control: coalescing deadline, fused group bound, and the
+    # backpressure bound (reject/503 past max_queue admitted-not-terminal)
+    max_batch_wait_ms: float = 50.0
+    max_group_size: int = 8
+    max_queue: int = 256
+    # cross-key dispatch scheduling (serve/scheduler.py): EDF with
+    # priority tiers and aging by default; "fifo" is the A/B baseline;
+    # "edf-cost" additionally consults the online service-time model
+    # (serve/costmodel.py) to demote infeasible groups and rank by
+    # latest start time. default_slack_ms is the effective deadline
+    # assigned to requests that declare none; aging_ms is one priority-
+    # tier boost per that much queue wait (0 disables aging)
+    scheduler: str = "edf"
+    default_slack_ms: float = 30000.0
+    aging_ms: float = 10000.0
+    # rolling window for the SLO tracker behind /metrics, /v1/stats,
+    # and the heartbeat's deadline-miss rate
+    slo_window_s: float = 300.0
+    # supervision (serve/supervisor.py): bound on one group's extraction
+    # wall time (0 = unbounded), and the per-feature-type circuit
+    # breaker (open after `threshold` consecutive group-level failures,
+    # half-open probe after `cooldown_s`)
+    group_timeout_s: float = 0.0
+    breaker_threshold: int = 3
+    breaker_cooldown_s: float = 30.0
+    # retention for <output>/_requests/: terminal records older than the
+    # TTL or beyond the count bound are pruned every retention_sweep_s
+    # (0 disables the background sweeper; startup still sweeps once)
+    request_ttl_s: float = 86400.0
+    max_request_records: int = 10000
+    retention_sweep_s: float = 60.0
+    # warmup preflight specs, each "<feature_type>:<W>x<H>"
+    warmup: List[str] = field(default_factory=list)
+    warmup_only: bool = False
+    # the JAX package's HBM budget on the cost ledger's projection and its
+    # HBM-aware preemption (serve/preemptor.py): refused here, non-zero /
+    # "on", until the ledger is ported (ROADMAP queue 1, item 11)
+    hbm_budget_bytes: int = 0
+    preempt: str = "off"
+    # fleet identity + spool work-stealing (serve/sources.py): replicas
+    # sharing one spool/output claim via per-replica lease files; a
+    # lease whose heartbeat is older than lease_timeout_s is stolen by
+    # a survivor (0 disables stealing — single-replica behavior)
+    replica_id: Optional[str] = None
+    lease_timeout_s: float = 0.0
+    # hit-rate-aware shedding: past this fraction of max_queue, likely-
+    # cache-miss requests are shed first (0 disables; only acts when
+    # the observed cache hit rate says hits are common enough to save
+    # room for)
+    shed_watermark: float = 0.0
+
+    def warmup_pairs(self) -> List[tuple]:
+        return [parse_warmup_spec(s) for s in self.warmup]
+
+    def resolved_replica_id(self) -> str:
+        """The configured ``--replica_id`` or a pid-derived default —
+        stable for the life of the process, unique enough on one host;
+        multi-host fleets should set it explicitly."""
+        return self.replica_id or f"r{os.getpid()}"
+
+
+def parse_warmup_spec(spec: str) -> tuple:
+    """``"<feature_type>:<W>x<H>"`` -> ``(feature_type, W, H)``; raises
+    ValueError naming the bad spec (feature types may contain ':'-free
+    slashes like CLIP-ViT-B/32, so split on the LAST colon)."""
+    ft, sep, shape = spec.rpartition(":")
+    m = re.fullmatch(r"(\d+)x(\d+)", shape) if sep else None
+    if not ft or m is None:
+        raise ValueError(
+            f"bad warmup spec {spec!r}: expected <feature_type>:<W>x<H>, "
+            "e.g. CLIP-ViT-B/32:640x480"
+        )
+    if ft not in FEATURE_TYPES:
+        raise ValueError(f"bad warmup spec {spec!r}: unknown feature_type {ft!r}")
+    w, h = int(m.group(1)), int(m.group(2))
+    if w < 16 or h < 16:
+        raise ValueError(f"bad warmup spec {spec!r}: sides must be >= 16")
+    return (ft, w, h)
+
+
+def build_serve_arg_parser() -> argparse.ArgumentParser:
+    """The extraction parser (feature type optional — it is per-request
+    in serve mode) plus the daemon flags."""
+    p = build_arg_parser(feature_required=False)
+    p.description = "Run the long-lived extraction daemon"
+    g = p.add_argument_group("serve")
+    g.add_argument("--feature_types", nargs="+", choices=FEATURE_TYPES,
+                   help="models to keep resident; requests naming "
+                        "anything else are rejected (default: just "
+                        "--feature_type)")
+    g.add_argument("--host", default="127.0.0.1",
+                   help="HTTP bind address (default loopback; put a real "
+                        "proxy in front before exposing further)")
+    g.add_argument("--port", type=int, default=None,
+                   help="HTTP port (0 = ephemeral; omit to disable the "
+                        "HTTP source)")
+    g.add_argument("--spool_dir", type=str, default=None,
+                   help="watched spool directory of request JSON files "
+                        "(air-gapped source; omit to disable)")
+    g.add_argument("--spool_poll_s", type=float, default=0.5,
+                   help="spool poll interval in seconds")
+    g.add_argument("--max_batch_wait_ms", type=float, default=50.0,
+                   help="max milliseconds a request waits for same-"
+                        "(feature_type, bucket) company before its group "
+                        "dispatches anyway")
+    g.add_argument("--max_group_size", type=int, default=8,
+                   help="max requests fused into one --video_batch group")
+    g.add_argument("--max_queue", type=int, default=256,
+                   help="admission bound: requests admitted but not yet "
+                        "terminal; past it new requests get 503/rejected")
+    g.add_argument("--scheduler", choices=("edf", "fifo", "edf-cost"),
+                   default="edf",
+                   help="cross-key dispatch order: earliest-effective-"
+                        "deadline-first with priority tiers and aging "
+                        "(default), plain arrival order, or cost-aware "
+                        "EDF that consults the online service-time "
+                        "model to skip infeasible groups")
+    g.add_argument("--default_slack_ms", type=float, default=30000.0,
+                   help="effective deadline assigned to requests that "
+                        "declare no deadline_ms (EDF ranking only; "
+                        "never expires a request)")
+    g.add_argument("--aging_ms", type=float, default=10000.0,
+                   help="one priority-tier boost per this much queue "
+                        "wait, so low-priority work cannot starve "
+                        "(0 disables aging)")
+    g.add_argument("--slo_window_s", type=float, default=300.0,
+                   help="rolling window (seconds) for the SLO tracker's "
+                        "latency quantiles and deadline-miss rate "
+                        "(/metrics, /v1/stats, heartbeat)")
+    g.add_argument("--group_timeout_s", type=float, default=0.0,
+                   help="watchdog bound on one group's extraction wall "
+                        "time; on timeout the group fails transient and "
+                        "the extractor is rebuilt (0 = unbounded)")
+    g.add_argument("--breaker_threshold", type=int, default=3,
+                   help="consecutive group-level failures that open a "
+                        "feature type's circuit breaker (503 for that "
+                        "model only)")
+    g.add_argument("--breaker_cooldown_s", type=float, default=30.0,
+                   help="seconds an open breaker waits before admitting "
+                        "one half-open probe group")
+    g.add_argument("--request_ttl_s", type=float, default=86400.0,
+                   help="terminal request records older than this are "
+                        "pruned from <output>/_requests/")
+    g.add_argument("--max_request_records", type=int, default=10000,
+                   help="keep at most this many terminal request "
+                        "records (oldest pruned first)")
+    g.add_argument("--retention_sweep_s", type=float, default=60.0,
+                   help="how often the retention sweeper runs "
+                        "(0 disables it; startup still sweeps once)")
+    g.add_argument("--warmup", action="append", default=None,
+                   metavar="FEATURE_TYPE:WxH",
+                   help="load this model and run a synthetic clip of this "
+                        "resolution through it before accepting traffic "
+                        "(weights, cuDNN algorithms, allocator); repeatable")
+    g.add_argument("--hbm_budget_bytes", type=int, default=0,
+                   help="the JAX package's warmup HBM budget on its cost "
+                        "ledger: only 0 (unlimited) until the ledger is "
+                        "ported (ROADMAP queue 1, item 11)")
+    g.add_argument("--preempt", choices=("on", "off"), default="off",
+                   help="the JAX package's HBM-aware preemption: only "
+                        "'off' until the ledger is ported (ROADMAP queue "
+                        "1, item 11)")
+    g.add_argument("--replica_id", type=str, default=None,
+                   help="this replica's stable identity in a multi-"
+                        "replica fleet sharing one spool + output store "
+                        "(default: pid-derived; set explicitly across "
+                        "hosts)")
+    g.add_argument("--lease_timeout_s", type=float, default=0.0,
+                   help="spool claims become per-replica leases; a lease "
+                        "whose heartbeat is older than this is stolen by "
+                        "a surviving replica (0 disables work-stealing)")
+    g.add_argument("--shed_watermark", type=float, default=0.0,
+                   help="queue-saturation fraction of --max_queue past "
+                        "which likely-cache-miss requests are shed first "
+                        "(cache hits are ~ms and are never shed; 0 "
+                        "disables)")
+    return p
+
+
+def parse_serve_args(argv: Optional[Sequence[str]] = None) -> ServeConfig:
+    """Parse ``serve [warmup] <flags>`` into a validated ServeConfig.
+    A leading bare ``warmup`` token selects preflight-only mode (run the
+    declared warmup pairs, then exit)."""
+    argv = list(argv if argv is not None else [])
+    warmup_only = bool(argv) and argv[0] == "warmup"
+    if warmup_only:
+        argv = argv[1:]
+    args = build_serve_arg_parser().parse_args(argv)
+    feature_types = args.feature_types or [args.feature_type or ExtractionConfig.feature_type]
+    args.feature_type = feature_types[0]
+    cfg = ExtractionConfig.from_namespace(args)
+    cfg = sanity_check(cfg.replace(feature_type=feature_types[0]))
+    scfg = ServeConfig(
+        extraction=cfg,
+        feature_types=list(dict.fromkeys(feature_types)),
+        host=args.host,
+        port=args.port,
+        spool_dir=args.spool_dir,
+        spool_poll_s=args.spool_poll_s,
+        max_batch_wait_ms=args.max_batch_wait_ms,
+        max_group_size=args.max_group_size,
+        max_queue=args.max_queue,
+        scheduler=args.scheduler,
+        default_slack_ms=args.default_slack_ms,
+        aging_ms=args.aging_ms,
+        slo_window_s=args.slo_window_s,
+        group_timeout_s=args.group_timeout_s,
+        breaker_threshold=args.breaker_threshold,
+        breaker_cooldown_s=args.breaker_cooldown_s,
+        request_ttl_s=args.request_ttl_s,
+        max_request_records=args.max_request_records,
+        retention_sweep_s=args.retention_sweep_s,
+        warmup=list(args.warmup or []),
+        warmup_only=warmup_only,
+        hbm_budget_bytes=args.hbm_budget_bytes,
+        preempt=args.preempt,
+        replica_id=args.replica_id,
+        lease_timeout_s=args.lease_timeout_s,
+        shed_watermark=args.shed_watermark,
+    )
+    return sanity_check_serve(scfg)
+
+
+def sanity_check_serve(scfg: ServeConfig) -> ServeConfig:
+    if not scfg.feature_types:
+        raise ValueError("serve needs at least one --feature_types entry")
+    for ft in scfg.feature_types:
+        if ft not in FEATURE_TYPES:
+            raise ValueError(f"unknown feature_type in --feature_types: {ft!r}")
+        # fail at startup, not on the first request of that type
+        sanity_check(scfg.extraction.replace(feature_type=ft))
+    if not str(scfg.host).strip():
+        raise ValueError("--host must be a non-empty bind address")
+    if scfg.spool_dir is not None and not str(scfg.spool_dir).strip():
+        raise ValueError("--spool_dir must be a non-empty path")
+    if scfg.max_group_size < 1:
+        raise ValueError(f"max_group_size must be >= 1, got {scfg.max_group_size}")
+    if scfg.max_queue < 1:
+        raise ValueError(f"max_queue must be >= 1, got {scfg.max_queue}")
+    if scfg.max_batch_wait_ms < 0:
+        raise ValueError(f"max_batch_wait_ms must be >= 0, got {scfg.max_batch_wait_ms}")
+    if scfg.spool_poll_s <= 0:
+        raise ValueError(f"spool_poll_s must be > 0, got {scfg.spool_poll_s}")
+    if scfg.scheduler not in ("edf", "fifo", "edf-cost"):
+        raise ValueError(
+            f"scheduler must be 'edf', 'fifo', or 'edf-cost', got {scfg.scheduler!r}"
+        )
+    if scfg.default_slack_ms <= 0:
+        raise ValueError(f"default_slack_ms must be > 0, got {scfg.default_slack_ms}")
+    if scfg.aging_ms < 0:
+        raise ValueError(f"aging_ms must be >= 0, got {scfg.aging_ms}")
+    if scfg.slo_window_s <= 0:
+        raise ValueError(f"slo_window_s must be > 0, got {scfg.slo_window_s}")
+    if scfg.group_timeout_s < 0:
+        raise ValueError(f"group_timeout_s must be >= 0, got {scfg.group_timeout_s}")
+    if scfg.breaker_threshold < 1:
+        raise ValueError(f"breaker_threshold must be >= 1, got {scfg.breaker_threshold}")
+    if scfg.breaker_cooldown_s < 0:
+        raise ValueError(f"breaker_cooldown_s must be >= 0, got {scfg.breaker_cooldown_s}")
+    if scfg.request_ttl_s <= 0:
+        raise ValueError(f"request_ttl_s must be > 0, got {scfg.request_ttl_s}")
+    if scfg.max_request_records < 1:
+        raise ValueError(f"max_request_records must be >= 1, got {scfg.max_request_records}")
+    if scfg.retention_sweep_s < 0:
+        raise ValueError(f"retention_sweep_s must be >= 0, got {scfg.retention_sweep_s}")
+    if scfg.hbm_budget_bytes < 0:
+        raise ValueError(f"hbm_budget_bytes must be >= 0, got {scfg.hbm_budget_bytes}")
+    if scfg.hbm_budget_bytes > 0:
+        raise ValueError(
+            f"--hbm_budget_bytes {scfg.hbm_budget_bytes} is not ported yet: the "
+            "budget is checked against the device cost ledger's HBM projection "
+            f"({SERVE_TO_PORT}); pass 0 (unlimited)"
+        )
+    if scfg.preempt not in ("on", "off"):
+        raise ValueError(f"preempt must be 'on' or 'off', got {scfg.preempt!r}")
+    if scfg.preempt == "on":
+        raise ValueError(
+            "--preempt on is not ported yet: HBM-aware preemption picks its "
+            f"victims from the device cost ledger's projection ({SERVE_TO_PORT}); "
+            "use --preempt off"
+        )
+    if scfg.replica_id is not None and not re.fullmatch(
+            r"[A-Za-z0-9][A-Za-z0-9._-]{0,63}", scfg.replica_id):
+        # replica ids become claim-file suffixes and heartbeat filenames
+        raise ValueError(
+            "replica_id must be 1-64 chars of [A-Za-z0-9._-] starting "
+            f"alphanumeric, got {scfg.replica_id!r}")
+    if scfg.lease_timeout_s < 0:
+        raise ValueError(
+            f"lease_timeout_s must be >= 0, got {scfg.lease_timeout_s}")
+    if not 0 <= scfg.shed_watermark <= 1:
+        raise ValueError(
+            f"shed_watermark must be in [0, 1], got {scfg.shed_watermark}")
+    scfg.warmup_pairs()  # raises naming any bad spec
+    if scfg.warmup_only and not scfg.warmup:
+        raise ValueError("serve warmup needs at least one --warmup FEATURE_TYPE:WxH")
+    if scfg.extraction.on_extraction not in ("save_numpy", "save_pickle"):
+        # the daemon's unit of output is a result file per request;
+        # 'print' has nothing durable to point the status record at
+        scfg = dataclasses.replace(
+            scfg, extraction=scfg.extraction.replace(on_extraction="save_numpy")
+        )
+    for ft, w, h in scfg.warmup_pairs():
+        if ft not in scfg.feature_types:
+            raise ValueError(
+                f"--warmup {ft}:{w}x{h} names a feature_type not in "
+                f"--feature_types ({', '.join(scfg.feature_types)})"
+            )
+    return scfg

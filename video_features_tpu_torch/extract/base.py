@@ -24,7 +24,14 @@ The run contract (``runtime/faults.py``):
 - with ``--preflight on`` (the default) each video is probed before its
   first attempt (``io/probe.py``): a file the probe rejects fails
   permanent at stage ``preflight`` with zero retries, and the probe's
-  cautions are recorded as warnings.
+  cautions are recorded as warnings;
+- with ``--cache_dir`` (save runs) a video whose (content hash, config
+  digest) the feature store holds is a file copy, recorded ``done`` with
+  the note ``cache_hit`` before any decode or launch, and every video the
+  sink commits is published to the store (``extract/cache.py``).
+
+``run_paths`` is the serve daemon's dispatch surface: it appends entries
+to the path list and runs only the new indices on the warm extractor.
 
 Run telemetry (``runtime/telemetry.py``, ``--telemetry on``, the
 default): each stage of a video is a span (``prepare``, ``decode`` from
@@ -77,6 +84,7 @@ import torch
 
 from video_features_tpu_torch.config import ExtractionConfig
 from video_features_tpu_torch.devices import pin_fp32, resolve_device
+from video_features_tpu_torch.extract.cache import FeatureCache, config_digest
 from video_features_tpu_torch.extract.ingest import (
     CompletionQueue,
     HostCopy,
@@ -165,6 +173,14 @@ class BaseExtractor:
         self._prior_failed: set = set()
         if self.config.resume and not external_call and not self.config.retry_failed:
             self._prior_failed = faults.permanently_failed_videos(self.config.output_path)
+        # the content-addressed feature cache (extract/cache.py): save runs only
+        self._feature_cache: Optional[FeatureCache] = None
+        self._cache_digest: Optional[str] = None
+        if (self.config.cache_dir and not external_call
+                and self.config.on_extraction in ("save_numpy", "save_pickle")):
+            self._feature_cache = FeatureCache(self.config.cache_dir,
+                                               hash_mode=self.config.cache_hash)
+            self._cache_digest = config_digest(self.config)
 
     def feature_keys(self) -> List[str]:
         """The keys a feature dict carries, whose files ``--resume`` probes
@@ -343,6 +359,30 @@ class BaseExtractor:
             return [d for _, d in sorted(results, key=lambda t: t[0])]
         return None
 
+    def run_paths(
+        self, entries: Sequence[Any], device: Optional[torch.device] = None
+    ) -> Optional[List[Dict[str, np.ndarray]]]:
+        """Run extraction over ``entries`` (paths) on an extractor that may
+        already have processed other videos — the serve daemon's dispatch
+        surface.
+
+        Appends to ``path_list`` and runs the normal ``__call__`` loop
+        over just the new indices, so the warm ``_device_state`` (loaded
+        weights, placed taps) is reused as-is: a group of same-shape
+        entries with ``--video_batch`` > 1 fuses exactly like a batch
+        run's would, and retries/manifest all apply per entry. Extractors
+        are built once per daemon lifetime and path_list grows
+        monotonically; each entry is a fresh manifest identity even if
+        the same path was run before."""
+        entries = list(entries)
+        if not entries:
+            return [] if self.external_call else None
+        start = len(self.path_list)
+        self.path_list.extend(entries)
+        if self.telemetry.total_videos is not None:
+            self.telemetry.total_videos = len(self.path_list)
+        return self(range(start, len(self.path_list)), device)
+
     # --- the two loops ------------------------------------------------------
     def _run_serial(self, indices, state, results) -> None:
         """Each video prepared and computed in turn, over a retry deque: a
@@ -356,6 +396,8 @@ class BaseExtractor:
                 reason = self._resume_skip_reason(entry)
                 if reason is not None:
                     self._skip(entry, reason)
+                    continue
+                if self._try_cache_hit(entry):
                     continue
             wait = not_before - time.monotonic()
             if wait > 0:
@@ -620,6 +662,8 @@ class BaseExtractor:
                     if reason is not None:
                         self._skip(entry, reason)
                         continue
+                    if self._try_cache_hit(entry):
+                        continue
                     pending.append((pos, idx, 1, pool.submit(prep, entry, 1)))
                     if len(pending) > depth:
                         consume_one()
@@ -653,6 +697,7 @@ class BaseExtractor:
             )
         for w in warnings:  # empty features: --strict fails the run on them
             self.manifest.record(self._video_key(entry), "warning", stage="sink", message=w)
+        self._cache_publish(entry)
 
     def _video_key(self, entry) -> str:
         """The manifest's key for a path-list entry."""
@@ -665,11 +710,66 @@ class BaseExtractor:
         t0 = self._t0.get(self._video_key(entry))
         return time.monotonic() - t0 if t0 is not None else None
 
-    def _on_success(self, entry, attempt: int) -> None:
+    def _on_success(self, entry, attempt: int, note: Optional[str] = None) -> None:
         self.telemetry.metrics.inc("videos_done")
+        extra = {"note": note} if note else {}
         self.manifest.record(
-            self._video_key(entry), "done", attempts=attempt, wall_s=self._wall(entry)
+            self._video_key(entry), "done", attempts=attempt, wall_s=self._wall(entry), **extra
         )
+
+    # --- the content-addressed feature cache (extract/cache.py) -------------
+    def _try_cache_hit(self, entry) -> bool:
+        """Content-addressed short-circuit before any decode work: when
+        the store holds this (content hash, config digest), materialize
+        the payloads onto the expected output paths and count the video
+        done (manifest note ``cache_hit``): nothing is decoded and no
+        kernel launches. Every cache-side failure — unreadable input,
+        corrupt entry, vanished payload — is a miss; the real extraction
+        path is always the fallback."""
+        if self._feature_cache is None:
+            return False
+        video = self._video_key(entry)
+        keys = self.feature_keys()
+        try:
+            chash = self._feature_cache.content_hash(video)
+        except OSError:
+            return False  # unreadable input: let the real path report it
+        cached = self._feature_cache.lookup(chash, self._cache_digest, keys)
+        if cached is not None:
+            try:
+                with self.telemetry.span("cache_hit", video=video):
+                    self._feature_cache.materialize(cached, self._feature_cache.dest_files(
+                        keys, video, self.output_path, self.config.on_extraction,
+                        self.config.output_direct,
+                    ))
+            except OSError:
+                cached = None  # payload vanished mid-copy: treat as miss
+        if cached is None:
+            self.telemetry.metrics.inc(f"cache_miss.{self.feature_type}")
+            return False
+        self.telemetry.metrics.inc(f"cache_hit.{self.feature_type}")
+        self._on_success(entry, 1, note="cache_hit")
+        return True
+
+    def _cache_publish(self, entry) -> None:
+        """Populate the store from the files the sink just committed
+        atomically. Claim-by-rename semantics: losing to a concurrent
+        writer is a no-op, and any OSError leaves the store unchanged."""
+        if self._feature_cache is None:
+            return
+        video = self._video_key(entry)
+        try:
+            chash = self._feature_cache.content_hash(video)
+        except OSError:
+            return
+        dests = self._feature_cache.dest_files(
+            self.feature_keys(), video, self.output_path, self.config.on_extraction,
+            self.config.output_direct,
+        )
+        if not all(os.path.exists(p) for p in dests.values()):
+            return
+        self._feature_cache.publish(chash, self._cache_digest, dests,
+                                    feature_type=self.feature_type)
 
     def _on_failure(self, entry, stage: str, attempt: int, requeue=None) -> None:
         """The per-video failure policy, called from an ``except`` block

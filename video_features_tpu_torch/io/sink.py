@@ -13,9 +13,10 @@ import json
 import os
 import pathlib
 import pickle
+import shutil
 import threading
 import uuid
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -31,15 +32,35 @@ def _tmp_name(path: str) -> str:
     return f"{path}.{os.getpid()}-{threading.get_ident()}-{uuid.uuid4().hex[:8]}.tmp"
 
 
-def atomic_write_json(path: str, doc: Any) -> str:
-    """Publish ``doc`` as JSON (indent 1, sorted keys) at ``path``: write a
-    same-directory tmp file, then one ``os.replace``, so readers see the
-    old file or the new one, never a torn one. Returns ``path``."""
+def atomic_copy(src: str, dest: str) -> None:
+    """Copy ``src`` to ``dest`` through a uniquely-named tmp file +
+    ``os.replace`` — the same commit protocol as the feature saver
+    below, shared with the content-addressed cache (extract/cache.py)
+    so a kill mid-materialize can never leave a truncated output that
+    ``--resume`` (or a cache lookup) would then trust as complete."""
+    os.makedirs(os.path.dirname(dest) or ".", exist_ok=True)
+    tmp = _tmp_name(dest)
+    try:
+        shutil.copyfile(src, tmp)
+        os.replace(tmp, dest)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def atomic_write_json(path: str, doc: Any, *, indent: Optional[int] = 1,
+                      sort_keys: bool = True) -> str:
+    """Publish ``doc`` as JSON at ``path``: write a same-directory tmp
+    file, then one ``os.replace``, so readers see the old file or the new
+    one, never a torn one. Returns ``path``."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = _tmp_name(path)
     try:
         with open(tmp, "w", encoding="utf-8") as f:
-            json.dump(doc, f, indent=1, sort_keys=True)
+            json.dump(doc, f, indent=indent, sort_keys=sort_keys)
         os.replace(tmp, path)
     except BaseException:
         try:

@@ -19,6 +19,12 @@ bounds a reader's lifetime, and the input caps (``set_resource_caps``)
 bound what it decodes: ``--max_pixels`` per frame, ``--max_duration_s``
 in grabbed frames at the declared fps, ``--max_decode_bytes`` over the
 RGB bytes it returns.
+
+The shared-decode frame cache (``extract/plan.py``, ``set_frame_cache``)
+is consulted by ``probe``, ``read_frames_at_indices``, ``extract_frames``
+and ``stream_frames`` before they open a reader: a cached clip replays
+its frames, with the direct decode's selection arithmetic, and nothing
+is decoded again.
 """
 
 from __future__ import annotations
@@ -45,6 +51,8 @@ DEFAULT_FPS = 25.0
 # config, so these are module state, rebound under _CONFIG_LOCK
 _DECODE_TIMEOUT: Optional[float] = None
 _RESOURCE_CAPS: ResourceCaps = NO_CAPS
+# the shared-decode frame cache (extract/plan.py::SharedFrameCache), or None
+_FRAME_CACHE = None
 _CONFIG_LOCK = threading.Lock()
 
 # decode notes accumulate per THREAD: readers open deep inside the
@@ -88,6 +96,51 @@ def set_resource_caps(caps: Optional[ResourceCaps]) -> None:
     global _RESOURCE_CAPS
     with _CONFIG_LOCK:
         _RESOURCE_CAPS = caps or NO_CAPS
+
+
+def set_frame_cache(cache) -> None:
+    """Install (or, with None, remove) the shared-decode frame cache.
+    Scoped by the caller — extract/plan.py's fan-out context manager,
+    the serve daemon's lifetime — and module-global like the decode
+    timeout, because the samplers that benefit are constructed deep
+    inside extractors that don't thread config through."""
+    global _FRAME_CACHE
+    with _CONFIG_LOCK:
+        _FRAME_CACHE = cache
+
+
+def _cached_clip(path: str):
+    """The cached decoded clip for ``path`` when a frame cache is
+    installed and admits it, else None (open a reader). Decode errors
+    from a cache population propagate unchanged — same failure
+    surface as a direct open."""
+    with _CONFIG_LOCK:
+        cache = _FRAME_CACHE
+    if cache is None:
+        return None
+    return cache.acquire(str(path))
+
+
+def _stream_from_cached(
+    clip, extraction_fps: Optional[float], path: str
+) -> Iterator[Tuple[np.ndarray, float]]:
+    """:func:`stream_frames`' exact selection arithmetic replayed over a
+    cached frame list — same grid formula, same duplicate-on-upsample
+    behavior, same stop-at-decodable-end — so cached and direct streams
+    are bit-identical."""
+    src_fps = fps_or_default(clip.fps, path)
+    frames = clip.frames
+    if extraction_fps is None:
+        for i, frame in enumerate(frames):
+            yield frame, i * 1000.0 / src_fps
+    else:
+        out_k = 0
+        while True:
+            target = int(round(out_k * src_fps / extraction_fps))
+            if target >= len(frames):
+                return
+            yield frames[target], out_k * 1000.0 / extraction_fps
+            out_k += 1
 
 
 def fps_or_default(fps: float, path: str) -> float:
@@ -223,6 +276,9 @@ class _Reader:
 def probe(path: str) -> Tuple[float, int]:
     """(fps, frame_count) from the container's metadata; fps is 0.0 and
     the count 0 where they are absent or insane."""
+    clip = _cached_clip(path)
+    if clip is not None:
+        return clip.fps, clip.frame_count
     with _Reader(path) as r:  # metadata only: no stream read, nothing to note
         return r.fps, r.frame_count
 
@@ -247,6 +303,11 @@ def read_frames_at_indices(path: str, indices) -> Dict[int, np.ndarray]:
     got: Dict[int, np.ndarray] = {}
     if not need:
         return got
+    clip = _cached_clip(path)
+    if clip is not None:
+        # the cached list is the sequential decode's output: indices
+        # past its end are absent, exactly like a grab() miss below
+        return {i: clip.frames[i] for i in need if i < len(clip.frames)}
     wanted = set(need)
     with _Reader(path) as r:
         for i in range(need[-1] + 1):
@@ -304,6 +365,10 @@ def stream_frames(
     ``round(k * src_fps / extraction_fps)``: a source frame repeats when
     upsampling and is grabbed but never converted when skipped. The
     source fps is the container's, or 25.0 (noted) where it is absent."""
+    clip = _cached_clip(path)
+    if clip is not None:
+        yield from _stream_from_cached(clip, extraction_fps, str(path))
+        return
     with _Reader(path) as r:
         src_fps = fps_or_default(r.fps, path)
         if extraction_fps is None:

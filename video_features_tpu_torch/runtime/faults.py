@@ -1,8 +1,11 @@
 """Fault tolerance: error classes, classification, retry policy, the run
 manifest and deterministic fault injection.
 
-Counterpart of ``video_features_tpu/runtime/faults.py``, cut to the batch
-pipeline's stages (decode, prepare, dispatch, sink):
+Counterpart of ``video_features_tpu/runtime/faults.py``: the batch
+pipeline's stages (decode, prepare, dispatch, sink) and the serve
+daemon's (admission, serve_dispatch, extractor, tracker_write,
+replica_kill, lease_stall; the JAX package's ``hbm_squeeze`` waits with
+the preemptor):
 
 - :func:`classify_error` buckets an exception into ``transient`` (I/O
   flake, decode deadline: retrying may help), ``oom`` (memory pressure:
@@ -32,6 +35,7 @@ import glob
 import hashlib
 import json
 import os
+import signal
 import sys
 import threading
 import time
@@ -41,7 +45,17 @@ from typing import Any, Dict, List, Optional, Sequence
 MANIFEST_DIRNAME = "_manifest"
 SUMMARY_BASENAME = "summary.json"
 
-STAGES = ("decode", "prepare", "dispatch", "sink")
+# the serve stages: request admission, the group body around the
+# extractor call, the resident extractor itself (breaker/teardown
+# coverage), and the durable result write; replica_kill fires in the
+# spool watcher's poll pass (kind 'kill' SIGKILLs the whole replica
+# process — the work-stealing drill) and lease_stall in the lease
+# heartbeat (a raising kind skips that pass's mtime refresh)
+STAGES = (
+    "decode", "prepare", "dispatch", "sink",
+    "admission", "serve_dispatch", "extractor", "tracker_write",
+    "replica_kill", "lease_stall",
+)
 KINDS = ("error", "corrupt", "hang", "oom", "compile", "kill")
 # how long an injected 'hang' sleeps
 HANG_SECONDS = 0.4
@@ -172,6 +186,27 @@ def is_sticky(exc: BaseException) -> bool:
     return any(m in msg for m in _STICKY_MARKERS)
 
 
+# exception types that indict the INPUT rather than the stack. The serve
+# circuit breaker must ignore these — a burst of corrupt user uploads is
+# not a sick model, and tearing down a healthy resident extractor over
+# them would let hostile traffic take the model down.
+# InjectedPermanentError is the test-only stand-in for "unfixable bad
+# input" and rides the same contract.
+INPUT_ERROR_TYPES = (
+    CorruptVideoError,    # includes MediaRejected
+    AudioDecodeError,     # includes MissingStreamError
+    ResourceCapExceeded,
+    InjectedPermanentError,
+)
+
+
+def is_input_error(exc: BaseException) -> bool:
+    """True when ``exc`` blames the input media, not the infrastructure
+    — the breaker-correctness predicate (serve/daemon.py gates
+    ``CircuitBreaker.record_failure`` on it)."""
+    return isinstance(exc, INPUT_ERROR_TYPES)
+
+
 def is_retryable(error_class: str) -> bool:
     """Whether re-entering the work queue can help."""
     return error_class in RETRYABLE_CLASSES
@@ -250,6 +285,11 @@ class FaultInjector:
         if spec.kind == "hang":
             time.sleep(HANG_SECONDS)
             return
+        if spec.stage == "replica_kill" and spec.kind == "kill":
+            # the chaos drill is a REAL SIGKILL: no atexit, no finally,
+            # no flush — exactly the death the lease-expiry reclamation
+            # and foreign-replica reconcile exist to survive
+            os.kill(os.getpid(), signal.SIGKILL)
         exc: Exception
         if spec.kind == "error":
             exc = InjectedTransientError(f"{tag}: transient I/O error")

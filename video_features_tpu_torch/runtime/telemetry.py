@@ -788,6 +788,75 @@ def utilization_report(rows: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
     }
 
 
+def request_trace_rows(
+    rows: Sequence[Dict[str, Any]], request_id: str
+) -> List[Dict[str, Any]]:
+    """Assemble the spans belonging to ONE serve request out of a run's
+    combined span rows (``python -m video_features_tpu_torch.telemetry trace
+    <request_id>``).
+
+    A serve request's spans live in two files: the daemon's telemetry
+    records the lifecycle (``admission``/``request``/``queue_wait``
+    spans carrying ``request=<id>``), while the resident extractor's
+    telemetry records the group dispatch (a ``request`` span whose
+    ``requests`` list links the member ids) and the per-video pipeline
+    stages. Selection:
+
+    1. anchors — every span whose ``request`` equals the id, plus every
+       group span whose ``requests`` list contains it;
+    2. descendants of an anchor via ``parent`` links (the dispatcher
+       thread's dispatch/fetch/sink spans nest under the group span);
+    3. same-pid spans for the request's video overlapping a group
+       span's interval (decode/prepare run on worker threads whose
+       spans do not parent-link into the group).
+
+    Result is t0-ordered; empty when the id appears nowhere."""
+    anchors: List[Dict[str, Any]] = []
+    for r in rows:
+        if r.get("request") == request_id:
+            anchors.append(r)
+        else:
+            reqs = r.get("requests")
+            if isinstance(reqs, (list, tuple)) and request_id in reqs:
+                anchors.append(r)
+    if not anchors:
+        return []
+    children: Dict[str, List[Dict[str, Any]]] = {}
+    for r in rows:
+        p = r.get("parent")
+        if p:
+            children.setdefault(p, []).append(r)
+    selected: Dict[str, Dict[str, Any]] = {}
+    stack = list(anchors)
+    while stack:
+        r = stack.pop()
+        sid = r.get("span")
+        if not sid or sid in selected:
+            continue
+        selected[sid] = r
+        stack.extend(children.get(sid, ()))
+    videos = {r.get("video") for r in anchors if r.get("video")}
+    windows = [
+        (int(r.get("pid", 0)), float(r["t0"]), float(r["t1"]))
+        for r in anchors
+        if isinstance(r.get("requests"), (list, tuple))
+        and r.get("t0") is not None and r.get("t1") is not None
+    ]
+    if videos and windows:
+        for r in rows:
+            sid = r.get("span")
+            if not sid or sid in selected or r.get("video") not in videos:
+                continue
+            t0, t1 = r.get("t0"), r.get("t1")
+            if t0 is None or t1 is None:
+                continue
+            pid = int(r.get("pid", 0))
+            if any(pid == wp and float(t1) >= w0 and float(t0) <= w1
+                   for wp, w0, w1 in windows):
+                selected[sid] = r
+    return sorted(selected.values(), key=lambda r: (r.get("t0") or 0.0, r.get("seq", 0)))
+
+
 # synthetic tid base for the per-device Perfetto lanes: far above any
 # real thread ident so lanes never collide with OS thread ids
 _DEVICE_LANE_TID_BASE = 1 << 22

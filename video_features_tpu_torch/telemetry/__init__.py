@@ -6,9 +6,10 @@ recording engine lives in :mod:`video_features_tpu_torch.runtime.telemetry`
 (it is part of the hot path); this package is the read side: the span
 JSONL schema (``spans_schema.json``, byte-equal to the JAX package's) and
 the CLI consumers in ``__main__.py``. The engine's public names are
-re-exported here so consumers can import one module. The JAX package's
-Prometheus exposition (``exposition.py``) and device cost ledger
-(``ledger.py``) wait for serve (ROADMAP item 11).
+re-exported here so consumers can import one module. The serve daemon's
+Prometheus text (``GET /metrics``) is rendered by ``exposition.py``; the
+JAX package's device cost ledger (``ledger.py``) waits for a later slice
+(ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from video_features_tpu_torch.runtime.telemetry import (  # noqa: F401
     collect,
     overlap_report,
     read_spans,
+    request_trace_rows,
     spans_to_chrome_trace,
     utilization_report,
 )

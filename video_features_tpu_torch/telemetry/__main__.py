@@ -10,9 +10,14 @@ for the span files a run leaves under ``<output>/_telemetry/``.
 - ``report PATHS... [--json]`` — the overlap-efficiency summary (the same
   math as the ``overlap`` block of ``summary.json``): host-busy vs
   device-busy vs overlapped wall time, from the span intervals.
+- ``trace REQUEST_ID PATHS... [-o trace.json]`` — the per-request
+  Chrome trace for ONE serve request: the daemon's lifecycle spans
+  (admission, request, queue_wait) and the resident extractor's group
+  dispatch and per-video stages (``runtime/telemetry.py::
+  request_trace_rows``). Pass the daemon's output root.
 
-The JAX package's ``trace`` (one serve request's spans) and ``ledger``
-(the device cost ledger) subcommands wait for serve (ROADMAP item 11).
+The JAX package's ``ledger`` subcommand (the device cost ledger) waits
+with the ledger (ROADMAP queue 1, item 11).
 
 Exit codes: 0 ok, 2 usage error or no spans found.
 """
@@ -29,6 +34,7 @@ from typing import List
 from video_features_tpu_torch.runtime.telemetry import (
     overlap_report,
     read_spans,
+    request_trace_rows,
     spans_to_chrome_trace,
 )
 
@@ -64,6 +70,14 @@ def main(argv: List[str]) -> int:
     p_report.add_argument("paths", nargs="+",
                           help="spans-*.jsonl files, a _telemetry dir, or an output root")
     p_report.add_argument("--json", action="store_true", help="emit the raw report dict")
+    p_trace = sub.add_parser(
+        "trace", help="one serve request's spans -> Chrome-trace JSON"
+    )
+    p_trace.add_argument("request_id", help="the request id (lifecycle record id)")
+    p_trace.add_argument("paths", nargs="+",
+                         help="spans-*.jsonl files, a _telemetry dir, or an output root")
+    p_trace.add_argument("-o", "--output", default=None,
+                         help="trace JSON path (default: stdout)")
     args = parser.parse_args(argv)
 
     rows = []
@@ -77,8 +91,18 @@ def main(argv: List[str]) -> int:
         print("telemetry: no spans found", file=sys.stderr)
         return 2
 
-    if args.cmd == "export":
-        trace = spans_to_chrome_trace(rows, device_lanes=args.device_lanes)
+    if args.cmd in ("export", "trace"):
+        if args.cmd == "trace":
+            rows = request_trace_rows(rows, args.request_id)
+            if not rows:
+                print(
+                    f"telemetry: no spans mention request {args.request_id!r}",
+                    file=sys.stderr,
+                )
+                return 2
+        trace = spans_to_chrome_trace(
+            rows, device_lanes=getattr(args, "device_lanes", False)
+        )
         text = json.dumps(trace)
         if args.output:
             with open(args.output, "w", encoding="utf-8") as f:
