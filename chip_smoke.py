@@ -139,25 +139,44 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     non-terminal; the warmup seconds, the burst's p50/p95 latency on a
     miss and on a hit, and the phase's wall, beside the card's name and
     power limit;
-18. a ``kernels`` JSON line (each kernel's launches on its main path, in
+18. flow read from disk and the output flags, on phase 5's 65-frame clip
+    (64-frame stacks at 256x341): PWC ``--side_size 256 --on_extraction
+    save_jpg`` (64 ``flow_x``/``flow_y`` pairs, read back against
+    ``flow_quantize_uint8_np`` of the same run's ``.npy``: mean level
+    difference within 1.5, K2 = 5 x forwards); I3D ``--flow_type flow
+    --flow_paths`` on those JPEGs ((1, 1024) rgb and flow files, K1 and K2
+    0 launches, card vs CPU within 1e-3 relative L2, the flow stream within
+    0.05 of phase 5's on-the-fly I3D + PWC flow features); I3D + PWC
+    ``--show_pred`` (the printed top-5 per stream, the features within
+    phase 5's gates of the run without it, 5 K2 launches); PWC
+    ``--show_pred`` in this process with ``flow_viz.show_flow_on_frame``
+    replaced by a recorder (one finite image per pair); ``--conv3d_impl
+    decomposed`` against ``direct`` for I3D's two streams and R(2+1)D-18
+    (within 1e-3 relative L2, TF32 off, both forward ms); R(2+1)D-18
+    ``--uint8_transfer off`` against ``on`` (equal features, the pinned
+    bytes of each); and ``--fps_retarget reencode`` on phase 6's clip at
+    ``--extraction_fps 10`` where ``shutil.which("ffmpeg")`` finds a
+    binary (else one printed line says it was not run);
+19. a ``kernels`` JSON line (each kernel's launches on its main path, in
     the fused runs, in the device preprocess runs, in the telemetry runs,
-    in the bf16 phase and in the served burst, its records at the fused
-    shapes, and K1's bf16 record at the CLIP path's shape), then the
-    ``ok`` JSON line last.
+    in the bf16 phase, in the served burst and in phase 18, its records at
+    the fused shapes, and K1's bf16 record at the CLIP path's shape), then
+    the ``ok`` JSON line last.
 
-Every CLI run of phases 4-14, 16 and 17 passes ``--strict``, so a video that fails
+Every CLI run of phases 4-14 and 16-18 passes ``--strict``, so a video that fails
 in isolation fails its phase (phase 15's first run leaves it out: two of
 its files must fail). Phases 7-11 launch no hand-written kernel:
 RAFT, ResNet, R(2+1)D and VGGish reach no ``pallas_call`` in the JAX
 package, nor does the device preprocess's resample (the JAX package
 leaves it to XLA). Every launch count is read from a run that starts with
-all counts at 0, and each of phases 4-17 prints its wall time.
+all counts at 0, and each of phases 4-18 prints its wall time.
 """
 
 from __future__ import annotations
 
 import contextlib
 import glob
+import io
 import json
 import os
 import subprocess
@@ -291,6 +310,19 @@ I3D_FEATURE_RTOL = 1e-3
 # largest magnitude: the volumes differ by fp32 sum order (~1e-7)
 FLOW_RTOL = 1e-4
 UINT8_LEVEL = 2.0 / 255.0  # one flow level after scale_to_1_1
+# phase 18 (flow read from disk, the output flags): the save_jpg files
+# read back against the sink's own quantization of the .npy flow; a JPEG
+# at quality 95 of PWC's smooth (bilinearly upsampled) flow moves a pixel
+# by under a level on average, so the mean is held to 1.5 levels
+JPEG_MEAN_LEVELS = 1.5
+# I3D's flow stream on PWC's JPEGs against the on-the-fly flow features:
+# the JAX package's round-trip budget (tests/test_i3d.py), for the uint8
+# quantization plus the JPEG
+ROUND_TRIP_RTOL = 0.05
+# --conv3d_impl decomposed against direct: the same fp32 products summed in
+# another order (kt 2D convolutions), TF32 off
+CONV3D_RTOL = 1e-3
+FPS_RETARGET_FPS = 10.0
 
 
 def card_line() -> str:
@@ -751,7 +783,7 @@ def run_i3d_path(root: str, device):
     ex = build_extractor(ExtractionConfig(feature_type="i3d", video_paths=clips,
                                           allow_random_init=True), external_call=True)
     models = ex.warmup(device)
-    frames, fps, stamps = ex.prepare(clips[0])
+    frames, fps, stamps, _, path = ex.prepare(clips[0])
     stack = torch.from_numpy(np.stack(frames[: STACK + 1])).to(device)
     compare_stack(stack_streams(ex, models, stack),
                   stack_streams(ex, models, stack, corr_method="plain"),
@@ -782,7 +814,7 @@ def run_i3d_path(root: str, device):
           f"{warm / I3D_VIDEOS * 1e3:.2f} ms/video = host decode + resize "
           f"{prep / I3D_VIDEOS * 1e3:.2f} ms + forward (H2D, PWC, 2x I3D, D2H) "
           f"{fwd / I3D_VIDEOS * 1e3:.2f} ms, {I3D_STACKS} stacks each")
-    one = (frames[: STACK + 1], fps, stamps[: STACK + 1])
+    one = (frames[: STACK + 1], fps, stamps[: STACK + 1], None, path)
     t0 = time.perf_counter()
     ex.forward(models, one)
     one_ms = (time.perf_counter() - t0) * 1e3
@@ -921,7 +953,7 @@ def run_i3d_raft_path(root: str, device):
                                           video_paths=clips, allow_random_init=True),
                          external_call=True)
     models = ex.warmup(device)
-    frames, fps, stamps = ex.prepare(clips[0])
+    frames, fps, stamps, _, path = ex.prepare(clips[0])
     short = torch.from_numpy(np.stack(frames[:RAFT_COMPARE_FRAMES]))
     t0 = time.perf_counter()
     cpu_steps = stack_streams(ex, ex.warmup(torch.device("cpu")), short)
@@ -937,7 +969,7 @@ def run_i3d_raft_path(root: str, device):
           f"{warm / I3D_VIDEOS * 1e3:.2f} ms/video = host decode + resize "
           f"{prep / I3D_VIDEOS * 1e3:.2f} ms + forward (H2D, RAFT, 2x I3D, D2H) "
           f"{fwd / I3D_VIDEOS * 1e3:.2f} ms, {I3D_STACKS} stacks each")
-    one = (frames[: STACK + 1], fps, stamps[: STACK + 1])
+    one = (frames[: STACK + 1], fps, stamps[: STACK + 1], None, path)
     t0 = time.perf_counter()
     for _ in range(3):
         ex.forward(models, one)  # ends in a copy to the host
@@ -2442,6 +2474,231 @@ def run_serve_path(root: str, device):
     return {"flash_attention": k1, "local_correlation": k2}
 
 
+def run_flags_path(root: str, device):
+    """Phase 18: flow read from disk and the output flags on cell 2's
+    65-frame clip (64-frame stacks), phase 6's PWC clip and phase 10's
+    R(2+1)D clip. Returns each kernel's launches in the phase."""
+    import cv2
+
+    from video_features_tpu_torch.config import ExtractionConfig
+    from video_features_tpu_torch.extract import ingest
+    from video_features_tpu_torch.extract.registry import build_extractor
+    from video_features_tpu_torch.models.i3d.extract_i3d import rgb_chain
+    from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
+    from video_features_tpu_torch.ops.preprocess import flow_quantize_uint8_np, scale_to_1_1
+    from video_features_tpu_torch.utils import flow_viz
+
+    t_phase = time.perf_counter()
+    print(f"flags: TF32 cudnn {torch.backends.cudnn.allow_tf32}, matmul "
+          f"{torch.backends.cuda.matmul.allow_tf32}; {card_line()}")
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the fp32 comparisons need it off")
+    clip, stem = os.path.join(root, "i3d65.mp4"), "i3d65"
+    pwc_clip, r21d_clip = os.path.join(root, "pwc.mp4"), os.path.join(root, "r21d_rgb.mp4")
+    k2 = 0
+
+    # PWC --on_extraction save_jpg, and the same run saving the .npy flow
+    pwc_args = ["--feature_type", "pwc", "--side_size", "256", "--batch_size", str(PWC_BATCH)]
+    windows = -(-STACK // PWC_BATCH)
+    wall, _, k2_jpg, _ = ingest_cli(root, "flags_jpg", pwc_args, [clip],
+                                    "--on_extraction", "save_jpg")
+    jpg_dir = os.path.join(root, "flags_jpg", "pwc", stem)
+    xs = sorted(glob.glob(os.path.join(jpg_dir, "flow_x_*.jpg")))
+    ys = sorted(glob.glob(os.path.join(jpg_dir, "flow_y_*.jpg")))
+    _, _, k2_npy, npy = ingest_cli(root, "flags_npy", pwc_args, [clip])
+    (flow,) = npy.values()
+    if len(xs) != STACK or len(ys) != STACK or flow.shape != (STACK, 2, 256, 341):
+        raise AssertionError(f"save_jpg: {len(xs)} x / {len(ys)} y files, .npy {flow.shape}")
+    read = np.stack([np.stack([cv2.imread(x, cv2.IMREAD_GRAYSCALE),
+                               cv2.imread(y, cv2.IMREAD_GRAYSCALE)]) for x, y in zip(xs, ys)])
+    levels = np.abs(read.astype(np.int16) - flow_quantize_uint8_np(flow).astype(np.int16))
+    print(f"flags, PWC --on_extraction save_jpg on {stem}: {len(xs)} flow_x/flow_y pairs in "
+          f"{wall:.3f} s; read back against flow_quantize_uint8_np of the .npy run: mean "
+          f"{levels.mean():.4f} levels, max {levels.max()} (mean tol {JPEG_MEAN_LEVELS:g}); "
+          f"K2 launches {k2_jpg} and {k2_npy} ({len(CORR_LEVELS)} x {windows} forwards each)")
+    if not levels.mean() <= JPEG_MEAN_LEVELS:
+        raise AssertionError(f"save_jpg files off the quantized flow: {levels.mean()} levels")
+    if k2_jpg != len(CORR_LEVELS) * windows or k2_npy != k2_jpg:
+        raise AssertionError(f"K2 launched {k2_jpg} / {k2_npy} times over {windows} forwards")
+    k2 += k2_jpg + k2_npy
+
+    # I3D --flow_type flow on those JPEGs: no flow net, so no K2 launch
+    wall, k1_disk, k2_disk, disk = ingest_cli(
+        root, "flags_disk", ["--feature_type", "i3d", "--flow_type", "flow", "--flow_paths",
+                             jpg_dir], [clip])
+    want = sorted(f"{stem}_{s}.npy" for s in ("rgb", "flow"))
+    if sorted(disk) != want or any(f.shape != (1, 1024) or not np.isfinite(f).all()
+                                   for f in disk.values()):
+        raise AssertionError(f"disk flow files {[(k, v.shape) for k, v in disk.items()]}")
+    if k1_disk or k2_disk:
+        raise AssertionError(f"I3D on disk flow launched K1 {k1_disk}, K2 {k2_disk} times")
+    disk_ex = build_extractor(ExtractionConfig(
+        feature_type="i3d", flow_type="flow", video_paths=[clip], flow_paths=[jpg_dir],
+        allow_random_init=True), external_call=True)
+    (card,) = disk_ex(device=device)
+    (cpu,) = disk_ex(device=torch.device("cpu"))
+    errs = {s: rel_l2(card[s], cpu[s]) for s in ("rgb", "flow")}
+    fly = np.load(os.path.join(root, f"{stem}_card_flow.npy"))
+    trip = rel_l2(disk[f"{stem}_flow.npy"], fly)
+    print(f"flags, I3D --flow_type flow on those JPEGs (cold CLI run {wall:.3f} s): rgb/flow "
+          f"(1, 1024), K1 {k1_disk} and K2 {k2_disk} launches; card vs the port on the CPU rel_l2 "
+          f"rgb {errs['rgb']:.3e}, flow {errs['flow']:.3e} (tol {I3D_FEATURE_RTOL:g}); flow "
+          f"stream against phase 5's on-the-fly I3D + PWC flow features rel_l2 {trip:.3e} "
+          f"(tol {ROUND_TRIP_RTOL:g})")
+    if not all(e <= I3D_FEATURE_RTOL for e in errs.values()):
+        raise AssertionError(f"disk flow features card vs CPU: {errs}")
+    if not trip <= ROUND_TRIP_RTOL:
+        raise AssertionError(f"the save_jpg round trip is off the on-the-fly flow: {trip}")
+
+    # I3D + PWC --show_pred: the top-5 per stream, and the features unchanged
+    ex = build_extractor(ExtractionConfig(feature_type="i3d", flow_type="pwc",
+                                          video_paths=[clip], allow_random_init=True,
+                                          conv3d_impl="direct"), external_call=True)
+    models = ex.warmup(device)
+    frames, fps, stamps, _, path = ex.prepare(clip)
+    stack = torch.from_numpy(np.stack(frames[: STACK + 1])).to(device)
+    a, b = (stack_streams(ex, models, stack) for _ in range(2))
+    flow_tol = flow_feature_rtol(float(np.mean(a[1] != b[1])), a[1])
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        _, _, k2_pred, pred = ingest_cli(root, "flags_pred", ["--feature_type", "i3d",
+                                         "--flow_type", "pwc", "--show_pred"], [clip])
+    lines = text.getvalue().splitlines()
+    heads = [i for i, ln in enumerate(lines) if " @ stack " in ln]
+    top = [lines[i: i + 6] for i in heads]
+    for block in top:
+        print("flags, --show_pred: " + " | ".join(block))
+    ok = [lines[i] for i in heads] == [f"{clip} @ stack 0 ({s} stream)" for s in ("rgb", "flow")]
+    ok = ok and all(len(bl) == 6 and all(len(ln.split(" ", 2)) == 3 for ln in bl[1:])
+                    for bl in top)
+    pred_errs = {s: rel_l2(pred[f"{stem}_{s}.npy"], np.load(os.path.join(
+        root, f"{stem}_card_{s}.npy"))) for s in ("rgb", "flow")}
+    print(f"flags, I3D + PWC --show_pred: features against phase 5's without the flag rel_l2 "
+          f"rgb {pred_errs['rgb']:.3e} (tol {I3D_FEATURE_RTOL:g}), flow {pred_errs['flow']:.3e} "
+          f"(tol {flow_tol:.3e}); K2 launches {k2_pred}")
+    if not ok:
+        raise AssertionError(f"--show_pred printed {lines}")
+    if not (pred_errs["rgb"] <= I3D_FEATURE_RTOL and pred_errs["flow"] <= flow_tol):
+        raise AssertionError(f"--show_pred changed the features: {pred_errs}")
+    if k2_pred != len(CORR_LEVELS):
+        raise AssertionError(f"K2 launched {k2_pred} times over one I3D + PWC forward")
+    k2 += k2_pred
+
+    # PWC --show_pred in this process: the display replaced by a recorder
+    seen = []
+
+    def record(flow, frame):
+        img = np.concatenate([frame.astype(np.uint8), flow_viz.flow_to_image(flow)], axis=0)
+        seen.append((img.shape, bool(np.isfinite(flow).all() and np.isfinite(frame).all())))
+
+    pwc_ex = build_extractor(ExtractionConfig(feature_type="pwc", video_paths=[pwc_clip],
+                                              batch_size=PWC_BATCH, show_pred=True,
+                                              allow_random_init=True), external_call=True)
+    reset_counts()
+    with mock.patch.object(flow_viz, "show_flow_on_frame", record):
+        (shown,) = pwc_ex(device=device)
+    k2_show = local_correlation_kernel.launches
+    pairs = PWC_CLIP_FRAMES - 1
+    print(f"flags, PWC --show_pred: {len(seen)} show_flow_on_frame calls for {pairs} pairs, "
+          f"images {sorted({sh for sh, _ in seen})}, all finite {all(f for _, f in seen)}; "
+          f"K2 launches {k2_show}")
+    if (len(seen) != pairs or shown["pwc"].shape[0] != pairs or not all(f for _, f in seen)
+            or {sh for sh, _ in seen} != {(480, 320, 3)}):
+        raise AssertionError(f"PWC --show_pred drew {seen}")
+    if k2_show != len(CORR_LEVELS) * -(-pairs // PWC_BATCH):
+        raise AssertionError(f"K2 launched {k2_show} times for PWC --show_pred")
+    k2 += k2_show
+
+    # --conv3d_impl decomposed against direct: I3D's two streams on one
+    # stack's inputs (PWC's levels of the stack above), R(2+1)D-18 on 4 stacks
+    dec = build_extractor(ExtractionConfig(feature_type="i3d", flow_type="pwc",
+                                           video_paths=[clip], allow_random_init=True,
+                                           conv3d_impl="decomposed"), external_call=True)
+    x_rgb = rgb_chain(stack[None, :-1])
+    x_flow = scale_to_1_1(torch.from_numpy(a[1]).to(device))
+    conv = {}
+    for impl, e in (("direct", ex), ("decomposed", dec)):
+        m = e.warmup(device)
+
+        def i3d_pair(m=m):
+            with torch.inference_mode():
+                return m["rgb"](x_rgb)[0], m["flow"](x_flow)[0]
+
+        feats = [f.cpu().numpy() for f in i3d_pair()]
+        one = (frames[: STACK + 1], fps, stamps[: STACK + 1], None, path)
+        conv[impl] = (feats, time_ms(i3d_pair, iters=5, warmup=2),
+                      time_ms(lambda e=e, m=m: e.forward(m, one), iters=3, warmup=1))
+    i3d_errs = [rel_l2(d, r) for d, r in zip(conv["decomposed"][0], conv["direct"][0])]
+    r21d = {}
+    for impl in ("direct", "decomposed"):
+        e = build_extractor(ExtractionConfig(feature_type="r21d_rgb", video_paths=[r21d_clip],
+                                             allow_random_init=True, conv3d_impl=impl),
+                            external_call=True)
+        m, payload = e.warmup(device), e.prepare(r21d_clip)
+        r21d[impl] = (e.forward(m, payload)["r21d_rgb"],
+                      time_ms(lambda e=e, m=m, p=payload: e.forward(m, p), iters=5, warmup=2))
+    r21d_err = rel_l2(r21d["decomposed"][0], r21d["direct"][0])
+    print(f"flags, --conv3d_impl decomposed vs direct (TF32 off; {card_line()}): I3D rgb/flow "
+          f"features rel_l2 {i3d_errs[0]:.3e} / {i3d_errs[1]:.3e}, R(2+1)D-18 {r21d_err:.3e} "
+          f"(tol {CONV3D_RTOL:g}); forward ms direct -> decomposed: I3D two streams on one "
+          f"{STACK}-frame stack {conv['direct'][1]:.2f} -> {conv['decomposed'][1]:.2f}, the whole "
+          f"I3D + PWC stack {conv['direct'][2]:.2f} -> {conv['decomposed'][2]:.2f}, R(2+1)D-18 "
+          f"on {R21D_CLIP_FRAMES // 16} stacks {r21d['direct'][1]:.2f} -> "
+          f"{r21d['decomposed'][1]:.2f}")
+    if not all(err <= CONV3D_RTOL for err in [*i3d_errs, r21d_err]):
+        raise AssertionError(f"decomposed and direct disagree: I3D {i3d_errs}, R21D {r21d_err}")
+
+    # R(2+1)D --uint8_transfer off against on, with the pinned bytes of each
+    pinned = {}
+    real = ingest.pinned_copy
+    for transfer in ("on", "off"):
+        e = build_extractor(ExtractionConfig(feature_type="r21d_rgb", video_paths=[r21d_clip],
+                                             allow_random_init=True, uint8_transfer=transfer),
+                            external_call=True)
+        m, payload = e.warmup(device), e.prepare(r21d_clip)
+        sizes = []
+
+        def counting(x, sizes=sizes):
+            host = real(x)
+            sizes.append(host.numel() * host.element_size())
+            return host
+
+        with mock.patch.object(ingest, "pinned_copy", counting):
+            feats = e.forward(m, payload)["r21d_rgb"]
+        pinned[transfer] = (feats, sum(sizes))
+    diff = float(np.abs(pinned["off"][0] - pinned["on"][0]).max())
+    print(f"flags, R(2+1)D-18 --uint8_transfer off vs on: features max_abs_err {diff:.3e} (tol "
+          f"{CONTRACT_ATOL:g}); pinned bytes {pinned['on'][1]} (on) and {pinned['off'][1]} (off)")
+    if (not diff <= CONTRACT_ATOL or pinned["off"][1] != 4 * pinned["on"][1]
+            or (device.type == "cuda" and not pinned["on"][1])):
+        raise AssertionError(f"--uint8_transfer off: {diff}, pinned {pinned['on'][1]} / "
+                             f"{pinned['off'][1]}")
+
+    # --fps_retarget reencode needs an ffmpeg binary
+    import shutil
+
+    binary = shutil.which("ffmpeg")
+    print(f"flags, --fps_retarget reencode: shutil.which('ffmpeg') = {binary!r}")
+    if binary is None:
+        print("flags, --fps_retarget reencode: not run, this host has no ffmpeg binary "
+              "(unverified on the card)")
+    else:
+        retarget = ["--feature_type", "pwc", "--batch_size", str(PWC_BATCH), "--extraction_fps",
+                    f"{FPS_RETARGET_FPS:g}"]
+        _, _, k2_re, re_out = ingest_cli(root, "flags_reencode", retarget, [pwc_clip],
+                                         "--fps_retarget", "reencode")
+        (re_flow,) = re_out.values()
+        want_frames = round(PWC_CLIP_FRAMES / 25.0 * FPS_RETARGET_FPS)
+        print(f"flags, --fps_retarget reencode --extraction_fps {FPS_RETARGET_FPS:g}: flow "
+              f"{re_flow.shape}, {re_flow.shape[0] + 1} frames (expected {want_frames} +- 1); "
+              f"K2 launches {k2_re}")
+        if abs(re_flow.shape[0] + 1 - want_frames) > 1 or not np.isfinite(re_flow).all():
+            raise AssertionError(f"re-encoded flow {re_flow.shape}")
+        k2 += k2_re
+    print(f"flags: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"flash_attention": 0, "local_correlation": k2}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2482,6 +2739,7 @@ def main() -> int:
             ("telemetry and preflight", lambda: run_telemetry_path(root, device)),
             ("bfloat16", lambda: run_bf16_path(root, device)),
             ("serve", lambda: run_serve_path(root, device)),
+            ("disk flow and output flags", lambda: run_flags_path(root, device)),
         ]
         results = {}
         for name, phase in phases:
@@ -2489,10 +2747,11 @@ def main() -> int:
             results[name] = phase()
             print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
         # each kernel's launches: its main path's run, then the fused runs,
-        # the device preprocess runs, the telemetry runs, the bf16 phase's
-        # and the served burst's
+        # the device preprocess runs, the telemetry runs, the bf16 phase's,
+        # the served burst's and the disk flow and output flags phase's
         later = [results["async ingest"], results["device preprocess"],
-                 results["telemetry and preflight"], results["bfloat16"], results["serve"]]
+                 results["telemetry and preflight"], results["bfloat16"], results["serve"],
+                 results["disk flow and output flags"]]
         k1_launches = results["CLIP"] + sum(r["flash_attention"] for r in later)
         k2_launches = results["I3D + PWC"] + sum(r["local_correlation"] for r in later)
 

@@ -220,7 +220,9 @@ def test_resnet_over_its_cap_streams(preprocess, mixed, tmp_path, monkeypatch):
     ex = build_extractor(ExtractionConfig(video_paths=list(mixed), cpu=True,
                                           allow_random_init=True, **fields), external_call=True)
     payload = ex.prepare(mixed[0])
-    assert payload == ("stream", mixed[0]) and ex.agg_key(payload) is None
+    # the over-cap payload carries its resolved decode source (--fps_retarget)
+    assert payload == ("stream", mixed[0], ex._fps_source(mixed[0]))
+    assert ex.agg_key(payload) is None
     _assert_close(ex(device=torch.device("cpu")), prepared, atol=FUSED_ATOL)
 
 

@@ -201,16 +201,24 @@ def test_short_video_upsamples_to_65_frames(tmp_path):
     "kw,match",
     [
         (dict(flow_type="farneback"), "unknown flow_type"),
-        (dict(flow_type="flow"), "from disk.*ROADMAP"),
+        # flow read from disk and --show_pred are ported: accepted, as in
+        # the JAX package (None)
+        (dict(flow_type="flow"), None),
         (dict(stack_size=9), "shorter than 10"),
         (dict(streams=["depth"]), "streams"),
         (dict(batch_size=0), "batch_size"),
-        (dict(show_pred=True), "show_pred is not ported yet for i3d"),
+        (dict(show_pred=True), None),
     ],
 )
 def test_sanity_check_rejects(kw, match):
+    """Each case is refused with ``match`` in the message, or accepted
+    where ``match`` is None."""
+    cfg = ExtractionConfig(feature_type="i3d", **kw)
+    if match is None:
+        assert sanity_check(cfg).feature_type == "i3d"
+        return
     with pytest.raises((ValueError, AssertionError), match=match):
-        sanity_check(ExtractionConfig(feature_type="i3d", **kw))
+        sanity_check(cfg)
 
 
 def test_rgb_only_with_raft_is_allowed():

@@ -9,12 +9,15 @@ a whole: both packages' daemons, with the small CLIP tower, take the
 same five requests through ``submit`` and the inline drain, and their
 feature files agree within 1e-4; a repeat is a cache hit in both. Then
 one test each for the real dispatcher thread, the HTTP door on port 0,
-the spool watcher, a group stopped by a sticky device error, and the
-refused ``--preempt on`` / ``--hbm_budget_bytes``.
+the spool watcher, a group stopped by a sticky device error (the daemon
+then stops for every model: refused admission, 503s, no spool claim, and
+``serve_main`` returning 1), and the refused ``--preempt on`` /
+``--hbm_budget_bytes``.
 """
 
 import json
 import os
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -35,7 +38,8 @@ from video_features_tpu_torch.config import parse_serve_args
 from video_features_tpu_torch.models.clip import model as port_model
 from video_features_tpu_torch.runtime import faults
 from video_features_tpu_torch.serve import batcher, costmodel, lifecycle, scheduler
-from video_features_tpu_torch.serve.daemon import ServeDaemon
+from video_features_tpu_torch.serve.daemon import ServeDaemon, serve_main
+from video_features_tpu_torch.serve.supervisor import DaemonStopped
 from video_features_tpu_torch.serve.sources import SpoolWatcher, parse_spool_name
 from video_features_tpu_torch.utils.synth import synth_video
 
@@ -358,9 +362,10 @@ def test_spool_watcher(tmp_path, serve_videos, small_tower, weights):
 def test_sticky_error_fails_the_group_without_retry(tmp_path, serve_videos, small_tower,
                                                     weights, monkeypatch):
     """A sticky device error in a fused group: every member ends failed
-    with a terminal record, nothing is retried, the breaker counts one
-    failure and (at threshold 1) opens and evicts the model."""
-    d = _daemon(tmp_path, weights, "--max_group_size", "3", "--breaker_threshold", "1",
+    with a terminal record, nothing is retried, and the daemon stops for
+    every model: /healthz's status names the error, and a second model's
+    request is refused, recorded nowhere and never run."""
+    d = _daemon(tmp_path, weights, "--feature_types", FT, "resnet18", "--max_group_size", "3",
                 "--fault_inject", "dispatch:error:1", "--retries", "2")
     # the injected error, read as sticky: a CUDA error poisons the process
     monkeypatch.setattr(faults, "is_sticky", lambda exc: "injected fault" in str(exc))
@@ -374,10 +379,78 @@ def test_sticky_error_fails_the_group_without_retry(tmp_path, serve_videos, smal
         assert all(r.get("message") for r in recs)
         summary = faults.merge_manifest(str(tmp_path / "port" / "out"))
         assert summary["retries"] == 0 and summary["failed"] == 3
-        assert d.status()["breakers"][FT]["state"] == "open"
-        assert d.pool.feature_types() == []  # evicted: the next group rebuilds
+        health = d.status()
+        assert health["status"] == "stopped" and "injected fault" in health["error"]
+        assert d.stop_requested.is_set()
+        for ft, rid in ((FT, "s-3"), ("resnet18", "r-0")):
+            with pytest.raises(DaemonStopped, match="injected fault"):
+                d.submit({"feature_type": ft, "video_path": serve_videos[3], "id": rid},
+                         source="local")
+            assert d.tracker.get(rid) is None
+        assert "resnet18" not in d.pool.feature_types()  # never built
     finally:
-        d.shutdown()
+        d.shutdown(drain=False)
+
+
+def test_sticky_error_stops_http_and_spool(tmp_path, serve_videos, small_tower, weights,
+                                           monkeypatch):
+    """After a sticky group the HTTP door answers 503 (health and submit),
+    the spool watcher claims nothing more and the replica's heartbeat
+    stops; queued work leaves by the shutdown contract."""
+    spool = tmp_path / "spool"
+    # a lone request runs the serial loop: the group itself raises the
+    # sticky error here (the serve stage 'extractor'), not its loop
+    d = _daemon(tmp_path, weights, "--feature_types", FT, "resnet18", "--port", "0",
+                "--max_batch_wait_ms", "10", "--spool_dir", str(spool), "--spool_poll_s",
+                "0.02", "--fault_inject", "extractor:error:1", "--retries", "0")
+    monkeypatch.setattr(faults, "is_sticky", lambda exc: "injected fault" in str(exc))
+    d.start()
+    try:
+        port = d.http_port
+        code, _ = _post(port, {"feature_type": FT, "video_path": serve_videos[0], "id": "h-0"})
+        assert code == 202
+        assert _wait(lambda: d.stopped_by is not None)
+        assert _wait(lambda: d.tracker.get("h-0")["state"] == "failed")
+        code, health = _get(port, "/healthz")
+        assert code == 503 and health["status"] == "stopped"
+        assert "injected fault" in health["error"]
+        code, body = _post(port, {"feature_type": "resnet18", "video_path": serve_videos[1],
+                                  "id": "h-1"})
+        assert code == 503 and "injected fault" in body["error"]
+        assert d.tracker.get("h-1") is None
+        beat = os.stat(d.registry.path).st_mtime_ns
+        with open(spool / ".late.tmp", "w") as fh:
+            json.dump({"feature_type": FT, "video_path": serve_videos[2], "id": "late"}, fh)
+        os.replace(spool / ".late.tmp", spool / "late.json")
+        time.sleep(0.3)  # 15 poll intervals of a live watcher
+        assert sorted(os.listdir(spool)) == ["late.json"]
+        assert d.tracker.get("late") is None
+        assert os.stat(d.registry.path).st_mtime_ns == beat
+    finally:
+        d.shutdown(drain=False)
+
+
+def test_serve_main_exits_nonzero_after_a_sticky_error(tmp_path, serve_videos, small_tower,
+                                                       weights, monkeypatch):
+    """``serve`` ends by itself after a sticky group (no signal), shuts
+    down without draining and returns 1 for a supervisor to restart it."""
+    spool = tmp_path / "spool"
+    spool.mkdir()
+    with open(spool / "first.json", "w") as fh:
+        json.dump({"feature_type": FT, "video_path": serve_videos[0], "id": "m-0"}, fh)
+    monkeypatch.setattr(faults, "is_sticky", lambda exc: "injected fault" in str(exc))
+    argv = _argv(tmp_path, "main", weights, "--max_batch_wait_ms", "10", "--spool_dir",
+                 str(spool), "--spool_poll_s", "0.02", "--fault_inject", "extractor:error:1",
+                 "--retries", "0")
+    got = []
+    runner = threading.Thread(target=lambda: got.append(serve_main(argv)))
+    runner.start()
+    runner.join(timeout=120)
+    assert not runner.is_alive() and got == [1]
+    with open(os.path.join(lifecycle.requests_root(str(tmp_path / "main" / "out")),
+                           "m-0.json")) as fh:
+        rec = json.load(fh)
+    assert rec["state"] == "failed" and "injected fault" in rec["message"]
 
 
 @pytest.mark.parametrize("flags", [["--preempt", "on"], ["--hbm_budget_bytes", "1000"]],

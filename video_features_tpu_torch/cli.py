@@ -12,7 +12,8 @@ outcome printed; with ``--strict`` a failed video, an empty-feature
 warning or a worker death exits nonzero.
 
 ``serve [warmup] ...`` starts the long-lived daemon
-(``serve/daemon.py::serve_main``) on the same device rules.
+(``serve/daemon.py::serve_main``) on the same device rules; its exit
+code is 1 after a sticky device error stopped it.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from video_features_tpu_torch.extract.plan import run_multi
 from video_features_tpu_torch.runtime.faults import finalize_run, format_summary, strict_failures
 
 
-def main(argv=None) -> None:
+def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "serve":
         # the long-lived daemon (serve/): loads models once, keeps them

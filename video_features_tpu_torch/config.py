@@ -10,7 +10,11 @@ preprocess (``--preprocess``, ``--spatial_bucket``,
 ``--heartbeat_s``, ``--profile_dir``) and the preflight probe with the
 input caps (``--preflight``, ``--decode_timeout``, ``--max_pixels``,
 ``--max_duration_s``, ``--max_decode_bytes``), the numerics flag
-``--dtype`` with its admission table, the content-addressed feature
+``--dtype`` with its admission table, the input and output flags (flow
+read from disk: ``--flow_type flow`` with ``--flow_paths`` or
+``--video_dir``/``--flow_dir``; ``--on_extraction save_jpg``;
+``--show_pred``; ``--fps_retarget``; ``--uint8_transfer``;
+``--conv3d_impl``), the content-addressed feature
 cache (``--cache_dir``, ``--cache_hash``), the shared-decode fan-out
 (``--feature_types``, ``--ingest_cache_mb``) and the serve daemon's
 ``ServeConfig`` (``parse_serve_args``, ``sanity_check_serve``). Flag
@@ -40,14 +44,11 @@ RESNET_FEATURE_TYPES = [f"resnet{d}" for d in (18, 34, 50, 101, 152)]
 VGGISH_FEATURE_TYPES = ["vggish", "vggish_torch"]
 FEATURE_TYPES = (CLIP_FEATURE_TYPES + RESNET_FEATURE_TYPES + VGGISH_FEATURE_TYPES
                  + ["r21d_rgb", "raft", "pwc", "i3d"])
-# the feature types whose --show_pred this package prints so far
-SHOW_PRED_FEATURE_TYPES = RESNET_FEATURE_TYPES + ["r21d_rgb"]
+# the feature types whose --show_pred this package refuses: the JAX
+# package accepts it for CLIP and prints nothing
+NO_SHOW_PRED_FEATURE_TYPES = CLIP_FEATURE_TYPES
 STREAMS = ("rgb", "flow")
 FLOW_TYPES = ("raft", "pwc", "flow")
-# I3D flow sources the JAX package has and this package does not yet
-FLOW_TYPES_TO_PORT = {
-    "flow": "flow read from disk (ROADMAP.md queue 1, item 10)",
-}
 # the extractors whose dispatch honours --preprocess device: the image
 # models (a fixed 224 crop), the flow models (InputPadder's or the exact
 # grid) and I3D (min-edge-256 onto an output bucket); sanity_check names
@@ -56,7 +57,9 @@ DEVICE_PREPROCESS_FEATURE_TYPES = CLIP_FEATURE_TYPES + RESNET_FEATURE_TYPES + ["
                                                                              "i3d"]
 PREPROCESS_MODES = ("host", "device")
 ATTN_CORES = ("fused", "flash", "blockwise")
-ON_EXTRACTION = ("print", "save_numpy", "save_pickle")
+ON_EXTRACTION = ("print", "save_numpy", "save_pickle", "save_jpg")
+FPS_RETARGETS = ("nearest", "reencode")
+CONV3D_IMPLS = ("auto", "direct", "decomposed")
 DTYPES = ("float32", "bfloat16")
 
 # --dtype admission: the model families whose low-precision graph has a
@@ -103,9 +106,13 @@ class ExtractionConfig:
     """All knobs for one extraction job."""
 
     feature_type: str = "CLIP-ViT-B/32"
-    # --- input selection ---
+    # --- input selection: videos, or (video, flow dir) pairs matched by
+    # stem for I3D's --flow_type flow ---
     video_paths: Optional[List[str]] = None
+    flow_paths: Optional[List[str]] = None
     file_with_video_paths: Optional[str] = None
+    video_dir: Optional[str] = None
+    flow_dir: Optional[str] = None
     # --- devices: cuda:<device_ids[0]>, or the CPU with --cpu ---
     device_ids: Optional[List[int]] = None
     cpu: bool = False
@@ -113,20 +120,25 @@ class ExtractionConfig:
     tmp_path: str = "./tmp"
     # keep the wav/aac an audio rip leaves in tmp_path (vggish on a video)
     keep_tmp_files: bool = False
-    on_extraction: str = "print"  # print | save_numpy | save_pickle
+    on_extraction: str = "print"  # print | save_numpy | save_pickle | save_jpg
     output_path: str = "./output"
     output_direct: bool = False
     # --- sampling: 'fix_<fps>' or 'uni_<N>' (CLIP); a target fps (the rest) ---
     extract_method: Optional[str] = None
     extraction_fps: Optional[float] = None
+    # how --extraction_fps retargets the frame grid (resnet*, raft, pwc):
+    # 'nearest' picks frames of the source grid in-process; 'reencode' is
+    # the reference's ffmpeg re-encode into tmp_path (needs ffmpeg)
+    fps_retarget: str = "nearest"
     # --- flow frames: optional PIL resize of each frame (raft, pwc) ---
     side_size: Optional[int] = None
     resize_to_smaller_edge: bool = True
     # --- batches: B+1-frame flow windows (raft, pwc), B-frame batches
     # (resnet) or B-stack groups (i3d, r21d) ---
     batch_size: int = 1
-    # --- i3d: streams, flow model and stack_size+1-frame stacks every
-    # step_size; r21d: stack_size-frame stacks every step_size ---
+    # --- i3d: streams, flow model (or 'flow': flow_x/flow_y JPEGs read
+    # from disk) and stack_size+1-frame stacks every step_size; r21d:
+    # stack_size-frame stacks every step_size ---
     streams: Optional[List[str]] = None
     flow_type: str = "pwc"
     stack_size: Optional[int] = None
@@ -147,8 +159,16 @@ class ExtractionConfig:
     # written fp32 either way
     dtype: str = "float32"
     # print the top-5 classes of each frame (resnet, ImageNet) or stack
-    # (r21d, Kinetics-400)
+    # (r21d, i3d: Kinetics-400), or show each flow pair over its frame
+    # (raft, pwc)
     show_pred: bool = False
+    # R(2+1)D's stacks cross to the device as uint8 ('on') or, cast on
+    # the host, as float32 ('off'); the features are the same
+    uint8_transfer: str = "on"
+    # the 3D convolutions of i3d and r21d: 'direct' (cuDNN's conv3d),
+    # 'decomposed' (a sum of 2D convolutions over strided time slices),
+    # or 'auto' (VFT_CONV3D_IMPL, else direct)
+    conv3d_impl: str = "auto"
     # skip videos whose output files already exist, or that an earlier
     # run's manifest records as permanently failed
     resume: bool = False
@@ -245,11 +265,20 @@ def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
         )
     if cfg.on_extraction not in ON_EXTRACTION:
         raise ValueError(f"unknown on_extraction: {cfg.on_extraction}")
-    if cfg.show_pred and cfg.feature_type not in SHOW_PRED_FEATURE_TYPES:
+    if cfg.on_extraction == "save_jpg" and cfg.feature_type not in ("raft", "pwc"):
         raise ValueError(
-            f"--show_pred is not ported yet for {cfg.feature_type} (this package "
-            f"prints predictions for {', '.join(SHOW_PRED_FEATURE_TYPES)})"
+            "save_jpg writes quantized flow JPEGs and only applies to "
+            f"flow features (raft/pwc), not {cfg.feature_type!r}"
         )
+    if cfg.show_pred:
+        if cfg.feature_type in NO_SHOW_PRED_FEATURE_TYPES:
+            raise ValueError(
+                f"--show_pred prints nothing for {cfg.feature_type} (the JAX package "
+                "accepts it and prints nothing; this package refuses it)"
+            )
+        # predictions print per video: pin to one device
+        if cfg.device_ids:
+            cfg = cfg.replace(device_ids=[cfg.device_ids[0]])
     if cfg.dtype != "float32":
         fams = LOW_PRECISION_MODEL_FAMILIES.get(cfg.dtype)
         if fams is None:
@@ -263,14 +292,31 @@ def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
             )
     if cfg.attn not in ATTN_CORES:
         raise ValueError(f"unknown attn core: {cfg.attn}")
+    if cfg.conv3d_impl not in CONV3D_IMPLS:
+        raise ValueError(f"unknown conv3d_impl: {cfg.conv3d_impl}")
+    if cfg.fps_retarget not in FPS_RETARGETS:
+        raise ValueError(f"unknown fps_retarget: {cfg.fps_retarget}")
+    if cfg.fps_retarget == "reencode" and not (
+        cfg.feature_type in ("raft", "pwc") or cfg.feature_type in RESNET_FEATURE_TYPES
+    ):
+        raise ValueError(
+            "--fps_retarget reencode mirrors the reference's ffmpeg fps "
+            "path, which only exists for resnet*/raft/pwc; other extractors "
+            f"sample their own grids (got {cfg.feature_type!r})"
+        )
+    if cfg.uint8_transfer not in ("on", "off"):
+        raise ValueError(f"uint8_transfer must be 'on' or 'off', got {cfg.uint8_transfer!r}")
     for flag, val in (
         ("file_with_video_paths", cfg.file_with_video_paths),
+        ("video_dir", cfg.video_dir),
+        ("flow_dir", cfg.flow_dir),
         ("weights_path", cfg.weights_path),
     ):
         if val is not None and not str(val).strip():
             raise ValueError(f"--{flag} must be a non-empty path")
-    if cfg.video_paths and any(not str(p).strip() for p in cfg.video_paths):
-        raise ValueError("--video_paths contains an empty path")
+    for flag, paths in (("video_paths", cfg.video_paths), ("flow_paths", cfg.flow_paths)):
+        if paths and any(not str(p).strip() for p in paths):
+            raise ValueError(f"--{flag} contains an empty path")
     if cfg.extract_method is not None and not re.fullmatch(
         r"(uni|fix)_[0-9]+", cfg.extract_method
     ):
@@ -297,11 +343,6 @@ def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
         if cfg.stack_size is not None and cfg.stack_size < 10:
             raise AssertionError(
                 f"I3D does not support inputs shorter than 10 timestamps, got {cfg.stack_size}"
-            )
-        if cfg.flow_type in FLOW_TYPES_TO_PORT and "flow" in (cfg.streams or STREAMS):
-            raise ValueError(
-                f"--flow_type {cfg.flow_type} is not ported yet: "
-                f"{FLOW_TYPES_TO_PORT[cfg.flow_type]}; use --flow_type pwc"
             )
     if cfg.shape_buckets is not None and (
         not cfg.shape_buckets or any(b < 1 for b in cfg.shape_buckets)
@@ -371,8 +412,12 @@ def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
                 "model (--flow_type raft or pwc); pre-extracted disk flow "
                 "keeps the host chain (frames arrive already resized)"
             )
-        # --show_pred with raft/pwc, which the JAX package refuses here,
-        # is refused above: the port does not print flow yet
+        if cfg.show_pred and cfg.feature_type in ("raft", "pwc"):
+            raise ValueError(
+                "--show_pred draws flow onto host-resized frames, which "
+                "--preprocess device never materializes for raft/pwc — "
+                "drop one of the two flags"
+            )
     if cfg.spatial_bucket < 1:
         raise ValueError(f"spatial_bucket must be >= 1, got {cfg.spatial_bucket}")
     parse_fault_specs(cfg.fault_inject)  # raises naming the bad spec
@@ -400,7 +445,14 @@ def build_arg_parser(feature_required: bool = True) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Extract video features (PyTorch/CUDA)")
     p.add_argument("--feature_type", choices=FEATURE_TYPES)
     p.add_argument("--video_paths", nargs="+", help="space-separated paths to videos")
+    p.add_argument("--flow_paths", nargs="+",
+                   help="space-separated dirs of flow_x/flow_y JPEGs, paired with "
+                        "--video_paths by stem (i3d --flow_type flow)")
     p.add_argument("--file_with_video_paths", help=".txt file where each line is a path")
+    p.add_argument("--video_dir", type=str, help="dir of videos")
+    p.add_argument("--flow_dir", type=str,
+                   help="dir of optical flow of videos: "
+                        "[flow_dir]/[video stem]/[flow_(x/y)_00000.jpg]")
     p.add_argument("--device_ids", type=int, nargs="+",
                    help="the CUDA device id to run on (one, so far)")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
@@ -413,6 +465,10 @@ def build_arg_parser(feature_required: bool = True) -> argparse.ArgumentParser:
     p.add_argument("--extract_method", type=str, help="e.g. fix_2 or uni_12")
     p.add_argument("--extraction_fps", type=float,
                    help="frames per second to sample (all but CLIP)")
+    p.add_argument("--fps_retarget", default="nearest", choices=list(FPS_RETARGETS),
+                   help="how --extraction_fps retargets the frame grid (resnet*, raft, "
+                        "pwc): in-process nearest-frame selection (default), or the "
+                        "reference's ffmpeg re-encode into --tmp_path")
     p.add_argument("--side_size", type=int,
                    help="PIL-resize each frame's smaller (or larger) edge to this "
                         "(raft, pwc)")
@@ -435,7 +491,15 @@ def build_arg_parser(feature_required: bool = True) -> argparse.ArgumentParser:
                         "(default), the CUDA flash kernel, or its plain "
                         "blockwise version")
     p.add_argument("--show_pred", action="store_true", default=False,
-                   help="print the top-5 classes (resnet: ImageNet, r21d: Kinetics-400)")
+                   help="print the top-5 classes (resnet: ImageNet, r21d and i3d: "
+                        "Kinetics-400), or show each flow pair over its frame (raft, pwc)")
+    p.add_argument("--uint8_transfer", default="on", choices=["on", "off"],
+                   help="'off' casts R(2+1)D's stacks to float32 on the host "
+                        "before the H2D copy (the same features)")
+    p.add_argument("--conv3d_impl", default="auto", choices=list(CONV3D_IMPLS),
+                   help="the 3D convolutions of i3d and r21d: cuDNN's conv3d "
+                        "(direct), or a sum of 2D convolutions over strided time "
+                        "slices (decomposed); auto honours VFT_CONV3D_IMPL, else direct")
     p.add_argument("--dtype", default="float32", choices=list(DTYPES),
                    help="bfloat16: the mixed-precision graph (convs and matmuls in "
                         "bf16, norms, softmax, flow recurrences and heads in fp32; "

@@ -28,7 +28,9 @@ The run contract (``runtime/faults.py``):
 - with ``--cache_dir`` (save runs) a video whose (content hash, config
   digest) the feature store holds is a file copy, recorded ``done`` with
   the note ``cache_hit`` before any decode or launch, and every video the
-  sink commits is published to the store (``extract/cache.py``).
+  sink commits is published to the store (``extract/cache.py``); a
+  (video, flow dir) pair is never cached, as the hash covers the video
+  only.
 
 ``run_paths`` is the serve daemon's dispatch surface: it appends entries
 to the path list and runs only the new indices on the warm extractor.
@@ -92,6 +94,7 @@ from video_features_tpu_torch.extract.ingest import (
     place_batch,
     place_taps,
 )
+from video_features_tpu_torch.io.ffmpeg import reencode_video_with_diff_fps
 from video_features_tpu_torch.io.paths import form_list_from_user_input, video_path_of
 from video_features_tpu_torch.io.probe import ResourceCaps, preflight
 from video_features_tpu_torch.io.sink import action_on_extraction, expected_output_files
@@ -186,6 +189,22 @@ class BaseExtractor:
         """The keys a feature dict carries, whose files ``--resume`` probes
         (i3d overrides this with its streams)."""
         return [self.feature_type]
+
+    def _fps_source(self, video_path: str):
+        """(decode path, selection fps) under ``--fps_retarget``: with
+        ``nearest`` (the default) the original, its frames picked on the
+        target grid in-process; with ``reencode`` the reference's ffmpeg
+        re-encode into the tmp path (a ``reencode`` span), already on the
+        target grid, so no selection fps. Used by the extractors whose
+        reference re-encodes (resnet*, raft, pwc; ``sanity_check`` keeps
+        the flag to them)."""
+        fps = self.config.extraction_fps
+        if fps and self.config.fps_retarget == "reencode":
+            with self.telemetry.span("reencode", video=str(video_path)):
+                return reencode_video_with_diff_fps(
+                    video_path, self.tmp_path, fps, timeout_s=self.config.decode_timeout,
+                ), None
+        return video_path, fps
 
     def _already_done(self, entry) -> bool:
         files = expected_output_files(
@@ -718,6 +737,13 @@ class BaseExtractor:
         )
 
     # --- the content-addressed feature cache (extract/cache.py) -------------
+    @staticmethod
+    def _cacheable_entry(entry) -> bool:
+        """(video, flow dir) pairs are never cached: the content hash
+        covers only the video, so a changed flow dir would be served stale
+        features."""
+        return not (isinstance(entry, (tuple, list)) and len(entry) > 1 and entry[1])
+
     def _try_cache_hit(self, entry) -> bool:
         """Content-addressed short-circuit before any decode work: when
         the store holds this (content hash, config digest), materialize
@@ -726,7 +752,7 @@ class BaseExtractor:
         kernel launches. Every cache-side failure — unreadable input,
         corrupt entry, vanished payload — is a miss; the real extraction
         path is always the fallback."""
-        if self._feature_cache is None:
+        if self._feature_cache is None or not self._cacheable_entry(entry):
             return False
         video = self._video_key(entry)
         keys = self.feature_keys()
@@ -755,7 +781,7 @@ class BaseExtractor:
         """Populate the store from the files the sink just committed
         atomically. Claim-by-rename semantics: losing to a concurrent
         writer is a no-op, and any OSError leaves the store unchanged."""
-        if self._feature_cache is None:
+        if self._feature_cache is None or not self._cacheable_entry(entry):
             return
         video = self._video_key(entry)
         try:

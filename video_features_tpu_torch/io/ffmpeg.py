@@ -1,9 +1,11 @@
-"""The ffmpeg boundary, for the audio rip of a video container.
+"""The ffmpeg boundary: the audio rip of a video container, and the
+reference's fps re-encode (``--fps_retarget reencode``).
 
 Counterpart of ``video_features_tpu/io/ffmpeg.py`` (``which_ffmpeg``,
-``require_ffmpeg``, ``_run``, ``extract_wav_from_video``). The binary may
-be absent: ``.wav`` inputs never need it, and a container without it
-fails with a clear message instead of mid-pipeline.
+``require_ffmpeg``, ``reencode_video_with_diff_fps``, ``_run``,
+``extract_wav_from_video``). The binary may be absent: ``.wav`` inputs and
+the default ``--fps_retarget nearest`` never need it, and the rest fails
+with a clear message instead of mid-pipeline.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 from typing import Optional, Tuple
 
 from video_features_tpu_torch.runtime.faults import DecodeTimeout
@@ -31,6 +34,34 @@ def require_ffmpeg() -> str:
             "requires ffmpeg; pass a .wav file directly instead, or install ffmpeg."
         )
     return path
+
+
+def reencode_video_with_diff_fps(
+    video_path: str,
+    tmp_path: str,
+    extraction_fps: float,
+    timeout_s: Optional[float] = None,
+) -> str:
+    """Re-encode ``video_path`` at ``extraction_fps`` into ``tmp_path``
+    (the reference's ffmpeg ``fps`` filter); returns the new file's path.
+
+    The output name carries a hash of the absolute source path: the
+    reference's bare ``{stem}_new_fps.mp4`` collides when two inputs share
+    a stem (``a/clip.mp4`` and ``b/clip.mp4``), and two decode workers
+    would race ffmpeg's ``-y`` overwrite against each other's decode. The
+    file is written under a name of this process and thread, then renamed
+    atomically, so a concurrent reader of the same source never sees a
+    truncated file. ``timeout_s`` (``--decode_timeout``) bounds ffmpeg."""
+    ffmpeg = require_ffmpeg()
+    os.makedirs(tmp_path, exist_ok=True)
+    tag = hashlib.sha1(os.path.abspath(video_path).encode()).hexdigest()[:10]
+    stem = pathlib.Path(video_path).stem
+    new_path = os.path.join(tmp_path, f"{stem}_{tag}_new_fps_{extraction_fps:g}.mp4")
+    part = new_path + f".part{os.getpid()}-{threading.get_ident()}.mp4"
+    _run([ffmpeg, "-hide_banner", "-loglevel", "error", "-y", "-i", video_path,
+          "-filter:v", f"fps=fps={extraction_fps}", part], timeout_s=timeout_s)
+    os.replace(part, new_path)
+    return new_path
 
 
 def _run(cmd, timeout_s: Optional[float] = None) -> None:

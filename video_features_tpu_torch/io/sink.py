@@ -2,9 +2,12 @@
 
 Counterpart of ``video_features_tpu/io/sink.py``: features are printed
 with max/mean/min stats, or saved as ``<stem>_<key>.npy`` /
-``<stem>_<key>.pkl`` (``<stem>.<ext>`` with ``output_direct``); the meta
-keys ``fps`` and ``timestamps_ms`` are never saved. Same file names as
-the JAX package, so either package's output can ``--resume`` the other's.
+``<stem>_<key>.pkl`` (``<stem>.<ext>`` with ``output_direct``), or, for
+(T, 2, H, W) flow under ``save_jpg``, written as the uint8-quantized
+``<stem>/flow_x_<n>.jpg`` / ``flow_y_<n>.jpg`` pairs that I3D's
+``--flow_type flow`` reads back; the meta keys ``fps`` and
+``timestamps_ms`` are never saved. Same file names as the JAX package, so
+either package's output can ``--resume`` the other's.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from video_features_tpu_torch.ops.preprocess import flow_quantize_uint8_np
 from video_features_tpu_torch.runtime import faults
 
 META_KEYS = ("fps", "timestamps_ms")
@@ -84,7 +88,9 @@ def expected_output_files(
     output_direct: bool = False,
 ) -> List[str]:
     """The files a successful save would write: the ``--resume`` probe.
-    Empty for ``print``, which writes nothing and always recomputes."""
+    Empty for ``print``, which writes nothing, and for ``save_jpg``, whose
+    per-frame directories have no cheap completeness probe: both always
+    recompute."""
     if on_extraction not in _SUFFIX:
         return []
     name = pathlib.Path(video_path).stem
@@ -139,6 +145,26 @@ def action_on_extraction(
                 except OSError:
                     pass
                 raise
+        elif on_extraction == "save_jpg":
+            # flow (T, 2, H, W) float -> per-pair grayscale JPEGs of the
+            # uint8-quantized flow (clamp to ±20, 128 + 255/40 f), named
+            # flow_x_<n>.jpg / flow_y_<n>.jpg so that --flow_type flow
+            # --flow_dir reads them back
+            if value.ndim != 4 or value.shape[1] != 2:
+                raise ValueError(
+                    f"save_jpg needs (T, 2, H, W) flow, got {value.shape} "
+                    f"for key {key!r} (use raft/pwc features)"
+                )
+            from PIL import Image
+
+            quant = flow_quantize_uint8_np(value)
+            vdir = os.path.join(output_path, name)
+            os.makedirs(vdir, exist_ok=True)
+            for f_num in range(quant.shape[0]):
+                for ch, axis in enumerate("xy"):
+                    Image.fromarray(quant[f_num, ch], mode="L").save(
+                        os.path.join(vdir, f"flow_{axis}_{f_num:0>5d}.jpg"), quality=95,
+                    )
         else:
             raise NotImplementedError(f"on_extraction: {on_extraction} is not implemented")
     return warnings

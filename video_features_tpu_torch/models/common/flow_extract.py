@@ -17,8 +17,12 @@ thread (the JAX package's eager prepare, :316-410), up to a byte cap
 over which the video streams at dispatch instead; ``dispatch_prepared``
 enqueues every window and ``fetch_dispatched`` waits for them. With
 ``--video_batch G`` the windows of any videos of one shape run G at a
-time (:460-574). Not ported yet: ``--show_pred`` (refused in
-``config.py``).
+time (:460-574). ``--fps_retarget reencode`` decodes the reference's
+ffmpeg re-encode instead of picking frames of the source
+(``BaseExtractor._fps_source``). ``--show_pred`` (:258-270, :329-333)
+takes the streaming path, where each window's frames are still in hand,
+and hands each pair's flow and first frame to
+``utils/flow_viz.py::show_flow_on_frame``.
 
 ``--preprocess device`` (:78-115, :343-): the windows hold the raw uint8
 frames, zero-padded to their spatial bucket, and the video carries the
@@ -73,6 +77,7 @@ from video_features_tpu_torch.models.common.weights import (
 from video_features_tpu_torch.ops.preprocess import device_resize_frames, pil_resize
 from video_features_tpu_torch.ops.resize import resized_hw, shape_contract_banded
 from video_features_tpu_torch.ops.window import pad_hw, spatial_bucket
+from video_features_tpu_torch.utils import flow_viz
 
 
 class NullPadder:
@@ -183,16 +188,18 @@ class PairwiseFlowExtractor(BaseExtractor):
                    if side is not None else (h, w))
         return self._make_padder(resized), None, None
 
-    def _windows(self, path: str, timestamps_ms: List[float], capped: bool):
-        """Decode ``path`` into padded B+1-frame windows, yielding
-        (window, pairs, (padder, taps)) as each fills and appending each
-        frame's timestamp to ``timestamps_ms``. The tail window repeats its
-        last frame, so every window has one shape; its surplus pairs are
-        cut after the forward. With ``capped``, yield None and stop once
-        the video passes the prefetch cap."""
+    def _windows(self, source, timestamps_ms: List[float], capped: bool):
+        """Decode ``source`` (``_fps_source``'s decode path and selection
+        fps) into padded B+1-frame windows, yielding (window, pairs,
+        (padder, taps)) as each fills and appending each frame's timestamp
+        to ``timestamps_ms``. The tail window repeats its last frame, so
+        every window has one shape; its surplus pairs are cut after the
+        forward. With ``capped``, yield None and stop once the video
+        passes the prefetch cap."""
+        path, sel_fps = source
         batch: List[np.ndarray] = []
         layout = cap = None
-        for count, (frame, ts) in enumerate(stream_frames(path, self.config.extraction_fps), 1):
+        for count, (frame, ts) in enumerate(stream_frames(path, sel_fps), 1):
             if layout is None:
                 layout = self._layout(*frame.shape[:2])
             if layout[2] is None:  # the host chain
@@ -222,16 +229,23 @@ class PairwiseFlowExtractor(BaseExtractor):
 
     def prepare(self, entry):
         """Host half: (padded (B+1, Hp, Wp, 3) windows, their pair counts,
-        padder, taps, fps, timestamps_ms), or ("stream", entry) over the
-        cap; taps are None on the host chain."""
+        padder, taps, fps, timestamps_ms), or ("stream", entry, source)
+        over the cap (the resolved decode source travels, so a re-encode
+        is not run twice), or ("stream", entry) under ``--show_pred``;
+        taps are None on the host chain."""
+        if self.config.show_pred:
+            # the pairs are drawn over their frames: the streaming path
+            # keeps each window's frames in hand
+            return ("stream", entry)
         path = video_path_of(entry)
+        source = self._fps_source(path)
         windows: List[np.ndarray] = []
         n_pairs: List[int] = []
         timestamps_ms: List[float] = []
         padder = taps = None
-        for item in self._windows(path, timestamps_ms, capped=True):
+        for item in self._windows(source, timestamps_ms, capped=True):
             if item is None:
-                return ("stream", entry)
+                return ("stream", entry, source)
             window, n, (padder, taps) = item
             windows.append(window)
             n_pairs.append(n)
@@ -251,16 +265,25 @@ class PairwiseFlowExtractor(BaseExtractor):
             flow = padder.unpad(model(x))
             return HostCopy(flow[:n_pairs].permute(0, 3, 1, 2))
 
-    def _stream(self, model: torch.nn.Module, entry) -> Dict[str, np.ndarray]:
-        """A video over the prefetch cap: decode interleaved with its
-        windows' forwards, so it is never held whole."""
+    def _stream(self, model: torch.nn.Module, entry, source=None) -> Dict[str, np.ndarray]:
+        """A video over the prefetch cap, or under ``--show_pred``: decode
+        interleaved with its windows' forwards, so it is never held whole.
+        ``source`` is prepare's resolved decode source, if it made one.
+        Under ``--show_pred`` each window is fetched at once and every
+        pair's flow drawn over the pair's first frame (the host chain's:
+        ``sanity_check`` refuses the flag with ``--preprocess device``)."""
         path = video_path_of(entry)
+        source = source or self._fps_source(path)
         timestamps_ms: List[float] = []
         device = device_of(model)
         flows = []
-        for w, n, (padder, taps) in self._windows(path, timestamps_ms, capped=False):
+        for w, n, (padder, taps) in self._windows(source, timestamps_ms, capped=False):
             taps = self._device_taps(taps, device) if taps is not None else None
             flows.append(self._dispatch_window(model, w, n, padder, taps, device))
+            if self.config.show_pred:
+                flow, frames = flows[-1].numpy().transpose(0, 2, 3, 1), padder.unpad(w)
+                for i in range(n):
+                    flow_viz.show_flow_on_frame(flow[i], frames[i])
         return self._flow_dict([f.numpy() for f in flows], self._fps(path), timestamps_ms)
 
     def _flow_dict(self, flows: List[np.ndarray], fps, timestamps_ms) -> Dict[str, np.ndarray]:
@@ -272,8 +295,8 @@ class PairwiseFlowExtractor(BaseExtractor):
         }
 
     def dispatch_prepared(self, model: torch.nn.Module, payload):
-        if isinstance(payload[0], str):  # ("stream", entry): over the cap
-            return ("done", self._stream(model, payload[1]))
+        if isinstance(payload[0], str):  # ("stream", entry[, source])
+            return ("done", self._stream(model, *payload[1:]))
         windows, n_pairs, padder, taps, fps, timestamps_ms = payload
         device = device_of(model)
         if taps is not None:

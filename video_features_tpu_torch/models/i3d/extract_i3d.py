@@ -1,6 +1,6 @@
 """I3D two-stream extractor: RGB and optical-flow Kinetics features over
 sliding stacks of frames, with flow computed on the fly by PWC-Net or
-RAFT (``--flow_type``).
+RAFT, or read from disk as flow JPEGs (``--flow_type``).
 
 Counterpart of the serial, single-device path of
 ``video_features_tpu/models/i3d/extract_i3d.py``. Per video: frames are
@@ -28,8 +28,21 @@ file is an error unless ``--allow_random_init``. Output: ``{rgb: (S,
 1024), flow: (S, 1024), fps, timestamps_ms}``, saved as
 ``<stem>_rgb.npy`` and ``<stem>_flow.npy``. With ``--video_batch N`` the
 stacks of N same-resolution clips fill the ``--batch_size`` stack groups.
-Flow read from disk and ``--show_pred`` are not ported yet (``config.py``
-refuses them).
+``--show_pred`` prints each stack's top-5 Kinetics-400 classes per
+stream, as the JAX package does (``:1026-1030``); such a video is not
+fused with others, so the lines stay per video.
+
+``--flow_type flow`` (:633-703, :751-781): a path entry is a (video,
+flow dir) pair (``io/paths.py``), the dir holding ``flow_x_<n>.jpg`` /
+``flow_y_<n>.jpg`` of the uint8-quantized flow (``save_jpg``'s files,
+paired by numeric suffix). Each pair is decoded once, in fp32 whatever
+``--dtype`` (the JAX package's declared fp32 island), and the flow
+stream runs ``disk_flow_chain``: crop 224 and [-1, 1], with no second
+quantization (the divergence from the reference PARITY.md documents).
+The frames and the flow pairs are zipped: the windows are ``stack_size``
+frames over the shorter of the two, the rgb stream takes the first
+``stack_size - 1`` of each window (the JAX package's ``[:, :-1]``), and
+no flow model runs. Such payloads are not fused, as in the JAX package.
 
 ``--preprocess device``: ``prepare`` keeps the sampled frames raw (uint8
 at the source resolution), and the stacks, zero-padded to their spatial
@@ -53,8 +66,10 @@ from __future__ import annotations
 
 import functools
 import os
+import pathlib
 from typing import Dict, List
 
+import cv2
 import numpy as np
 import torch
 
@@ -68,6 +83,7 @@ from video_features_tpu_torch.io.video import (
     probe,
     read_frames_at_indices,
 )
+from video_features_tpu_torch.models.common.layers import explicit_conv3d_impl, set_conv3d_impl
 from video_features_tpu_torch.models.common.weights import (
     cast_for_compute,
     compute_dtype,
@@ -101,6 +117,7 @@ from video_features_tpu_torch.ops.resize import (
     shape_contract_banded,
 )
 from video_features_tpu_torch.ops.window import flow_output_bucket, pad_hw, spatial_bucket
+from video_features_tpu_torch.utils.labels import show_predictions_on_dataset
 
 MIN_SIDE_SIZE = 256
 CENTRAL_CROP_SIZE = 224
@@ -181,6 +198,15 @@ def flow_chain(flow: torch.Tensor, crop=None) -> torch.Tensor:
     return scale_to_1_1(flow_to_uint8(cropped))
 
 
+def disk_flow_chain(flow_imgs: torch.Tensor) -> torch.Tensor:
+    """Flow JPEGs -> I3D-flow input: crop 224 and [-1, 1]. The JPEGs hold
+    the uint8-QUANTIZED flow already (``save_jpg``'s 128 + 255/40 f map),
+    so only the scaling remains; the reference's second clamp and
+    quantization of the 0..255 pixels is the divergence PARITY.md
+    documents."""
+    return scale_to_1_1(center_crop(flow_imgs))
+
+
 class ExtractI3D(BaseExtractor):
     def __init__(self, config, external_call: bool = False) -> None:
         super().__init__(config, external_call)
@@ -189,6 +215,8 @@ class ExtractI3D(BaseExtractor):
         self.step_size = int(self.config.step_size or DEFAULT_STEP_SIZE)
         self.stack_batch = max(int(self.config.batch_size or 1), 1)
         self.flow_type = self.config.flow_type
+        # --conv3d_impl for THIS extractor's I3D models (None: auto)
+        self.conv_impl = explicit_conv3d_impl(self.config)
 
     def feature_keys(self) -> List[str]:
         return list(self.streams)  # <stem>_rgb.npy / <stem>_flow.npy
@@ -224,10 +252,12 @@ class ExtractI3D(BaseExtractor):
             init(model)
         else:
             load_checked(model, convert(load_state_dict(path)), f"i3d[{kind}]")
-        return model
+        return set_conv3d_impl(model, self.conv_impl)
 
     def _build(self, device: torch.device) -> Dict[str, torch.nn.Module]:
-        kinds = self.streams + ([self.flow_type] if "flow" in self.streams else [])
+        # the flow net, unless the flow is read from disk
+        kinds = self.streams + ([self.flow_type] if "flow" in self.streams
+                                and self.flow_type != "flow" else [])
         dt = compute_dtype(self.config)
         return {kind: cast_for_compute(self._model(kind).to(device).eval(), dt,
                                        exclude=FP32_PARAMS[kind])
@@ -280,12 +310,78 @@ class ExtractI3D(BaseExtractor):
             return frames, fps, timestamps_ms
         return [pil_resize(f, MIN_SIDE_SIZE).astype(np.float32) for f in frames], fps, timestamps_ms
 
+    def _load_flow_pairs(self, flow_dir: str):
+        """The dir's flow_x_*/flow_y_* JPEG pairs in numeric suffix order;
+        the x and y suffixes must match pair by pair, so one missing file
+        fails loudly instead of shifting every later pair."""
+        def key(p):
+            sfx = p.stem[7:]
+            return (0, int(sfx)) if sfx.isdigit() else (1, sfx)
+
+        xs = sorted(pathlib.Path(flow_dir).glob("flow_x*.jpg"), key=key)
+        ys = sorted(pathlib.Path(flow_dir).glob("flow_y*.jpg"), key=key)
+        if len(xs) != len(ys):
+            raise ValueError(f"{flow_dir}: {len(xs)} flow_x vs {len(ys)} flow_y images")
+        for x, y in zip(xs, ys):
+            if x.stem[7:] != y.stem[7:]:
+                raise ValueError(f"flow pair mismatch: {x.name} vs {y.name}")
+        return list(zip(xs, ys))
+
+    def _read_flow_images(self, flow_dir: str, pairs=None) -> np.ndarray:
+        """Every flow JPEG pair decoded ONCE -> (N, H, W, 2) float32 (the
+        windows overlap when step < stack; decoding per window would read
+        the files again). fp32 whatever ``--dtype``: the pixels are the
+        flow's uint8 levels, which the I3D-flow model's input cast takes
+        as they are. ``pairs`` reuses a ``_load_flow_pairs`` scan."""
+        if pairs is None:
+            pairs = self._load_flow_pairs(flow_dir)
+        if not pairs:
+            return np.zeros((0, 1, 1, 2), np.float32)
+        imgs = np.stack([
+            np.stack([cv2.imread(str(fx), cv2.IMREAD_GRAYSCALE),
+                      cv2.imread(str(fy), cv2.IMREAD_GRAYSCALE)], axis=-1)
+            for fx, fy in pairs
+        ]).astype(np.float32)
+        if min(imgs.shape[1:3]) < CENTRAL_CROP_SIZE:
+            raise ValueError(f"flow images {imgs.shape[1:3]} are smaller than the "
+                             f"{CENTRAL_CROP_SIZE}px center crop")
+        return imgs
+
+    def _flow_prefetch_cost(self, pairs) -> int:
+        """The disk flow's resident cost in resized-frame units: the JPEGs
+        stay at their own resolution until the device crop, so a 1080p
+        flow dir can dwarf the frames the cap was sized for. PIL reads
+        the first image's header for the size."""
+        if not pairs:
+            return 0
+        from PIL import Image
+
+        try:
+            with Image.open(pairs[0][0]) as im:
+                w, h = im.size
+        except OSError:  # unreadable: _read_flow_images raises later
+            return 0
+        return len(pairs) * (h * w * 2 * 4) // self._FRAME_BYTES
+
+    def _flow_dir(self, entry):
+        """The entry's flow dir under ``--flow_type flow``, else None."""
+        if self.flow_type != "flow":
+            return None
+        if not isinstance(entry, (tuple, list)) or len(entry) != 2:
+            raise ValueError(
+                "--flow_type flow needs (video, flow_dir) pairs; provide "
+                "--flow_paths / --flow_dir alongside the videos"
+            )
+        return entry[1]
+
     def prepare(self, entry):
-        """Host half: (min-side-256 float32 frames, fps, timestamps_ms),
-        raw frames under ``--preprocess device``, or ("deferred", entry)
-        over the prefetch cap (counted in resized float32 frames; raw
-        frames are restated in those units from the source resolution)."""
+        """Host half: (min-side-256 float32 frames, fps, timestamps_ms,
+        flow images or None, video path), raw frames under ``--preprocess
+        device``, or ("deferred", entry) over the prefetch cap (counted in
+        resized float32 frames; raw frames are restated in those units
+        from the source resolution, and disk flow adds its images)."""
         path = video_path_of(entry)
+        flow_dir = self._flow_dir(entry)
         grid = self._sample_grid(path)
         cap = self._prefetch_frame_cap(self.PIPELINE_MAX_BYTES, self._FRAME_BYTES,
                                        floor=DEFAULT_STACK_SIZE + 1)
@@ -293,9 +389,14 @@ class ExtractI3D(BaseExtractor):
         if self._device_preprocess_enabled():
             h, w = frame_size(path)
             cost = max(cost * h * w * 3 // self._FRAME_BYTES, 1)
+        pairs = self._load_flow_pairs(flow_dir) if flow_dir is not None else None
+        cost += self._flow_prefetch_cost(pairs)
         if cost > cap:
+            # frames AND disk flow wait for the dispatch, one such video
+            # resident at a time
             return ("deferred", entry)
-        return self._decode(path, grid)
+        flow_imgs = self._read_flow_images(flow_dir, pairs) if flow_dir is not None else None
+        return (*self._decode(path, grid), flow_imgs, path)
 
     # --- device --------------------------------------------------------------
     def flow(self, models: Dict[str, torch.nn.Module], stacks: torch.Tensor) -> torch.Tensor:
@@ -305,17 +406,24 @@ class ExtractI3D(BaseExtractor):
             stacks = InputPadder(stacks.shape[-3:-1]).pad_tensor(stacks)
         return models[self.flow_type](stacks)
 
-    def _stacks(self, frames) -> List[tuple]:
-        """The video's ``stack_size + 1``-frame stacks, as (frames, start,
-        end), stacked only when their group is placed."""
-        return [(frames, s, e)
-                for s, e in form_slices(len(frames), self.stack_size + 1, self.step_size)]
+    def _stacks(self, frames, flow_imgs=None) -> List[tuple]:
+        """The video's stacks, as (frames, flow images, start, end),
+        stacked only when their group is placed: ``stack_size + 1`` frames
+        (``stack_size`` pairs for the flow net); with disk flow
+        ``stack_size`` frames and flow images over the shorter of the two,
+        as the reference zips them."""
+        window, extent = self.stack_size + 1, len(frames)
+        if flow_imgs is not None:
+            window, extent = self.stack_size, min(len(frames), len(flow_imgs))
+        return [(frames, flow_imgs, s, e)
+                for s, e in form_slices(extent, window, self.step_size)]
 
     def _dispatch_stacks(self, models: Dict[str, torch.nn.Module],
-                         stacks) -> List[Dict[str, HostCopy]]:
+                         stacks) -> List[Dict[str, tuple]]:
         """Enqueue the stacks ``--batch_size`` at a time, the last group
         zero-padded to that size (so a fused group runs at the solo path's
-        shapes), each stream's features on their way to the host."""
+        shapes), each stream's (features, logits under ``--show_pred``) on
+        their way to the host."""
         device = device_of(models)
         geom = None
         if self._device_preprocess_enabled() and stacks:
@@ -327,29 +435,39 @@ class ExtractI3D(BaseExtractor):
         with torch.inference_mode():
             for g0 in range(0, len(stacks), self.stack_batch):
                 chunk = stacks[g0 : g0 + self.stack_batch]
-                x = stack_group([np.stack(f[s:e]) for f, s, e in chunk], pad_to=self.stack_batch)
+                x = stack_group([np.stack(f[s:e]) for f, _, s, e in chunk],
+                                pad_to=self.stack_batch)
                 if geom is not None:  # raw uint8 onto the spatial bucket
                     x = pad_hw(x, *geom["bucket"])
-                x = place_batch(x, device)  # (B, S+1, H, W, 3)
+                x = place_batch(x, device)  # (B, S+1, H, W, 3); S with disk flow
+                fl = None
+                if chunk[0][1] is not None:  # disk flow: (B, S, H', W', 2)
+                    fl = place_batch(stack_group([fi[s:e] for _, fi, s, e in chunk],
+                                                 pad_to=self.stack_batch), device)
                 feats = {}
                 for stream in self.streams:
                     if stream == "rgb" and geom is None:
-                        f, _ = models["rgb"](rgb_chain(x[:, :-1]))
+                        f, logits = models["rgb"](rgb_chain(x[:, :-1]))
                     elif stream == "rgb":
-                        f, _ = models["rgb"](scale_to_1_1(
+                        f, logits = models["rgb"](scale_to_1_1(
                             device_resize_frames(x[:, :-1], *taps["rgb"])))
+                    elif fl is not None:
+                        f, logits = models["flow"](disk_flow_chain(fl))
                     elif geom is None:
-                        f, _ = models["flow"](flow_chain(self.flow(models, x)))
+                        f, logits = models["flow"](flow_chain(self.flow(models, x)))
                     else:  # the taps put the frames on the flow net's grid
                         flow = models[self.flow_type](device_resize_frames(x, *taps["flow"]))
-                        f, _ = models["flow"](flow_chain(flow, geom["crop"]))
-                    feats[stream] = HostCopy(f[: len(chunk)])
+                        f, logits = models["flow"](flow_chain(flow, geom["crop"]))
+                    # the 400-class logits cross only for --show_pred
+                    feats[stream] = (HostCopy(f[: len(chunk)]),
+                                     HostCopy(logits[: len(chunk)]) if self.config.show_pred
+                                     else None)
                 outs.append(feats)
         return outs
 
     def _fetch_stacks(self, outs) -> Dict[str, np.ndarray]:
         return {
-            s: (np.concatenate([o[s].numpy() for o in outs]).astype(np.float32) if outs
+            s: (np.concatenate([o[s][0].numpy() for o in outs]).astype(np.float32) if outs
                 else np.zeros((0, I3D_FEATURE_DIM), np.float32))
             for s in self.streams
         }
@@ -357,13 +475,28 @@ class ExtractI3D(BaseExtractor):
     # the split of the device half (extract/base.py)
     def dispatch_prepared(self, models: Dict[str, torch.nn.Module], payload):
         if isinstance(payload[0], str):  # ("deferred", entry): decode now
-            payload = self._decode(video_path_of(payload[1]))
-        frames, fps, timestamps_ms = payload
-        return self._dispatch_stacks(models, self._stacks(frames)), fps, timestamps_ms
+            entry = payload[1]
+            flow_dir = self._flow_dir(entry)
+            payload = (*self._decode(video_path_of(entry)),
+                       self._read_flow_images(flow_dir) if flow_dir is not None else None,
+                       video_path_of(entry))
+        frames, fps, timestamps_ms, flow_imgs, path = payload
+        outs = self._dispatch_stacks(models, self._stacks(frames, flow_imgs))
+        return outs, fps, timestamps_ms, path
 
     def fetch_dispatched(self, handle) -> Dict[str, np.ndarray]:
-        outs, fps, timestamps_ms = handle
+        outs, fps, timestamps_ms, path = handle
         out = self._fetch_stacks(outs)
+        # --show_pred: each stack's top-5 per stream, group by group, as
+        # the JAX package prints them
+        for g, group in enumerate(outs):
+            for stream in self.streams:
+                logits = group[stream][1]
+                if logits is None:
+                    continue
+                for j, row in enumerate(logits.numpy()):
+                    print(f"{path} @ stack {g * self.stack_batch + j} ({stream} stream)")
+                    show_predictions_on_dataset(row, "kinetics")
         out["fps"] = np.array(fps)
         out["timestamps_ms"] = np.array(timestamps_ms)
         return out
@@ -378,7 +511,9 @@ class ExtractI3D(BaseExtractor):
     AGG_MAX_FRAMES = 256
 
     def agg_key(self, payload):
-        if isinstance(payload[0], str) or self.config.show_pred:
+        # deferred videos, disk flow (zipped frame and flow-image payloads,
+        # as in the JAX package) and --show_pred (per-video prints) stay solo
+        if isinstance(payload[0], str) or payload[3] is not None or self.config.show_pred:
             return None
         frames = payload[0]
         if len(frames) > self.AGG_MAX_FRAMES or len(frames) < self.stack_size + 1:
@@ -389,9 +524,9 @@ class ExtractI3D(BaseExtractor):
                 self.flow_type)
 
     def dispatch_group(self, models: Dict[str, torch.nn.Module], payloads):
-        stacks = [self._stacks(frames) for frames, _, _ in payloads]
+        stacks = [self._stacks(p[0]) for p in payloads]
         outs = self._dispatch_stacks(models, [st for per_video in stacks for st in per_video])
-        return outs, [len(st) for st in stacks], [(fps, ts) for _, fps, ts in payloads]
+        return outs, [len(st) for st in stacks], [(p[1], p[2]) for p in payloads]
 
     def fetch_group(self, handle):
         outs, counts, metas = handle

@@ -20,6 +20,10 @@ the convolutions, max pools and branch concatenations in bf16, each
 BatchNorm's fold in fp32 (``models/common/layers.py``); the average pool,
 the time mean and the logits head in fp32 (torch has no bf16
 ``avg_pool3d`` on the CPU, and the features are the contract).
+
+Every convolution is a ``Conv3dCompat`` (``models/common/layers.py``):
+``nn.Conv3d``'s parameters, with the extractor's ``--conv3d_impl``
+lowering (``set_conv3d_impl``).
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from video_features_tpu_torch.models.common.layers import BatchNorm3d
+from video_features_tpu_torch.models.common.layers import BatchNorm3d, Conv3dCompat
 
 I3D_FEATURE_DIM = 1024
 I3D_NUM_CLASSES = 400
@@ -69,13 +73,13 @@ class MaxPoolTF(nn.Module):
 
 
 class Unit3D(nn.Module):
-    """Conv3d (TF SAME padding) + eval BatchNorm + ReLU."""
+    """Conv3d (TF SAME padding, ``Conv3dCompat``) + eval BatchNorm + ReLU."""
 
     def __init__(self, cin: int, cout: int, kernel=(1, 1, 1), stride=(1, 1, 1),
                  use_bn: bool = True, use_bias: bool = False, activation: bool = True) -> None:
         super().__init__()
         self.pads = _f_pad(kernel, stride)
-        self.conv3d = nn.Conv3d(cin, cout, kernel, stride, bias=use_bias)
+        self.conv3d = Conv3dCompat(cin, cout, kernel, stride, bias=use_bias)
         self.batch3d = BatchNorm3d(cout, eps=1e-5) if use_bn else None
         self.activation = activation
 

@@ -12,7 +12,11 @@ there: /255, bilinear resize to 128x171 (``align_corners=False``, no
 antialias), Kinetics normalisation, center crop 112 at rounded offsets.
 ``--show_pred`` prints each stack's top-5 Kinetics-400 classes. With
 ``--video_batch N`` the stacks of N same-resolution videos re-chunk into
-``N * batch_size``-stack forwards.
+``N * batch_size``-stack forwards. ``--uint8_transfer off`` casts the
+stacks to fp32 on the host before the H2D copy (4x the bytes; the
+features are the same, as ``kinetics_preprocess`` starts with that cast);
+``--conv3d_impl`` picks the 3D convolutions' lowering
+(``models/common/layers.py::Conv3dCompat``).
 
 ``--dtype bfloat16``: the network's bf16 graph (``models/r21d/
 model.py``), its weights cast after loading with ``fc`` kept fp32;
@@ -39,6 +43,7 @@ from video_features_tpu_torch.io.video import (
     probe,
     stream_frames,
 )
+from video_features_tpu_torch.models.common.layers import explicit_conv3d_impl, set_conv3d_impl
 from video_features_tpu_torch.models.common.weights import (
     cast_for_compute,
     compute_dtype,
@@ -84,6 +89,8 @@ class ExtractR21D(BaseExtractor):
         self.stack_size = int(self.config.stack_size or DEFAULT_STACK_SIZE)
         self.step_size = int(self.config.step_size or DEFAULT_STEP_SIZE)
         self.batch_size = max(int(self.config.batch_size or 1), 1)
+        # --conv3d_impl for THIS extractor's model (None: auto)
+        self.conv_impl = explicit_conv3d_impl(self.config)
 
     def _build(self, device: torch.device) -> R2Plus1D:
         model = R2Plus1D()
@@ -94,6 +101,7 @@ class ExtractR21D(BaseExtractor):
             random_init_fallback(self.config, self.feature_type,
                                  "a torchvision r2plus1d_18 (Kinetics-400) state dict (.pt/.pth)")
             init_weights(model)
+        set_conv3d_impl(model, self.conv_impl)
         return cast_for_compute(model.to(device).eval(), compute_dtype(self.config),
                                 exclude=FP32_PARAMS)
 
@@ -118,8 +126,17 @@ class ExtractR21D(BaseExtractor):
         """(B, T, H, W, 3) uint8 stacks on the device -> (features, logits)."""
         return model(kinetics_preprocess(stacks).permute(0, 4, 1, 2, 3))
 
+    def _maybe_widen(self, stacks: np.ndarray) -> np.ndarray:
+        """``--uint8_transfer off``: the stacks cast to fp32 on the host, for
+        a transport whose uint8 copies are slow; ``kinetics_preprocess``
+        starts with the same cast, so the features are identical."""
+        if self.config.uint8_transfer == "off":
+            return stacks.astype(np.float32)
+        return stacks
+
     # --- the device half, split (extract/base.py): every stack group's
-    # H2D (uint8), preprocess, forward and D2H enqueued at dispatch
+    # H2D (uint8, or fp32 under --uint8_transfer off), preprocess, forward
+    # and D2H enqueued at dispatch
     def dispatch_prepared(self, model: R2Plus1D, payload):
         clip, slices, fps, timestamps_ms, path = payload
         device = device_of(model)
@@ -128,7 +145,7 @@ class ExtractR21D(BaseExtractor):
             for g0 in range(0, len(slices), self.batch_size):
                 chunk = slices[g0 : g0 + self.batch_size]
                 stacks = stack_group([clip[s:e] for s, e in chunk], pad_to=self.batch_size)
-                f, logits = self._features(model, place_batch(stacks, device))
+                f, logits = self._features(model, place_batch(self._maybe_widen(stacks), device))
                 # the 400-class logits cross only for --show_pred
                 outs.append((chunk, HostCopy(f[: len(chunk)]),
                              HostCopy(logits[: len(chunk)]) if self.config.show_pred else None))
@@ -154,23 +171,27 @@ class ExtractR21D(BaseExtractor):
     # same-resolution videos re-chunk into (N * batch_size)-stack forwards.
     # A short video gives 1-4 16-frame stacks, too few to fill the card
     # alone. The key carries (H, W), so only same-resolution videos fuse.
-    # The cap is in transfer BYTES (uint8 stacks at the source resolution,
-    # before the device resize): a stack count that is harmless at 240p is
-    # gigabytes at 1080p, and N - 1 payloads wait on the host while a
-    # group fills. Over-cap videos and --show_pred take the solo path.
+    # The cap is in transfer BYTES (stacks at the source resolution, before
+    # the device resize; 4 a pixel channel under --uint8_transfer off): a
+    # stack count that is harmless at 240p is gigabytes at 1080p, and
+    # N - 1 payloads wait on the host while a group fills. Over-cap videos
+    # and --show_pred take the solo path.
     AGG_MAX_BYTES = 256 << 20
 
     def agg_key(self, payload):
         clip, slices = payload[0], payload[1]
         if self.config.show_pred or not slices:
             return None
-        if len(slices) * self.stack_size * int(np.prod(clip.shape[1:])) > self.AGG_MAX_BYTES:
+        elem = 4 if self.config.uint8_transfer == "off" else 1
+        if (len(slices) * self.stack_size * int(np.prod(clip.shape[1:])) * elem
+                > self.AGG_MAX_BYTES):
             return None
         return (self.stack_size,) + clip.shape[1:]  # (stack, H, W, 3)
 
     def dispatch_group(self, model: R2Plus1D, payloads):
         group = max(int(self.config.video_batch or 1), 1)
-        rows = [np.stack([clip[s:e] for s, e in slices]) for clip, slices, *_ in payloads]
+        rows = [self._maybe_widen(np.stack([clip[s:e] for s, e in slices]))
+                for clip, slices, *_ in payloads]
         outs = self._dispatch_rows_grouped(rows, self.batch_size * group, device_of(model),
                                            lambda x: self._features(model, x)[0])
         return outs, [len(p[1]) for p in payloads], [(p[2], p[3]) for p in payloads]

@@ -18,6 +18,10 @@ run in fp32.
 the convolutions and the residual stream in bf16 from the first conv on,
 each BatchNorm's fold in fp32 (``models/common/layers.py``), the pool and
 ``fc`` in fp32.
+
+Every convolution is a ``Conv3dCompat`` (``models/common/layers.py``):
+``nn.Conv3d``'s parameters, with the extractor's ``--conv3d_impl``
+lowering (``set_conv3d_impl``).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from video_features_tpu_torch.models.common.layers import BatchNorm3d
+from video_features_tpu_torch.models.common.layers import BatchNorm3d, Conv3dCompat
 
 R21D_FEATURE_DIM = 512
 # the parameters a bf16 network keeps fp32: the classifier head
@@ -46,11 +50,11 @@ class Conv2Plus1D(nn.Sequential):
 
     def __init__(self, cin: int, cout: int, mid: int, stride: int = 1) -> None:
         super().__init__(
-            nn.Conv3d(cin, mid, (1, 3, 3), stride=(1, stride, stride), padding=(0, 1, 1),
+            Conv3dCompat(cin, mid, (1, 3, 3), stride=(1, stride, stride), padding=(0, 1, 1),
                       bias=False),
             BatchNorm3d(mid),
             nn.ReLU(),
-            nn.Conv3d(mid, cout, (3, 1, 1), stride=(stride, 1, 1), padding=(1, 0, 0),
+            Conv3dCompat(mid, cout, (3, 1, 1), stride=(stride, 1, 1), padding=(1, 0, 0),
                       bias=False),
         )
 
@@ -65,7 +69,7 @@ class BasicBlock(nn.Module):
         self.conv2 = nn.Sequential(Conv2Plus1D(planes, planes, mid), BatchNorm3d(planes))
         self.downsample = None
         if stride != 1 or cin != planes:
-            self.downsample = nn.Sequential(nn.Conv3d(cin, planes, 1, stride=stride, bias=False),
+            self.downsample = nn.Sequential(Conv3dCompat(cin, planes, 1, stride=stride, bias=False),
                                             BatchNorm3d(planes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -80,10 +84,10 @@ class R2Plus1D(nn.Module):
     def __init__(self, layers: Sequence[int] = (2, 2, 2, 2), num_classes: int = 400) -> None:
         super().__init__()
         self.stem = nn.Sequential(
-            nn.Conv3d(3, 45, (1, 7, 7), stride=(1, 2, 2), padding=(0, 3, 3), bias=False),
+            Conv3dCompat(3, 45, (1, 7, 7), stride=(1, 2, 2), padding=(0, 3, 3), bias=False),
             BatchNorm3d(45),
             nn.ReLU(),
-            nn.Conv3d(45, 64, (3, 1, 1), padding=(1, 0, 0), bias=False),
+            Conv3dCompat(45, 64, (3, 1, 1), padding=(1, 0, 0), bias=False),
             BatchNorm3d(64),
             nn.ReLU(),
         )

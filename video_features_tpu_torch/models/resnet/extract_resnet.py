@@ -8,7 +8,9 @@ byte-identical to the JAX package), and ``--batch_size`` frames go
 through the device at a time, the tail batch zero-padded to that size and
 its surplus rows cut. ``--show_pred`` prints each frame's top-5 ImageNet
 classes. With ``--video_batch N`` the frames of N videos re-chunk into
-``N * batch_size``-row forwards.
+``N * batch_size``-row forwards. ``--fps_retarget reencode`` decodes the
+reference's ffmpeg re-encode instead of picking frames of the source
+(``BaseExtractor._fps_source``).
 
 ``--preprocess device``: the batches hold the raw uint8 frames padded to
 their spatial bucket, with the bilinear resize + crop taps of their
@@ -115,8 +117,10 @@ class ExtractResNet(BaseExtractor):
         """Host half: (batches, their valid row counts, fps, timestamps_ms,
         taps), with taps None on the host chain and the video's
         ((wt_y, idx_y), (wt_x, idx_x)) under ``--preprocess device``; or
-        ("stream", entry) over the prefetch cap."""
+        ("stream", entry, source) over the prefetch cap (the resolved
+        decode source travels, so a re-encode is not run twice)."""
         path = video_path_of(entry)
+        source = self._fps_source(path)
         device_pre = self._device_preprocess_enabled()
         frames: List[np.ndarray] = []
         batches: List[np.ndarray] = []
@@ -124,13 +128,13 @@ class ExtractResNet(BaseExtractor):
         timestamps_ms: List[float] = []
         geom = None
         cap = self._prefetch_frame_cap(self.PIPELINE_MAX_BYTES, self._FRAME_BYTES, floor=64)
-        for frame, ts in stream_frames(path, self.config.extraction_fps):
+        for frame, ts in stream_frames(*source):
             if device_pre and geom is None:
                 geom = self._device_geometry(*frame.shape[:2])
                 cap = self._prefetch_frame_cap(self.PIPELINE_MAX_BYTES,
                                                geom[0] * geom[1] * 3, floor=64)
             if len(timestamps_ms) == cap:
-                return ("stream", entry)
+                return ("stream", entry, source)
             frames.append(frame)
             timestamps_ms.append(ts)
             if len(frames) == self.batch_size:
@@ -159,10 +163,10 @@ class ExtractResNet(BaseExtractor):
         # the 1000-class logits cross only for --show_pred
         return HostCopy(f[:n]), HostCopy(logits[:n]) if self.config.show_pred else None
 
-    def _stream(self, model: ResNet, entry) -> Dict[str, np.ndarray]:
-        """A video over the prefetch cap: decode and preprocess one batch
-        at a time, interleaved with its forwards, so host memory holds one
-        batch."""
+    def _stream(self, model: ResNet, entry, source) -> Dict[str, np.ndarray]:
+        """A video over the prefetch cap: decode (``source``, prepare's
+        decode path and selection fps) and preprocess one batch at a time,
+        interleaved with its forwards, so host memory holds one batch."""
         path = video_path_of(entry)
         device = device_of(model)
         device_pre = self._device_preprocess_enabled()
@@ -173,7 +177,7 @@ class ExtractResNet(BaseExtractor):
             outs.append(self._dispatch_batch(model, self._batch(frames, geom), len(frames), taps))
 
         with torch.inference_mode():
-            for frame, ts in stream_frames(path, self.config.extraction_fps):
+            for frame, ts in stream_frames(*source):
                 if device_pre and geom is None:
                     geom = self._device_geometry(*frame.shape[:2])
                     taps = self._device_taps((geom[2], geom[3]), device)
@@ -205,8 +209,8 @@ class ExtractResNet(BaseExtractor):
     # video decodes as it computes, so it completes at dispatch and fetch
     # passes its dict through.
     def dispatch_prepared(self, model: ResNet, payload):
-        if isinstance(payload[0], str):  # ("stream", entry): over the cap
-            return ("done", self._stream(model, payload[1]))
+        if isinstance(payload[0], str):  # ("stream", entry, source): over the cap
+            return ("done", self._stream(model, *payload[1:]))
         batches, counts, fps, timestamps_ms, taps = payload
         if taps is not None:
             taps = self._device_taps(taps, device_of(model))

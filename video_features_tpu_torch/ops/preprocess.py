@@ -106,6 +106,15 @@ def flow_to_uint8(flow: torch.Tensor, bound: float = 20.0) -> torch.Tensor:
     return torch.round(128.0 + 255.0 / (2 * bound) * flow.clamp(-bound, bound))
 
 
+def flow_quantize_uint8_np(flow: np.ndarray, bound: float = 20.0) -> np.ndarray:
+    """The ``save_jpg`` sink's storage form of :func:`flow_to_uint8`, in
+    numpy: the same map, then clipped to 0..255 BEFORE the uint8 cast — at
+    exactly +bound the map gives 256.0, which a bare ``astype(uint8)``
+    would wrap to 0 (max-positive flow read back as max-negative)."""
+    q = np.round(128.0 + 255.0 / (2 * bound) * np.clip(flow, -bound, bound))
+    return np.clip(q, 0.0, 255.0).astype(np.uint8)
+
+
 # --- device half of --preprocess device -------------------------------------
 
 def _banded_resample(x: torch.Tensor, wt: torch.Tensor, idx: torch.Tensor,

@@ -26,11 +26,22 @@ the CPU). Groups dispatch from the dispatcher thread, or from the
 watchdog's worker with ``--group_timeout_s > 0``: the extractors place
 their tensors on that explicit device, and the kernel wrappers launch on
 the current stream of the tensor's device, so no thread depends on
-another's current-device state. A sticky device error inside a group
-(``runtime/faults.py::is_sticky``) stops the extractor's loop
-(``extract/base.py::_stop_on_sticky``); the daemon fails every member
-with a terminal record, counts one breaker failure, and never retries
-the group.
+another's current-device state.
+
+A sticky device error (``runtime/faults.py::is_sticky``: a CUDA error
+other than an allocation failure) poisons the whole process: every later
+launch of every resident model fails the same way, and a breaker's
+half-open probe rebuilds into the same context. So when a group ends at
+one (the extractor's loop stopped, ``extract/base.py::_stop_on_sticky``,
+or the group raised it) the daemon fails that group's members, then
+stops taking work for every model (``_stop_on_sticky``): ``submit``
+refuses with :class:`DaemonStopped` (HTTP 503), ``/healthz`` answers 503
+naming the error, the spool watcher stops claiming and this replica's
+registry heartbeat stops, so fleet peers reclaim its leases; groups
+still queued leave as the shutdown contract says (spool requests back to
+the spool, the rest ``failed`` interrupted). ``serve_main`` then shuts
+down without draining and returns 1, for a supervisor to restart the
+process. This is the port's own: the JAX daemon has no sticky errors.
 
 ``serve warmup`` (or ``--warmup`` with traffic) loads each declared
 model and drives a synthetic clip of each declared resolution through
@@ -82,6 +93,7 @@ from video_features_tpu_torch.serve.lifecycle import (
 from video_features_tpu_torch.serve.scheduler import build_scheduler
 from video_features_tpu_torch.serve.supervisor import (
     CircuitBreaker,
+    DaemonStopped,
     GroupTimeout,
     ModelUnavailable,
     Watchdog,
@@ -171,7 +183,10 @@ class ExtractorPool:
         cfg = self._cfg.replace(
             feature_type=feature_type,
             video_paths=[],
+            flow_paths=None,
             file_with_video_paths=None,
+            video_dir=None,
+            flow_dir=None,
             on_extraction=(
                 self._cfg.on_extraction
                 if self._cfg.on_extraction in ("save_numpy", "save_pickle")
@@ -369,6 +384,10 @@ class ServeDaemon:
         self._sweep_stop = threading.Event()
         self._lock = threading.Lock()
         self._started = False
+        # a sticky device error's message once it stopped the daemon
+        # (_stop_on_sticky); ``stop_requested`` wakes run_until_signalled
+        self.stopped_by: Optional[str] = None
+        self.stop_requested = threading.Event()
 
     def _breaker(self, feature_type: str) -> CircuitBreaker:
         with self._lock:
@@ -391,11 +410,15 @@ class ServeDaemon:
         request is already recorded ``rejected``), or
         :class:`ModelUnavailable` (this feature type's breaker is open:
         HTTP -> 503 with Retry-After and a ``rejected`` record, spool ->
-        defer the file untouched).
+        defer the file untouched), or :class:`DaemonStopped` (a sticky
+        device error stopped the daemon: HTTP -> 503, no record; spool ->
+        the file stays unclaimed).
 
         A payload carrying ``feature_types`` (a LIST) is the multi-model
         fan-out form: one video, several models, one decode (see
         :meth:`_submit_fanout`)."""
+        if self.stopped_by is not None:
+            raise DaemonStopped(f"daemon stopped: {self.stopped_by}")
         if isinstance(payload, dict) and "feature_types" in payload:
             return self._submit_fanout(payload, source)
         req = parse_request(payload, source)
@@ -640,12 +663,18 @@ class ServeDaemon:
         A sticky device error inside the group stops the extractor's loop
         (no exception reaches here): every member ends ``failed`` — the
         attempted ones with the loop's own record, the rest with the
-        error — the breaker counts one failure, and nothing is retried."""
+        error — nothing is retried, and the daemon stops
+        (``_stop_on_sticky``); so does a group that raised a sticky
+        error. A group taken after the stop never runs: its members
+        leave as the shutdown contract says."""
         feature_type = key[0]
         breaker: Optional[CircuitBreaker] = None
         probing = False
         resolved = False  # has the probe slot reported a verdict?
         try:
+            if self.stopped_by is not None:
+                self._disposition_undispatched(requests)
+                return
             live = self._boundary_filter(requests)
             if not live:
                 return
@@ -666,6 +695,8 @@ class ServeDaemon:
             except Exception as exc:  # noqa: BLE001 - build/re-warm failed: fail the group
                 msg = f"extractor build failed: {type(exc).__name__}: {exc}"
                 traceback.print_exc()
+                if faults.is_sticky(exc):
+                    self._stop_on_sticky(f"{type(exc).__name__}: {exc}")
                 # breaker verdict FIRST: the tracker writes below can
                 # themselves raise (fault injection, full disk), and a
                 # half-open probe slot claimed but never resolved would
@@ -702,6 +733,8 @@ class ServeDaemon:
                 self.watchdog.run(body)
             except Exception as exc:  # noqa: BLE001 - loop-level crash: fail the group
                 traceback.print_exc()
+                if faults.is_sticky(exc):
+                    self._stop_on_sticky(f"{type(exc).__name__}: {exc}")
                 outcomes = ext.manifest.take()
                 err = {
                     "error_class": faults.classify_error(exc),
@@ -733,8 +766,10 @@ class ServeDaemon:
                 # a sticky device error stopped the extractor's loop: the
                 # members it attempted carry its failed records, the rest
                 # none. Every later launch in this process fails the same
-                # way, so nothing is retried; one breaker failure, as a
-                # loop-level crash counts
+                # way, so nothing is retried and the daemon stops (first,
+                # so no admission slips in while the members are written);
+                # one breaker failure, as a loop-level crash counts
+                self._stop_on_sticky(f"{death.get('error_type')}: {death.get('message')}")
                 outcomes = ext.manifest.take()
                 msg = ("the group stopped at a sticky device error: "
                        f"{death.get('error_type')}: {death.get('message')}")
@@ -799,6 +834,49 @@ class ServeDaemon:
                 breaker.record_ignored()
             with self._lock:
                 self._cancel_pending.difference_update(r.id for r in requests)
+
+    def _stop_on_sticky(self, reason: str) -> None:
+        """A sticky device error ended a group: stop taking work for every
+        model. Admission refuses from now on (``submit`` raises
+        :class:`DaemonStopped`, ``/healthz`` answers 503 with ``reason``),
+        the spool watcher stops claiming and the retention sweep stops, so
+        this replica's registry heartbeat ends and fleet peers reclaim its
+        leases; ``stop_requested`` wakes ``run_until_signalled``, which
+        shuts down without draining. The HTTP door stays up until then, so
+        a health check reads the 503."""
+        with self._lock:
+            if self.stopped_by is not None:
+                return
+            self.stopped_by = reason
+            spool, self._spool = self._spool, None
+        print(f"serve: stopping: a sticky device error poisoned this process ({reason}); "
+              "every later launch would fail the same way")
+        self.tracker.manifest.event("daemon_stopped", message=reason[:300])
+        if spool is not None:
+            spool.stop()
+        self._stop_sweep()
+        self.stop_requested.set()
+
+    def _stop_sweep(self) -> None:
+        self._sweep_stop.set()
+        with self._lock:
+            thread, self._sweep_thread = self._sweep_thread, None
+        if thread is not None and thread is not threading.current_thread():
+            thread.join()
+
+    def _disposition_undispatched(self, requests: List[ExtractionRequest]) -> None:
+        """The shutdown contract for requests that never reached the
+        device: spool requests go back to the spool (the next daemon
+        re-admits them under the same id), the rest end ``failed``
+        interrupted — never silently stranded."""
+        for req in requests:
+            if req.source == "spool" and self.scfg.spool_dir:
+                self.tracker.requeue(req, self.scfg.spool_dir)
+            else:
+                self.tracker.finish(
+                    req, "failed", error_class="interrupted",
+                    message="daemon shutdown before dispatch; resubmit to retry",
+                )
 
     def _boundary_filter(
         self, requests: List[ExtractionRequest]
@@ -1030,7 +1108,7 @@ class ServeDaemon:
             breakers = {ft: b.snapshot() for ft, b in sorted(self._breakers.items())}
         degraded = any(b["state"] != "closed" for b in breakers.values())
         out = {
-            "status": "degraded" if degraded else "ok",
+            "status": "stopped" if self.stopped_by else "degraded" if degraded else "ok",
             "queue_depth": self.batcher.depth(),
             "max_queue": self.scfg.max_queue,
             "requests": self.tracker.counts(),
@@ -1041,6 +1119,8 @@ class ServeDaemon:
             "watchdog_timeouts": self.watchdog.timeouts(),
             "replica": self.replica_id,
         }
+        if self.stopped_by is not None:
+            out["error"] = self.stopped_by
         return out
 
     def stats(self) -> Dict[str, Any]:
@@ -1192,21 +1272,12 @@ class ServeDaemon:
                 self._http_thread.join()
             self._http_server = None
             self._http_thread = None
-        if self._spool is not None:
-            self._spool.stop()
-            self._spool = None
-        if self._sweep_thread is not None:
-            self._sweep_stop.set()
-            self._sweep_thread.join()
-            self._sweep_thread = None
-        for req in self.batcher.close(drain=drain):
-            if req.source == "spool" and self.scfg.spool_dir:
-                self.tracker.requeue(req, self.scfg.spool_dir)
-            else:
-                self.tracker.finish(
-                    req, "failed", error_class="interrupted",
-                    message="daemon shutdown before dispatch; resubmit to retry",
-                )
+        with self._lock:
+            spool, self._spool = self._spool, None
+        if spool is not None:
+            spool.stop()
+        self._stop_sweep()
+        self._disposition_undispatched(self.batcher.close(drain=drain))
         self.pool.close()
         # clean exit: drop the heartbeat so surviving replicas reclaim
         # anything we still lease immediately, not after a lease timeout
@@ -1237,13 +1308,14 @@ class ServeDaemon:
             traceback.print_exc()
 
 
-def serve_main(argv: Optional[Sequence[str]] = None) -> None:
+def serve_main(argv: Optional[Sequence[str]] = None) -> int:
     """``python -m video_features_tpu_torch serve [warmup] ...`` — parse,
-    build, run.
+    build, run; returns the process's exit code.
 
     ``serve warmup`` runs the declared warmup pairs and exits; plain
     ``serve`` warms (if ``--warmup`` pairs are declared) and then serves
-    until SIGTERM/SIGINT."""
+    until SIGTERM/SIGINT (0), or until a sticky device error stops it
+    (1, so that a supervisor restarts the process)."""
     scfg = parse_serve_args(argv)
     daemon = ServeDaemon(scfg)
     if scfg.warmup_only:
@@ -1252,9 +1324,13 @@ def serve_main(argv: Optional[Sequence[str]] = None) -> None:
         failed = [r for r in results if r.get("state") != "done"]
         if failed:
             raise SystemExit(f"serve warmup: {len(failed)}/{len(results)} pair(s) failed")
-        return
+        return 0
     daemon.start()
     run_until_signalled(daemon)
+    if daemon.stopped_by is not None:
+        print(f"serve: exiting 1 after a sticky device error: {daemon.stopped_by}")
+        return 1
+    return 0
 
 
 def run_until_signalled(daemon: ServeDaemon) -> None:
@@ -1267,8 +1343,10 @@ def run_until_signalled(daemon: ServeDaemon) -> None:
     into one Event and :meth:`ServeDaemon.shutdown` runs in a
     ``finally``. Handler installation is guarded so tests can call this
     off the main thread (where ``signal.signal`` raises ValueError) and
-    deliver the signal themselves."""
-    stop = threading.Event()
+    deliver the signal themselves. A sticky device error sets the same
+    Event (``ServeDaemon._stop_on_sticky``); the shutdown then does not
+    drain, since no later group could run."""
+    stop = daemon.stop_requested
 
     def _handler(signum: int, frame: Any) -> None:
         print(f"serve: received signal {signum}; draining and shutting down")
@@ -1290,4 +1368,4 @@ def run_until_signalled(daemon: ServeDaemon) -> None:
                 signal.signal(sig, prev)
             except ValueError:
                 pass
-        daemon.shutdown()
+        daemon.shutdown(drain=daemon.stopped_by is None)

@@ -28,7 +28,9 @@ framework; anything fancier belongs behind a real proxy):
   the record when already terminal in another state (done/failed/
   rejected/expired — too late to cancel), 404 for unknown ids.
 - ``GET /healthz`` — queue depth, per-state counts, warm model list,
-  scheduler name, per-model circuit-breaker state.
+  scheduler name, per-model circuit-breaker state; 503 with the error
+  once a sticky device error stopped the daemon (and every POST is then
+  503 too, recorded nowhere).
 - ``GET /metrics`` — Prometheus text exposition (format 0.0.4) of the
   daemon's metrics registry plus live serve families (breaker state,
   SLO quantiles, uptime); stdlib-rendered, no client library
@@ -120,6 +122,9 @@ class ServeHandler(BaseHTTPRequestHandler):
                     retry_after=daemon.scfg.max_batch_wait_ms / 1000.0 * 2,
                 )
                 return
+            if name == "DaemonStopped":
+                self._send(503, {"error": str(exc)})
+                return
             if name == "ModelUnavailable":
                 self._send(
                     503,
@@ -152,7 +157,8 @@ class ServeHandler(BaseHTTPRequestHandler):
         daemon = self.server.daemon  # type: ignore[attr-defined]
         path = self.path.rstrip("/")
         if path == "/healthz":
-            self._send(200, daemon.status())
+            status = daemon.status()
+            self._send(503 if status["status"] == "stopped" else 200, status)
             return
         if path == "/metrics":
             # the content type Prometheus scrapers negotiate for the

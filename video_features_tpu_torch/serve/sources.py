@@ -32,6 +32,10 @@ submits it:
                     (:func:`~video_features_tpu_torch.runtime.faults.
                     backoff_delay`) so a full queue or an open breaker
                     never turns the poll into a tight claim/rename spin.
+- daemon stopped -> (a sticky device error; the port's own) the claim is
+                    renamed back and the pass ends; the daemon has
+                    already stopped this watcher, so the file waits for
+                    a healthy replica.
 
 Cancellation: dropping ``<id>.cancel`` into the spool cancels request
 ``<id>`` — an unclaimed ``<id>.json`` is deleted before it is ever
@@ -68,7 +72,7 @@ from video_features_tpu_torch.serve.lifecycle import (
     BadRequest,
     DuplicateRequest,
 )
-from video_features_tpu_torch.serve.supervisor import ModelUnavailable
+from video_features_tpu_torch.serve.supervisor import DaemonStopped, ModelUnavailable
 
 # a deferred file is retried after at most this long no matter how many
 # times it has been deferred — backpressure is expected to clear
@@ -217,9 +221,12 @@ class SpoolWatcher:
                     for k, v in parse_spool_name(name[: -len(".json")]).items():
                         payload.setdefault(k, v)
                 rec = self.daemon.submit(payload, source="spool")
-            except QueueFull:
+            except (QueueFull, DaemonStopped):
+                # the whole queue is full, or a sticky device error stopped
+                # the daemon (the file is left for a healthy replica): end
+                # the pass
                 self._defer(name, path, claimed)
-                return admitted  # the whole queue is full: end the pass
+                return admitted
             except ModelUnavailable:
                 # one model's breaker is open; other files may still be
                 # admissible, so defer this one and keep scanning

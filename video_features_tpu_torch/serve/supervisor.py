@@ -4,7 +4,8 @@ per-feature-type circuit breaker.
 Counterpart of ``video_features_tpu/serve/supervisor.py``, copied as it
 is (stdlib only), without ``CircuitBreaker.trip`` and ``force_close``:
 the preemptor that force-opens a breaker and rolls it back is not
-ported (ROADMAP queue 1, item 11).
+ported (ROADMAP queue 1, item 11). :class:`DaemonStopped` is the port's
+own: the JAX daemon has no process-wide sticky device error to refuse on.
 
 A resident daemon's failure modes differ from a batch run's: a wedged
 extractor (hung decode on the dispatcher thread, a device runtime that
@@ -62,6 +63,13 @@ class ModelUnavailable(RuntimeError):
         )
         self.feature_type = feature_type
         self.retry_after_s = float(retry_after_s)
+
+
+class DaemonStopped(RuntimeError):
+    """Admission refused for EVERY model: a sticky device error poisoned
+    this process (``ServeDaemon._stop_on_sticky``). The HTTP source
+    answers 503, the spool source leaves the file unclaimed for a
+    healthy replica; a supervisor restarts the process."""
 
 
 class GroupTimeout(TimeoutError):
