@@ -133,12 +133,26 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     and 2 when the burst lands inside ``--max_batch_wait_ms``); the burst
     again, all cache hits at admission with no launch and byte-equal
     files; ``/healthz``, ``/metrics`` (valid Prometheus text with the
-    stage and SLO families) and ``/v1/requests/<id>``; CLIP evicted and
-    rebuilt by one more request, with ``torch.cuda.memory_allocated``
-    before, between and after; shutdown with drain leaving no request
-    non-terminal; the warmup seconds, the burst's p50/p95 latency on a
-    miss and on a hit, and the phase's wall, beside the card's name and
-    power limit;
+    stage and SLO families) and ``/v1/requests/<id>``; then the device
+    cost ledger (``telemetry/ledger.py``) against the card, for CLIP and
+    for I3D + PWC: every entry a memory block with ``temp_bytes``, a
+    projection for both models, CLIP's flops per image within 10% of
+    2 x 4.41 G (ViT-B/32 at 224 px), the sampler's four gauges of the card
+    and its headroom, ``vft_hbm_bytes`` and ``vft_device_mem_bytes`` in
+    valid ``/metrics`` text, a ledger capture's cost on CLIP's 64-image
+    forward against its first served group; each model's largest group
+    again (4 fresh CLIP clips coalesced, one fresh I3D stack) with
+    nothing to capture, for its peak P; CLIP evicted (the fall E in
+    ``memory_allocated``), rebuilt by one more request (12 K1 launches,
+    its ledger entry re-recorded: ``n_compiles`` 2, footprint within 5%),
+    then I3D + PWC evicted; per model W (its weights and buffers) <= E <=
+    its projected ``resident`` and ``resident`` within [0.9, 1.25] x P;
+    shutdown with drain leaving no request non-terminal; a second daemon
+    on the same output path with ``--hbm_budget_bytes`` one byte below
+    the two models' projected sum failing its warmup with the JAX
+    package's message, and one at the sum passing; the warmup seconds,
+    the burst's p50/p95 latency on a miss and on a hit, and the phase's
+    wall, beside the card's name and power limit;
 18. flow read from disk and the output flags, on phase 5's 65-frame clip
     (64-frame stacks at 256x341): PWC ``--side_size 256 --on_extraction
     save_jpg`` (64 ``flow_x``/``flow_y`` pairs, read back against
@@ -157,11 +171,26 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     bytes of each); and ``--fps_retarget reencode`` on phase 6's clip at
     ``--extraction_fps 10`` where ``shutil.which("ffmpeg")`` finds a
     binary (else one printed line says it was not run);
-19. a ``kernels`` JSON line (each kernel's launches on its main path, in
+19. HBM-aware preemption against a real memory wall: a daemon with
+    ``--preempt on --preempt_cooldown_s 0 --preempt_min_residency_s 0``
+    on phase 17's output path (its ledger prices I3D + PWC) serves CLIP;
+    a ballast tensor leaves the sampler's headroom at I3D + PWC's
+    projected ``resident`` less half the smaller of the two models'; an
+    I3D + PWC request on phase 5's clip then evicts CLIP at admission
+    (CLIP's breaker open, a ``preempted`` event,
+    ``vft_preemptions_total{feature_type="CLIP-ViT-B/32"} 1``) and is
+    served behind the wall with no retry, its features within phase 5's
+    gates and 5 K2 launches a forward; the ballast dropped, a CLIP request
+    after the breaker's cooldown rebuilds CLIP through the half-open probe
+    (a ``rewarmed`` event; features within 1e-4 of the batch CLI's, 12 K1
+    launches a forward); then, the wall up again, an I3D + PWC request
+    whose build fails hands the preempted CLIP back
+    (``preemption_rollback``, its breaker closed, a CLIP request served);
+20. a ``kernels`` JSON line (each kernel's launches on its main path, in
     the fused runs, in the device preprocess runs, in the telemetry runs,
-    in the bf16 phase, in the served burst and in phase 18, its records at
-    the fused shapes, and K1's bf16 record at the CLIP path's shape), then
-    the ``ok`` JSON line last.
+    in the bf16 phase, in the served requests, in phase 18 and in phase
+    19, its records at the fused shapes, and K1's bf16 record at the CLIP
+    path's shape), then the ``ok`` JSON line last.
 
 Every CLI run of phases 4-14 and 16-18 passes ``--strict``, so a video that fails
 in isolation fails its phase (phase 15's first run leaves it out: two of
@@ -169,12 +198,13 @@ its files must fail). Phases 7-11 launch no hand-written kernel:
 RAFT, ResNet, R(2+1)D and VGGish reach no ``pallas_call`` in the JAX
 package, nor does the device preprocess's resample (the JAX package
 leaves it to XLA). Every launch count is read from a run that starts with
-all counts at 0, and each of phases 4-18 prints its wall time.
+all counts at 0, and each of phases 4-19 prints its wall time.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import glob
 import io
 import json
@@ -258,6 +288,19 @@ VGGISH_RTOL = 1e-3
 # same kernels in another loop gives the same features up to launch-order
 # effects, none of which exist in a fixed-shape fp32 forward
 CONTRACT_VIDEOS = 8
+# phase 17's ledger gates: CLIP-ViT-B/32 at 224 px is 4.41 GMACs (timm's
+# published figure) at 2 flops a multiply-add; a model's projected resident
+# set against the peak of its largest served group P; a rebuilt CLIP's
+# re-recorded entry against the first
+CLIP_FLOPS_PER_IMAGE = 2 * 4.41e9
+CLIP_FLOPS_RTOL = 0.10
+RESIDENT_P_RANGE = (0.9, 1.25)
+REBUILD_RTOL = 0.05
+# phase 19: the preempted CLIP's breaker cooldown before its half-open
+# probe, and how far the ballast may leave the headroom from its target
+# (the caching allocator rounds a block to 512 bytes)
+PREEMPT_BREAKER_COOLDOWN_S = 2.0
+BALLAST_SLACK = 4 * 2**20
 CONTRACT_ATOL = 1e-6
 # the async ingest phase: CLIP on the contract clips at each --video_batch
 # x --inflight_groups; a fused batch changes the GEMMs' shapes, so cuBLAS
@@ -2152,12 +2195,250 @@ def quantile(values, q: float) -> float:
     return float(np.quantile(np.asarray(values, np.float64), q))
 
 
-def param_mib(state) -> float:
-    """MiB of a built model state's parameters and buffers (a module, or
-    a dict of them)."""
+def state_bytes(state) -> int:
+    """Bytes of a built model state's parameters and buffers (a module, or
+    a dict of them): the weights W a model keeps on the card."""
     modules = state.values() if isinstance(state, dict) else [state]
     return sum(t.numel() * t.element_size() for m in modules
-               for t in [*m.parameters(), *m.buffers()]) / 2**20
+               for t in [*m.parameters(), *m.buffers()])
+
+
+def param_mib(state) -> float:
+    """MiB of a built model state's parameters and buffers."""
+    return state_bytes(state) / 2**20
+
+
+def entry_bytes(entry) -> int:
+    """One ledger entry's own footprint: arguments + outputs + temp."""
+    mem = entry["memory"]
+    return mem["argument_bytes"] + mem["output_bytes"] + mem.get("temp_bytes", 0)
+
+
+def captures(ledger, model: str) -> dict:
+    """{entry key: n_compiles} of one model's ledger entries."""
+    return {(e["family"], e["bucket"]): e["n_compiles"] for e in ledger.entries()
+            if e["model"] == model}
+
+
+def group_peak(daemon, device, post, payloads, wait_terminal, model: str) -> int:
+    """``max_memory_allocated`` over one served group of ``payloads``,
+    posted so that they coalesce (the wait raised until the group is
+    full). The group must capture nothing: a capture resets the peak."""
+    before = captures(daemon.ledger, model)
+    wait_s = daemon.batcher.max_batch_wait_s
+    daemon.batcher.max_batch_wait_s = 5.0
+    try:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        answers, _ = post(payloads)
+        recs = wait_terminal([p["id"] for p in payloads])
+        torch.cuda.synchronize(device)
+        peak = torch.cuda.max_memory_allocated(device)
+    finally:
+        daemon.batcher.max_batch_wait_s = wait_s
+    if any(code != 202 for code, _ in answers) or any(r["state"] != "done" for r in recs.values()):
+        raise AssertionError(f"{model} group for P failed: {answers} {recs}")
+    if captures(daemon.ledger, model) != before:
+        raise AssertionError(f"{model}'s P group captured a ledger entry: the peak is not its own")
+    return peak
+
+
+def evict_fall(daemon, device, model: str):
+    """(E, the allocation after): the fall in ``memory_allocated`` when the
+    daemon's pool evicts ``model``."""
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
+    daemon.pool.evict(model)
+    torch.cuda.synchronize(device)
+    after = torch.cuda.memory_allocated(device)
+    return before - after, after
+
+
+def capture_cost_ms(model, device, x) -> tuple:
+    """(ms of one forward, ms of the same forward under a ledger capture):
+    medians of 5 on the card, the capture's FlopCounterMode and memory
+    statistics included, its record left out."""
+    from video_features_tpu_torch.telemetry import ledger as ledger_mod
+
+    def once(capture: bool) -> float:
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            if capture:
+                # no module: the model's own hooks leave this capture alone
+                ledger_mod._TLS.capture = ledger_mod._Capture(None, device, 0, (x,), {})
+            try:
+                out = model(x)
+            finally:
+                if capture:
+                    cap, ledger_mod._TLS.capture = ledger_mod._TLS.capture, None
+                    cap.finish(out)
+        torch.cuda.synchronize(device)
+        return (time.perf_counter() - t0) * 1e3
+
+    once(False)
+    plain = float(np.median([once(False) for _ in range(5)]))
+    captured = float(np.median([once(True) for _ in range(5)]))
+    return plain, captured
+
+
+def hold_serve_ledger(root: str, daemon, device, port, post, wait_terminal,
+                      first_group_ms: float):
+    """Phase 17's ledger gates (module docstring) on the running daemon.
+    Returns (K1, K2) launches of the requests it serves."""
+    from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
+    from video_features_tpu_torch.ops.flash_attention import flash_attention
+    from video_features_tpu_torch.telemetry.exposition import validate_exposition
+    from video_features_tpu_torch.telemetry.ledger import format_bytes
+    from video_features_tpu_torch.utils.synth import synth_video
+
+    clip_ft, mib = "CLIP-ViT-B/32", 2**20
+    led = daemon.ledger
+    weights = {ft: state_bytes(daemon.pool.get(ft).warmup(device)) for ft in (clip_ft, "i3d")}
+    entries = led.entries()
+    for e in entries:
+        mem = e.get("memory") or {}
+        if e.get("platform") != "cuda" or "temp_bytes" not in mem:
+            raise AssertionError(f"a capture on the card recorded no memory block: {e}")
+    proj = led.hbm_projection()
+    if sorted(proj) != sorted([clip_ft, "i3d"]) \
+            or not all(p["resident"] > 0 for p in proj.values()):
+        raise AssertionError(f"empty HBM projection on the card: {proj}")
+    print(f"serve, ledger ({len(entries)} entries, {card_line()}): " + "; ".join(
+        f"{e['model']}|{e['family']}|{e['bucket']} args {e['memory']['argument_bytes'] / mib:.1f} "
+        f"out {e['memory']['output_bytes'] / mib:.2f} temp {e['memory']['temp_bytes'] / mib:.1f} "
+        f"MiB, {e['flops']:.4g} flops, n_compiles {e['n_compiles']}" for e in entries))
+    print("serve, projection: " + "; ".join(
+        f"{m} resident {p['resident'] / mib:.1f} MiB (arguments {p['arguments'] / mib:.1f}, "
+        f"outputs {p['outputs'] / mib:.2f}, temp {p['temp'] / mib:.1f})" for m, p in sorted(
+            proj.items())))
+    # CLIP's flops per image against ViT-B/32 at 224 px: timm's 4.41 GMACs
+    per_image = {e["bucket"]: e["flops"] / int(e["bucket"].split("x")[0])
+                 for e in entries if e["model"] == clip_ft}
+    print(f"serve, CLIP flops per image by bucket {per_image} against {CLIP_FLOPS_PER_IMAGE:.4g} "
+          f"(tol {CLIP_FLOPS_RTOL:.0%})")
+    if not per_image or any(abs(f / CLIP_FLOPS_PER_IMAGE - 1) > CLIP_FLOPS_RTOL
+                            for f in per_image.values()):
+        raise AssertionError(f"CLIP flops per image {per_image}")
+
+    # the live gauges: the sampler on the daemon's device, then /metrics
+    if daemon.sampler.sample_once() != 1:
+        raise AssertionError("the device-memory sampler set no gauge on the card")
+    dev = f"cuda:{device.index if device.index is not None else torch.cuda.current_device()}"
+    gauges = daemon.telemetry.metrics.snapshot()["gauges"]
+    kinds = {k: v for k, v in gauges.items() if k.startswith(f"device_mem_bytes.{dev}|")}
+    code_m, text = http_json(port, "/metrics")
+    problems = validate_exposition(text)
+    print(f"serve, device memory gauges {dict((k.split('|')[1], int(v)) for k, v in kinds.items())}"
+          f", headroom {gauges.get('device_mem_headroom_bytes', 0) / mib:.1f} MiB; /metrics "
+          f"{code_m}, {len(problems)} problems")
+    if len(kinds) != 4 or "device_mem_headroom_bytes" not in gauges or code_m != 200 \
+            or problems or "vft_hbm_bytes{" not in text \
+            or f'vft_device_mem_bytes{{device="{dev}"' not in text:
+        raise AssertionError(f"ledger series missing: {kinds}, {problems[:5]}")
+
+    # the capture's cost on CLIP's largest group, against its first served group
+    clip_model = daemon.pool.get(clip_ft).warmup(device)
+    x = torch.randn(4 * 16, 3, 224, 224, device=device)
+    plain_ms, captured_ms = capture_cost_ms(clip_model, device, x)
+    del clip_model, x
+    print(f"serve, a ledger capture of CLIP's 64-image forward: {captured_ms:.3f} ms against "
+          f"{plain_ms:.3f} ms plain, +{captured_ms - plain_ms:.3f} ms, "
+          f"{(captured_ms - plain_ms) / first_group_ms:.2%} of the first served CLIP group "
+          f"({first_group_ms:.1f} ms), {card_line()}")
+
+    # P: each model's largest group again (4 fresh CLIP clips, one fresh
+    # I3D stack), with nothing left to capture
+    fresh = [synth_video(os.path.join(root, f"serve_p{i}.mp4"), n_frames=60, seed=200 + i)
+             for i in range(4)]
+    fresh_i3d = synth_video(os.path.join(root, "serve_p_i3d.mp4"), n_frames=STACK + 1, seed=210)
+    reset_counts()
+    peak = {clip_ft: group_peak(daemon, device, post, [
+        {"feature_type": clip_ft, "video_path": c, "id": f"p-clip-{i}", "bucket": "320x240"}
+        for i, c in enumerate(fresh)], wait_terminal, clip_ft)}
+    peak["i3d"] = group_peak(daemon, device, post, [
+        {"feature_type": "i3d", "video_path": fresh_i3d, "id": "p-i3d"}], wait_terminal, "i3d")
+    k1, k2 = flash_attention.launches, local_correlation_kernel.launches
+
+    # E and P: CLIP's evict (I3D + PWC resident through both readings),
+    # CLIP rebuilt by one request, then I3D + PWC's evict
+    fall, base = {}, {}
+    first = {(e["family"], e["bucket"]): e for e in entries if e["model"] == clip_ft}
+    fall[clip_ft], base[clip_ft] = evict_fall(daemon, device, clip_ft)
+    mem = [base[clip_ft] + fall[clip_ft], base[clip_ft]]
+    reset_counts()
+    code, _ = http_json(port, "/v1/extract", {"feature_type": clip_ft, "id": "rebuilt",
+                                              "video_path": os.path.join(root, "clip0.mp4")})
+    (rebuilt,) = wait_terminal(["rebuilt"]).values()
+    torch.cuda.synchronize(device)
+    mem.append(torch.cuda.memory_allocated(device))
+    k1_rebuilt = flash_attention.launches
+    print(f"serve, evict CLIP and serve one more request: {rebuilt['state']}, builds "
+          f"{daemon.pool.build_count}, K1 launches {k1_rebuilt}; "
+          f"torch.cuda.memory_allocated before {mem[0] / mib:.1f} MiB, after the evict "
+          f"{mem[1] / mib:.1f} MiB, after the rebuild and request {mem[2] / mib:.1f} MiB; "
+          f"resident weights and buffers: CLIP {weights[clip_ft] / mib:.1f} MiB, I3D + PWC "
+          f"{weights['i3d'] / mib:.1f} MiB")
+    if code != 202 or rebuilt["state"] != "done" or daemon.pool.build_count[clip_ft] != 2 \
+            or k1_rebuilt != LAYERS:
+        raise AssertionError(f"rebuild: {code} {rebuilt} {daemon.pool.build_count}")
+    again = {(e["family"], e["bucket"]): e for e in led.entries() if e["model"] == clip_ft}
+    redone = [k for k, e in again.items() if k in first and e["n_compiles"] == 2]
+    shifts = {k: entry_bytes(again[k]) / entry_bytes(first[k]) - 1 for k in redone}
+    print(f"serve, CLIP's rebuild re-recorded {redone}: n_compiles 2, its footprint moved "
+          f"{', '.join(f'{v:+.2%}' for v in shifts.values())} (tol {REBUILD_RTOL:.0%})")
+    if not redone or any(abs(v) > REBUILD_RTOL for v in shifts.values()):
+        raise AssertionError(f"CLIP's rebuild did not re-record its entry: {again}")
+    fall["i3d"], base["i3d"] = evict_fall(daemon, device, "i3d")
+
+    rows = []
+    for ft in (clip_ft, "i3d"):
+        w, e, r = weights[ft], fall[ft], proj[ft]["resident"]
+        p = peak[ft] - base[ft]
+        rows.append((ft, w, e, r, p))
+        print(f"serve, {ft}: W {w / mib:.1f} MiB, E {e / mib:.1f} MiB, resident "
+              f"{r / mib:.1f} MiB, P {p / mib:.1f} MiB, resident / P {r / p:.4f} "
+              f"(gates W <= E <= resident, resident / P in [{RESIDENT_P_RANGE[0]}, "
+              f"{RESIDENT_P_RANGE[1]}]), {card_line()}")
+    for ft, w, e, r, p in rows:
+        if not w <= e <= r or not RESIDENT_P_RANGE[0] <= r / p <= RESIDENT_P_RANGE[1]:
+            raise AssertionError(f"{ft}: W {w}, E {e}, resident {r}, P {p}")
+    print(f"serve, warmup line hbm= for CLIP: {format_bytes(proj[clip_ft]['resident'])}")
+    return k1 + k1_rebuilt, k2
+
+
+def hold_hbm_budget(root: str, ledger, out: str) -> None:
+    """Phase 17's warmup budget: a daemon on the same output path fails
+    its warmup one byte below the two models' projected sum, with the JAX
+    package's message, and passes at the sum."""
+    from video_features_tpu_torch.config import parse_serve_args
+    from video_features_tpu_torch.serve.daemon import ServeDaemon
+    from video_features_tpu_torch.telemetry.ledger import format_bytes
+
+    clip_ft = "CLIP-ViT-B/32"
+    total = ledger.projected_resident_bytes([clip_ft, "i3d"])
+    verdicts = []
+    for budget in (total - 1, total):
+        daemon = ServeDaemon(parse_serve_args([
+            "--feature_types", clip_ft, "i3d", "--flow_type", "pwc", "--attn", "flash",
+            "--extract_method", f"uni_{FRAMES}", "--allow_random_init",
+            "--warmup", f"{clip_ft}:320x240", "--output_path", out,
+            "--tmp_path", os.path.join(root, "tmp"), "--heartbeat_s", "0",
+            "--hbm_budget_bytes", str(budget)]))
+        try:
+            daemon.start()
+            verdicts.append("passed")
+        except RuntimeError as exc:
+            verdicts.append(str(exc))
+        finally:
+            daemon.shutdown(drain=True)
+    want = (f"serve: projected resident HBM {format_bytes(total)} exceeds --hbm_budget_bytes "
+            f"{format_bytes(total - 1)} for models {clip_ft}, i3d — shrink the resident set or "
+            "raise the budget")
+    print(f"serve, --hbm_budget_bytes at the projected sum - 1 ({total - 1}): {verdicts[0]!r}; "
+          f"at the sum: {verdicts[1]}")
+    if verdicts != [want, "passed"]:
+        raise AssertionError(f"warmup budget: {verdicts}")
 
 
 def span_ms(spans, stage: str, ids) -> list:
@@ -2440,38 +2721,22 @@ def run_serve_path(root: str, device):
                 or code_r != 200 or rec.get("state") != "done":
             raise AssertionError(f"endpoints: {code} {health}, {problems[:5]}, {code_r} {rec}")
 
-        # evict CLIP and serve one more request: what stays allocated
-        weights = {ft: param_mib(daemon.pool.get(ft).warmup(device)) for ft in (clip_ft, "i3d")}
+        # the device cost ledger against the card: each model's weights W,
+        # its projected resident set, the peak of its largest group P and
+        # the fall E at its evict, then CLIP rebuilt
         del clip_ex
-        torch.cuda.synchronize()
-        mem = [torch.cuda.memory_allocated(device)]
-        daemon.pool.evict(clip_ft)
-        import gc
-
-        gc.collect()
-        mem.append(torch.cuda.memory_allocated(device))
-        reset_counts()
-        code, _ = http_json(port, "/v1/extract", {"feature_type": clip_ft, "id": "rebuilt",
-                                                  "video_path": os.path.join(root, "clip0.mp4")})
-        (rebuilt,) = wait_terminal(["rebuilt"]).values()
-        torch.cuda.synchronize()
-        mem.append(torch.cuda.memory_allocated(device))
-        print(f"serve, evict CLIP and serve one more request: {rebuilt['state']}, builds "
-              f"{daemon.pool.build_count}, K1 launches {flash_attention.launches}; "
-              f"torch.cuda.memory_allocated before {mem[0] / 2**20:.1f} MiB, after the evict "
-              f"{mem[1] / 2**20:.1f} MiB, after the rebuild and request {mem[2] / 2**20:.1f} MiB; "
-              f"resident weights and buffers: CLIP {weights[clip_ft]:.1f} MiB, I3D + PWC "
-              f"{weights['i3d']:.1f} MiB")
-        if code != 202 or rebuilt["state"] != "done" or daemon.pool.build_count[clip_ft] != 2:
-            raise AssertionError(f"rebuild: {code} {rebuilt} {daemon.pool.build_count}")
+        first = min(burst_groups, key=lambda s: s["t0"])
+        k1_more, k2_more = hold_serve_ledger(root, daemon, device, port, post_all,
+                                             wait_terminal, (first["t1"] - first["t0"]) * 1e3)
     finally:
         daemon.shutdown(drain=True)
     counts = daemon.tracker.counts()
     print(f"serve, shutdown with drain: {counts}")
     if counts["queued"] or counts["dispatched"]:
         raise AssertionError(f"requests left non-terminal at shutdown: {counts}")
+    hold_hbm_budget(root, daemon.ledger, out)
     print(f"serve: phase wall {time.perf_counter() - t_phase:.1f} s")
-    return {"flash_attention": k1, "local_correlation": k2}
+    return {"flash_attention": k1 + k1_more, "local_correlation": k2 + k2_more}
 
 
 def run_flags_path(root: str, device):
@@ -2699,6 +2964,213 @@ def run_flags_path(root: str, device):
     return {"flash_attention": 0, "local_correlation": k2}
 
 
+def run_preempt_path(root: str, device):
+    """Phase 19: HBM-aware preemption against a real memory wall (module
+    docstring). Returns each kernel's launches in the phase."""
+    from video_features_tpu_torch.config import parse_serve_args
+    from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
+    from video_features_tpu_torch.ops.flash_attention import flash_attention
+    from video_features_tpu_torch.runtime.faults import iter_manifest_records
+    from video_features_tpu_torch.serve.daemon import ServeDaemon
+    from video_features_tpu_torch.serve.lifecycle import requests_root
+
+    t_phase = time.perf_counter()
+    print(f"preempt: {card_line()}")
+    clip_ft, mib = "CLIP-ViT-B/32", 2**20
+    out = os.path.join(root, "serve_out")  # phase 17's: its ledger prices I3D + PWC
+    daemon = ServeDaemon(parse_serve_args([
+        "--feature_types", clip_ft, "i3d", "--flow_type", "pwc", "--attn", "flash",
+        "--extract_method", f"uni_{FRAMES}", "--allow_random_init", "--max_group_size", "4",
+        "--port", "0", "--warmup", f"{clip_ft}:320x240", "--output_path", out,
+        "--tmp_path", os.path.join(root, "tmp"), "--heartbeat_s", "0", "--preempt", "on",
+        "--preempt_cooldown_s", "0", "--preempt_min_residency_s", "0",
+        "--breaker_cooldown_s", str(PREEMPT_BREAKER_COOLDOWN_S)]))
+    events_seen = len(_preempt_events(out))
+    ballast = None
+    k1 = k2 = 0
+
+    def wait_terminal(ids, timeout=300.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            recs = {i: daemon.tracker.get(i) or {} for i in ids}
+            if all(r.get("state") in ("done", "failed", "rejected", "expired", "cancelled")
+                   for r in recs.values()):
+                return recs
+            time.sleep(0.01)
+        raise AssertionError(f"requests not terminal after {timeout} s: {recs}")
+
+    def headroom() -> int:
+        daemon.sampler.sample_once()
+        return int(daemon.telemetry.metrics.snapshot()["gauges"]["device_mem_headroom_bytes"])
+
+    def wall_up(target: int):
+        """A ballast tensor that leaves the sampler's headroom at ``target``."""
+        gc.collect()
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        t = torch.empty(headroom() - target, dtype=torch.uint8, device=device)
+        got = headroom()
+        print(f"preempt, ballast {t.numel() / 2**30:.3f} GiB: headroom {got / mib:.1f} MiB "
+              f"(target {target / mib:.1f} MiB)")
+        if abs(got - target) > BALLAST_SLACK:
+            raise AssertionError(f"ballast left headroom {got}, not {target}")
+        return t
+
+    try:
+        daemon.start()
+        port = daemon.http_port
+        proj = daemon.ledger.hbm_projection()
+        r_clip, r_i3d = proj[clip_ft]["resident"], proj["i3d"]["resident"]
+        temps = {e["family"]: e["memory"]["temp_bytes"] for e in daemon.ledger.entries()
+                 if e["model"] == "i3d"}
+        target = r_i3d - min(r_clip, r_i3d) // 2
+        print(f"preempt, projected resident: CLIP {r_clip / mib:.1f} MiB, I3D + PWC "
+              f"{r_i3d / mib:.1f} MiB; the wall leaves I3D + PWC's minus half the smaller")
+
+        # step 2-3: the wall, then an I3D + PWC request evicts CLIP
+        ballast = wall_up(target)
+        verdict = daemon.preemptor.check("i3d")
+        print(f"preempt, admission check for I3D + PWC: {verdict}")
+        if verdict[0] != "overcommit":
+            raise AssertionError(f"I3D + PWC not overcommitted behind the wall: {verdict}")
+        reset_counts()
+        clip_path = os.path.join(root, "i3d0.mp4")
+        t_post = time.time()
+        code, _ = http_json(port, "/v1/extract", {"feature_type": "i3d", "video_path": clip_path,
+                                                  "id": "p19-i3d"})
+        clip_breaker = daemon._breaker(clip_ft).state()
+        resident_after = sorted(daemon.pool.feature_types())
+        (rec,) = wait_terminal(["p19-i3d"]).values()
+        torch.cuda.synchronize(device)
+        k2_i3d = local_correlation_kernel.launches
+        retries = [r for r in iter_manifest_records(out) if r.get("status") == "retry"
+                   and r.get("ts", 0) >= t_post]
+        print(f"preempt, I3D + PWC request behind the wall: {code}, {rec['state']}"
+              + (f" ({rec.get('message')})" if rec["state"] != "done" else "")
+              + f"; CLIP's breaker {clip_breaker} at admission, residents then {resident_after},"
+              f" retries {len(retries)}, K2 launches {k2_i3d}, headroom after "
+              f"{headroom() / mib:.1f} MiB")
+        if code != 202 or rec["state"] != "done" or retries:
+            raise AssertionError(f"I3D + PWC behind the wall: {code} {rec} {retries}")
+        if clip_breaker != "open" or clip_ft in resident_after:
+            raise AssertionError(f"CLIP not preempted: {clip_breaker}, {resident_after}")
+        walled = {e["family"]: e["memory"]["temp_bytes"] for e in daemon.ledger.entries()
+                  if e["model"] == "i3d"}
+        print("preempt, I3D + PWC's temp by family, captured again behind the wall against "
+              "phase 17's: " + ", ".join(f"{f} {walled[f] / mib:.1f} MiB ({temps[f] / mib:.1f})"
+                                         for f in sorted(walled)))
+        stacks = sum(np.load(p).shape[0] for p in rec["features"] if p.endswith("_rgb.npy"))
+        if k2_i3d != len(CORR_LEVELS) * stacks:
+            raise AssertionError(f"K2 launched {k2_i3d} times over {stacks} forwards")
+        code_m, text = http_json(port, "/metrics")
+        line = f'vft_preemptions_total{{feature_type="{clip_ft}"}} 1'
+        events = _preempt_events(out)[events_seen:]
+        print(f"preempt, events {events}; /metrics {line!r} {line in text}")
+        if events[:1] != [("preempted", clip_ft, "i3d")] or line not in text:
+            raise AssertionError(f"preemption trail: {events}, {line in text}")
+
+        # step 4: the wall down, CLIP back through the half-open probe
+        del ballast
+        ballast = None
+        gc.collect()
+        headroom()
+        ex = daemon.pool.get("i3d")
+        models = ex.warmup(device)
+        stack = torch.from_numpy(np.stack(ex.prepare(clip_path)[0][: STACK + 1])).to(device)
+        a, b = (stack_streams(ex, models, stack) for _ in range(2))
+        flow_tol = flow_feature_rtol(float(np.mean(a[1] != b[1])), a[1])
+        del ex, models, stack
+        errs = []
+        for path in rec["features"]:
+            ref = np.load(os.path.join(root, "i3d_out", "i3d", os.path.basename(path)))
+            tol = flow_tol if path.endswith("_flow.npy") else I3D_FEATURE_RTOL
+            errs.append((os.path.basename(path), rel_l2(np.load(path), ref), tol))
+        print("preempt, I3D + PWC features against phase 5's: " + ", ".join(
+            f"{n} rel_l2 {e:.3e} (tol {t:.3e})" for n, e, t in errs))
+        if len(errs) != 2 or any(not e <= t for _, e, t in errs):
+            raise AssertionError(f"I3D + PWC behind the wall disagrees: {errs}")
+        time.sleep(PREEMPT_BREAKER_COOLDOWN_S)
+        reset_counts()
+        t_probe = time.monotonic()
+        contract = os.path.join(root, "contract0.mp4")
+        code, _ = http_json(port, "/v1/extract", {"feature_type": clip_ft, "video_path": contract,
+                                                  "id": "p19-clip", "bucket": "320x240"})
+        (crec,) = wait_terminal(["p19-clip"]).values()
+        torch.cuda.synchronize(device)
+        k1_probe = flash_attention.launches
+        spans = [s for s in daemon.pool.get(clip_ft).telemetry.spans() if s["t0"] >= t_probe]
+        forwards = sum(1 for s in spans if s["stage"] in ("dispatch", "extract"))
+        ref = np.load(os.path.join(root, "serve_batch_1", "CLIP-ViT-B", "32",
+                                   "contract0_CLIP-ViT-B-32.npy"))
+        err = float(np.abs(np.load(crec["features"][0]) - ref).max()) \
+            if crec["state"] == "done" else float("inf")
+        events = _preempt_events(out)[events_seen:]
+        print(f"preempt, CLIP after the cooldown: {code}, {crec['state']}, breaker "
+              f"{daemon._breaker(clip_ft).state()}, {forwards} forwards (the probe's re-warm and "
+              f"the request), K1 launches {k1_probe}; features max_abs_err {err:.3e} against the "
+              f"batch CLI's (tol {INGEST_ATOL:g}); events {events}")
+        if code != 202 or crec["state"] != "done" or not err <= INGEST_ATOL \
+                or k1_probe != LAYERS * forwards or forwards < 1 \
+                or ("rewarmed", clip_ft, None) not in events:
+            raise AssertionError(f"CLIP's re-warm: {code} {crec} {k1_probe} {events}")
+
+        # step 5: a beneficiary whose build fails hands the victim back
+        daemon.pool.evict("i3d")
+        ballast = wall_up(daemon.ledger.hbm_projection()["i3d"]["resident"] - min(
+            r_clip, r_i3d) // 2)
+        build = daemon.pool._build
+
+        def failing_build(cfg):
+            if cfg.feature_type == "i3d":
+                raise RuntimeError("injected build failure of the preemption's beneficiary")
+            return build(cfg)
+
+        daemon.pool._build = failing_build
+        try:
+            code, _ = http_json(port, "/v1/extract", {"feature_type": "i3d", "id": "p19-fail",
+                                                      "video_path": os.path.join(root,
+                                                                                 "i3d1.mp4")})
+            (frec,) = wait_terminal(["p19-fail"]).values()
+        finally:
+            daemon.pool._build = build
+            del ballast
+            ballast = None
+        gc.collect()
+        headroom()
+        reset_counts()
+        code_c, _ = http_json(port, "/v1/extract", {"feature_type": clip_ft, "id": "p19-back",
+                                                    "video_path": os.path.join(root,
+                                                                               "contract1.mp4"),
+                                                    "bucket": "320x240"})
+        (brec,) = wait_terminal(["p19-back"]).values()
+        k1_back = flash_attention.launches
+        events = _preempt_events(out)[events_seen:]
+        print(f"preempt, I3D + PWC whose build fails: {code} {frec['state']}; CLIP's breaker "
+              f"{daemon._breaker(clip_ft).state()}, then a CLIP request {code_c} "
+              f"{brec['state']}, K1 launches {k1_back}; events {events}")
+        if frec["state"] != "failed" or brec["state"] != "done" or k1_back != LAYERS \
+                or events[-2:] != [("preempted", clip_ft, "i3d"),
+                                   ("preemption_rollback", clip_ft, "i3d")]:
+            raise AssertionError(f"rollback: {frec} {brec} {events}")
+        k1, k2 = k1_probe + k1_back, k2_i3d
+    finally:
+        ballast = None
+        daemon.shutdown(drain=True)
+    print(f"preempt: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"flash_attention": k1, "local_correlation": k2}
+
+
+def _preempt_events(out: str) -> list:
+    """The daemon manifests' (event, feature type, beneficiary) rows of
+    preemption, rollback and re-warm, in order."""
+    from video_features_tpu_torch.runtime.faults import iter_manifest_records
+    from video_features_tpu_torch.serve.lifecycle import requests_root
+
+    rows = [r for r in iter_manifest_records(requests_root(out))
+            if r.get("event") in ("preempted", "preemption_rollback", "rewarmed")]
+    return [(r["event"], r.get("feature_type"), r.get("beneficiary")) for r in rows]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2740,6 +3212,7 @@ def main() -> int:
             ("bfloat16", lambda: run_bf16_path(root, device)),
             ("serve", lambda: run_serve_path(root, device)),
             ("disk flow and output flags", lambda: run_flags_path(root, device)),
+            ("preemption", lambda: run_preempt_path(root, device)),
         ]
         results = {}
         for name, phase in phases:
@@ -2748,12 +3221,24 @@ def main() -> int:
             print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
         # each kernel's launches: its main path's run, then the fused runs,
         # the device preprocess runs, the telemetry runs, the bf16 phase's,
-        # the served burst's and the disk flow and output flags phase's
+        # the served requests', the disk flow and output flags phase's and
+        # the preemption phase's
         later = [results["async ingest"], results["device preprocess"],
                  results["telemetry and preflight"], results["bfloat16"], results["serve"],
-                 results["disk flow and output flags"]]
+                 results["disk flow and output flags"], results["preemption"]]
         k1_launches = results["CLIP"] + sum(r["flash_attention"] for r in later)
         k2_launches = results["I3D + PWC"] + sum(r["local_correlation"] for r in later)
+        print("launches by phase: K1 " + ", ".join(
+            [f"CLIP {results['CLIP']}"] + [f"{n} {results[n]['flash_attention']}" for n in (
+                "async ingest", "device preprocess", "telemetry and preflight", "bfloat16",
+                "serve", "disk flow and output flags", "preemption")])
+            + "; K2 " + ", ".join(
+            [f"I3D + PWC {results['I3D + PWC']}"] + [f"{n} {results[n]['local_correlation']}"
+                                                     for n in ("async ingest", "device preprocess",
+                                                               "telemetry and preflight",
+                                                               "bfloat16", "serve",
+                                                               "disk flow and output flags",
+                                                               "preemption")]))
 
     records = [
         {

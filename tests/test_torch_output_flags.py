@@ -375,14 +375,56 @@ def test_sanity_check_decisions_match_jax(case, tmp_path, capsys):
 
 
 def test_show_pred_is_refused_for_clip_only():
-    """The one divergence on these flags: the JAX package accepts
-    ``--show_pred`` for CLIP and prints nothing; the port refuses it."""
-    with pytest.raises(ValueError, match="show_pred prints nothing for CLIP"):
-        config.sanity_check(ExtractionConfig(feature_type="CLIP-ViT-B/32", show_pred=True))
-    jax_config.sanity_check(JaxConfig(feature_type="CLIP-ViT-B/32", show_pred=True))
+    """``--show_pred`` for CLIP is accepted by both packages, which parse
+    it to the same config (the prediction pins to one device); the run's
+    printed output is ``test_clip_show_pred_prints_nothing_as_jax``'s."""
+    argv = ["--feature_type", "CLIP-ViT-B/32", "--show_pred", "--video_paths", "v.mp4",
+            "--device_ids", "0", "1"]
+    ours = config.parse_batch_args(argv)[0]
+    ref = jax_config.parse_batch_args(argv)[0]
+    assert ours.show_pred is ref.show_pred is True
+    assert ours.device_ids == ref.device_ids == [0]
+    assert (ours.feature_type, ours.extract_method, ours.on_extraction) == \
+        (ref.feature_type, ref.extract_method, ref.on_extraction)
     cfg = config.sanity_check(ExtractionConfig(feature_type="resnet18", show_pred=True,
                                                device_ids=[0, 1]))
     assert cfg.device_ids == [0]
+
+
+def test_clip_show_pred_prints_nothing_as_jax(tmp_path, sample_video, monkeypatch, capsys):
+    """The small CLIP tower with ``--show_pred`` through both packages:
+    each prints what it prints without the flag (nothing per video), and
+    the features are those of the run without it."""
+    from video_features_tpu.models.clip import model as jax_model
+    from video_features_tpu.models.clip.extract_clip import ExtractCLIP as JaxExtractCLIP
+    from video_features_tpu_torch.models.clip import model as port_model
+    from video_features_tpu_torch.models.clip.extract_clip import ExtractCLIP
+
+    from test_torch_clip import SMALL, openai_state_dict
+
+    ft = "CLIP-ViT-B/32"
+    monkeypatch.setitem(port_model.CONFIGS, ft, port_model.CLIPVisionConfig(**SMALL))
+    monkeypatch.setitem(jax_model.CONFIGS, ft, jax_model.CLIPVisionConfig(**SMALL))
+    weights = str(tmp_path / "clip_small.npz")
+    np.savez(weights, **openai_state_dict())
+    flags = dict(feature_type=ft, video_paths=[sample_video], extract_method="uni_3",
+                 weights_path=weights, cpu=True)
+    printed, feats = {}, {}
+    for show in (False, True):
+        ex = ExtractCLIP(config.sanity_check(ExtractionConfig(show_pred=show, **flags)),
+                         external_call=True)
+        capsys.readouterr()
+        feats[("port", show)] = ex([0], device=torch.device("cpu"))[0][ft]
+        printed[("port", show)] = capsys.readouterr().out
+        jex = JaxExtractCLIP(jax_config.sanity_check(JaxConfig(show_pred=show, decoder="cv2",
+                                                               **flags)), external_call=True)
+        capsys.readouterr()
+        feats[("jax", show)] = np.asarray(jex([0])[0][ft])
+        printed[("jax", show)] = capsys.readouterr().out
+    for pkg in ("port", "jax"):
+        assert printed[(pkg, True)] == printed[(pkg, False)]
+        np.testing.assert_array_equal(feats[(pkg, True)], feats[(pkg, False)])
+    assert printed[("port", True)] == printed[("jax", True)] == ""
 
 
 def test_pairs_do_not_reach_the_serve_configs(tmp_path):

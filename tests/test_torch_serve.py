@@ -11,8 +11,9 @@ feature files agree within 1e-4; a repeat is a cache hit in both. Then
 one test each for the real dispatcher thread, the HTTP door on port 0,
 the spool watcher, a group stopped by a sticky device error (the daemon
 then stops for every model: refused admission, 503s, no spool claim, and
-``serve_main`` returning 1), and the refused ``--preempt on`` /
-``--hbm_budget_bytes``.
+``serve_main`` returning 1), and ``--preempt``, ``--hbm_budget_bytes``
+and the preemptor's tuning flags parsed and validated as the JAX
+package's.
 """
 
 import json
@@ -453,23 +454,46 @@ def test_serve_main_exits_nonzero_after_a_sticky_error(tmp_path, serve_videos, s
     assert rec["state"] == "failed" and "injected fault" in rec["message"]
 
 
+def _serve_decision(parse, argv):
+    """(the preemption fields parsed, or the refusal's kind and text)."""
+    try:
+        scfg = parse(argv)
+    except ValueError as exc:
+        return ("refused", str(exc))
+    except SystemExit:
+        return ("argparse", None)
+    return (scfg.preempt, scfg.hbm_budget_bytes, scfg.preempt_cooldown_s,
+            scfg.preempt_min_residency_s)
+
+
 @pytest.mark.parametrize("flags", [["--preempt", "on"], ["--hbm_budget_bytes", "1000"]],
                          ids=["preempt", "hbm_budget"])
-def test_refused_serve_flags(tmp_path, flags):
-    with pytest.raises(ValueError, match="ROADMAP.md queue 1, item 11"):
-        parse_serve_args(["--feature_types", FT, "--cpu", "--output_path",
-                          str(tmp_path / "o"), *flags])
-    assert parse_serve_args(["--feature_types", FT, "--cpu", "--output_path",
-                             str(tmp_path / "o"), "--hbm_budget_bytes", "0"]).preempt == "off"
+def test_refused_serve_flags(tmp_path, flags, capsys):
+    """``--preempt on`` and a non-zero ``--hbm_budget_bytes`` parse and
+    validate as the JAX package's do (a negative budget is refused)."""
+    base = ["--feature_types", FT, "--cpu", "--output_path", str(tmp_path / "o")]
+    for extra in (flags, ["--hbm_budget_bytes", "-5", *flags], [*flags, "--preempt", "maybe"]):
+        ours = _serve_decision(parse_serve_args, base + extra)
+        assert ours == _serve_decision(jax_parse_serve_args, base + extra), extra
+    assert _serve_decision(parse_serve_args, base + flags) == (
+        ("on", 0, 30.0, 60.0) if flags[0] == "--preempt" else ("off", 1000, 30.0, 60.0))
+    assert _serve_decision(parse_serve_args, base + ["--hbm_budget_bytes", "-5"])[0] == "refused"
+    capsys.readouterr()  # argparse's usage lines
 
 
 @pytest.mark.parametrize("flag", ["--preempt_cooldown_s", "--preempt_min_residency_s"])
 def test_preemptor_tuning_flags_are_not_parsed(tmp_path, flag, capsys):
-    # they only tune the preemptor, which is not ported: argparse refuses them
-    with pytest.raises(SystemExit):
-        parse_serve_args(["--feature_types", FT, "--cpu", "--output_path",
-                          str(tmp_path / "o"), flag, "5"])
-    assert "unrecognized arguments" in capsys.readouterr().err
+    """The preemptor's tuning flags parse, and validate (>= 0), as the
+    JAX package's do."""
+    base = ["--feature_types", FT, "--cpu", "--output_path", str(tmp_path / "o"),
+            "--preempt", "on"]
+    for value in ("5", "0", "-1", "x"):
+        ours = _serve_decision(parse_serve_args, base + [flag, value])
+        assert ours == _serve_decision(jax_parse_serve_args, base + [flag, value]), value
+    assert _serve_decision(parse_serve_args, base + [flag, "5"]) == (
+        ("on", 0, 5.0, 60.0) if flag == "--preempt_cooldown_s" else ("on", 0, 30.0, 5.0))
+    assert _serve_decision(parse_serve_args, base + [flag, "-1"])[0] == "refused"
+    capsys.readouterr()
 
 
 def test_serve_without_cpu_needs_cuda(tmp_path, monkeypatch):

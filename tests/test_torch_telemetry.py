@@ -279,12 +279,14 @@ def test_pipelined_run_metrics_and_summary_match_jax(both_runs):
 
 
 def test_telemetry_dir_holds_the_jax_files_but_the_ledger(both_runs):
+    """Both packages' ``_telemetry/`` hold the same kinds of file, the
+    device cost ledger's ``cost_ledger.json`` included."""
     def kinds(root):
         return sorted(f.split("-")[0] if "-" in f else f
                       for f in os.listdir(os.path.join(root, "_telemetry")))
 
-    assert kinds(both_runs.port) == ["metrics", "spans"]
-    assert kinds(both_runs.jax) == ["cost_ledger.json", "metrics", "spans"]
+    assert kinds(both_runs.port) == kinds(both_runs.jax) == ["cost_ledger.json", "metrics",
+                                                            "spans"]
 
 
 def test_device_preprocess_run_counts_match_jax(clips, tmp_path, monkeypatch):
@@ -469,10 +471,11 @@ def test_cli_usage_errors(tmp_path, capsys):
     assert "cannot read" in capsys.readouterr().err
     assert tele_main(["trace", "r1", str(tmp_path)]) == 2  # no spans files
     assert "no spans" in capsys.readouterr().err
-    for argv in ([], ["ledger", str(tmp_path)]):
-        with pytest.raises(SystemExit) as exc:
-            tele_main(argv)
-        assert exc.value.code == 2  # argparse: ledger waits for the cost ledger
+    with pytest.raises(SystemExit) as exc:
+        tele_main([])
+    assert exc.value.code == 2  # argparse: a subcommand is required
+    assert tele_main(["ledger", str(tmp_path)]) == 2  # no cost_ledger.json under it
+    assert "no ledger" in capsys.readouterr().err
 
 
 def test_config_flags_validate_as_jax():

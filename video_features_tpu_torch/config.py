@@ -19,11 +19,11 @@ cache (``--cache_dir``, ``--cache_hash``), the shared-decode fan-out
 (``--feature_types``, ``--ingest_cache_mb``) and the serve daemon's
 ``ServeConfig`` (``parse_serve_args``, ``sanity_check_serve``). Flag
 names, meanings and defaults are the JAX package's; its ``--sharding
-mesh`` rules are left out, as the port runs on one device, and so are
-serve's ``--preempt on`` and ``--hbm_budget_bytes``, which
-``sanity_check_serve`` refuses until the device cost ledger is ported;
-the preemptor's own tuning flags (``--preempt_cooldown_s``,
-``--preempt_min_residency_s``) are not parsed at all until then.
+mesh`` rules are left out, as the port runs on one device. Serve's
+``--hbm_budget_bytes`` (the warmup gate on the device cost ledger's
+projection) and ``--preempt`` with its tuning flags
+(``--preempt_cooldown_s``, ``--preempt_min_residency_s``) parse and
+validate as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -44,9 +44,6 @@ RESNET_FEATURE_TYPES = [f"resnet{d}" for d in (18, 34, 50, 101, 152)]
 VGGISH_FEATURE_TYPES = ["vggish", "vggish_torch"]
 FEATURE_TYPES = (CLIP_FEATURE_TYPES + RESNET_FEATURE_TYPES + VGGISH_FEATURE_TYPES
                  + ["r21d_rgb", "raft", "pwc", "i3d"])
-# the feature types whose --show_pred this package refuses: the JAX
-# package accepts it for CLIP and prints nothing
-NO_SHOW_PRED_FEATURE_TYPES = CLIP_FEATURE_TYPES
 STREAMS = ("rgb", "flow")
 FLOW_TYPES = ("raft", "pwc", "flow")
 # the extractors whose dispatch honours --preprocess device: the image
@@ -271,12 +268,8 @@ def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
             f"flow features (raft/pwc), not {cfg.feature_type!r}"
         )
     if cfg.show_pred:
-        if cfg.feature_type in NO_SHOW_PRED_FEATURE_TYPES:
-            raise ValueError(
-                f"--show_pred prints nothing for {cfg.feature_type} (the JAX package "
-                "accepts it and prints nothing; this package refuses it)"
-            )
-        # predictions print per video: pin to one device
+        # predictions print per video (CLIP prints none, as in the JAX
+        # package): pin to one device
         if cfg.device_ids:
             cfg = cfg.replace(device_ids=[cfg.device_ids[0]])
     if cfg.dtype != "float32":
@@ -639,9 +632,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> ExtractionConfig:
 # serve mode (video_features_tpu_torch/serve/): the long-lived daemon's knobs
 # ---------------------------------------------------------------------------
 
-# the serve flags the JAX package has and this package refuses so far
-SERVE_TO_PORT = "ROADMAP.md queue 1, item 11"
-
 # every extraction flag the serve parser inherits still applies (device,
 # dtype, weights, --preprocess device, telemetry...);
 # ServeConfig only adds what a daemon needs on top: which models stay
@@ -695,11 +685,16 @@ class ServeConfig:
     # warmup preflight specs, each "<feature_type>:<W>x<H>"
     warmup: List[str] = field(default_factory=list)
     warmup_only: bool = False
-    # the JAX package's HBM budget on the cost ledger's projection and its
-    # HBM-aware preemption (serve/preemptor.py): refused here, non-zero /
-    # "on", until the ledger is ported (ROADMAP queue 1, item 11)
+    # fail warmup fast when the cost ledger's projected resident device
+    # memory for the resident models exceeds this many bytes (0 = unlimited)
     hbm_budget_bytes: int = 0
+    # HBM-aware preemption (serve/preemptor.py): "on" lets an
+    # overcommitting burst evict the lowest-value resident extractor
+    # instead of being rejected; hysteresis = one preemption per
+    # cooldown + a min-residency guard on every victim
     preempt: str = "off"
+    preempt_cooldown_s: float = 30.0
+    preempt_min_residency_s: float = 60.0
     # fleet identity + spool work-stealing (serve/sources.py): replicas
     # sharing one spool/output claim via per-replica lease files; a
     # lease whose heartbeat is older than lease_timeout_s is stolen by
@@ -816,13 +811,20 @@ def build_serve_arg_parser() -> argparse.ArgumentParser:
                         "resolution through it before accepting traffic "
                         "(weights, cuDNN algorithms, allocator); repeatable")
     g.add_argument("--hbm_budget_bytes", type=int, default=0,
-                   help="the JAX package's warmup HBM budget on its cost "
-                        "ledger: only 0 (unlimited) until the ledger is "
-                        "ported (ROADMAP queue 1, item 11)")
+                   help="fail warmup when the cost ledger projects the "
+                        "resident models' device-memory footprint past "
+                        "this many bytes (0 = unlimited)")
     g.add_argument("--preempt", choices=("on", "off"), default="off",
-                   help="the JAX package's HBM-aware preemption: only "
-                        "'off' until the ledger is ported (ROADMAP queue "
-                        "1, item 11)")
+                   help="HBM-aware preemption: a burst whose ledger-"
+                        "projected footprint cannot fit evicts the "
+                        "lowest-value resident extractor (breaker "
+                        "teardown + re-warm) instead of being rejected")
+    g.add_argument("--preempt_cooldown_s", type=float, default=30.0,
+                   help="minimum seconds between preemptions (hysteresis "
+                        "so two bursts cannot thrash-evict each other)")
+    g.add_argument("--preempt_min_residency_s", type=float, default=60.0,
+                   help="a resident extractor younger than this is never "
+                        "chosen as a preemption victim")
     g.add_argument("--replica_id", type=str, default=None,
                    help="this replica's stable identity in a multi-"
                         "replica fleet sharing one spool + output store "
@@ -877,6 +879,8 @@ def parse_serve_args(argv: Optional[Sequence[str]] = None) -> ServeConfig:
         warmup_only=warmup_only,
         hbm_budget_bytes=args.hbm_budget_bytes,
         preempt=args.preempt,
+        preempt_cooldown_s=args.preempt_cooldown_s,
+        preempt_min_residency_s=args.preempt_min_residency_s,
         replica_id=args.replica_id,
         lease_timeout_s=args.lease_timeout_s,
         shed_watermark=args.shed_watermark,
@@ -928,20 +932,15 @@ def sanity_check_serve(scfg: ServeConfig) -> ServeConfig:
         raise ValueError(f"retention_sweep_s must be >= 0, got {scfg.retention_sweep_s}")
     if scfg.hbm_budget_bytes < 0:
         raise ValueError(f"hbm_budget_bytes must be >= 0, got {scfg.hbm_budget_bytes}")
-    if scfg.hbm_budget_bytes > 0:
-        raise ValueError(
-            f"--hbm_budget_bytes {scfg.hbm_budget_bytes} is not ported yet: the "
-            "budget is checked against the device cost ledger's HBM projection "
-            f"({SERVE_TO_PORT}); pass 0 (unlimited)"
-        )
     if scfg.preempt not in ("on", "off"):
         raise ValueError(f"preempt must be 'on' or 'off', got {scfg.preempt!r}")
-    if scfg.preempt == "on":
+    if scfg.preempt_cooldown_s < 0:
         raise ValueError(
-            "--preempt on is not ported yet: HBM-aware preemption picks its "
-            f"victims from the device cost ledger's projection ({SERVE_TO_PORT}); "
-            "use --preempt off"
-        )
+            f"preempt_cooldown_s must be >= 0, got {scfg.preempt_cooldown_s}")
+    if scfg.preempt_min_residency_s < 0:
+        raise ValueError(
+            "preempt_min_residency_s must be >= 0, got "
+            f"{scfg.preempt_min_residency_s}")
     if scfg.replica_id is not None and not re.fullmatch(
             r"[A-Za-z0-9][A-Za-z0-9._-]{0,63}", scfg.replica_id):
         # replica ids become claim-file suffixes and heartbeat filenames

@@ -41,8 +41,10 @@ the reader, ``h2d``, ``dispatch``, ``fetch``, ``sink``; the serial loop's
 ``extract``), with counters (``videos_done``, ``frames_decoded``,
 ``h2d_bytes``, ``retries``, ``windows_skipped``), the pipelined loop's
 queue-depth gauges and the shape keys seen. A save run drains them to
-``<output_path>/_telemetry/``, and ``finalize_run`` puts the merged block
-in ``summary.json``; other runs keep the spans in memory. A failure
+``<output_path>/_telemetry/``, beside the device cost ledger's
+``cost_ledger.json`` (``telemetry/ledger.py``: each model call's flops
+and memory, measured at its first call), and ``finalize_run`` puts the
+merged block in ``summary.json``; other runs keep the spans in memory. A failure
 record carries the id of the span it failed in. ``--profile_dir`` wraps
 the loop in a ``torch.profiler`` trace (``utils/profiling.py``) and
 prints the per-stage wall time.
@@ -107,6 +109,11 @@ from video_features_tpu_torch.runtime import faults
 from video_features_tpu_torch.runtime import telemetry as telemetry_mod
 from video_features_tpu_torch.runtime.faults import NULL_MANIFEST, RunManifest
 from video_features_tpu_torch.runtime.telemetry import Telemetry
+from video_features_tpu_torch.telemetry.ledger import (
+    CostLedger,
+    default_ledger_path,
+    instrument_state,
+)
 from video_features_tpu_torch.utils.profiling import device_trace
 
 
@@ -166,6 +173,12 @@ class BaseExtractor:
         )
         self.timer = self.telemetry.timer
         telemetry_mod.set_current(self.telemetry)
+        # the device cost ledger (telemetry/ledger.py), on the runs that
+        # write spans: warmup() hooks the built state so each module's
+        # first call per signature records its flops and memory
+        self.ledger: Optional[CostLedger] = (
+            CostLedger.shared(default_ledger_path(self.config)) if tele_root is not None else None
+        )
         faults.install_injector(self.config.fault_inject)
         # --decode_timeout and the input caps: every reader opened from now
         # on takes them (io/video.py); the probe checks the same caps
@@ -342,10 +355,17 @@ class BaseExtractor:
         return max(max_bytes // resident // frame_bytes, floor)
 
     def warmup(self, device: torch.device) -> Any:
-        """Build (once) and cache this device's model state."""
+        """Build (once) and cache this device's model state. On the runs
+        with a ledger the state's modules are hooked for it
+        (``telemetry/ledger.py::instrument_state``): the first call per
+        (fn family, signature) records its flops and memory; every call
+        still runs the module as it is."""
         state = self._device_state.get(device)
         if state is None:
-            state = self._device_state[device] = self._build(device)
+            state = self._build(device)
+            if self.ledger is not None:
+                instrument_state(state, self.ledger, model=self.feature_type, device=device)
+            self._device_state[device] = state
         return state
 
     def __call__(

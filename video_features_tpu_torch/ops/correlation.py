@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
+from video_features_tpu_torch.telemetry.ledger import kernel_flops
 
 METHODS = ("auto", "plain")
 
@@ -44,9 +45,19 @@ def local_correlation(
 ) -> torch.Tensor:
     """(N, C, H, W) x2 -> (N, (2d+1)^2, H, W). ``method='plain'`` forces
     the plain version on any device; ``'auto'`` takes the kernel on the
-    card and the plain version on the CPU."""
+    card and the plain version on the CPU. Inside a cost-ledger capture
+    the call counts ``correlation_flops`` whichever version runs
+    (``telemetry/ledger.py::kernel_flops``)."""
     if method not in METHODS:
         raise ValueError(f"method must be one of {METHODS}, got {method!r}")
-    if method == "plain" or (f1.device.type == "cpu" and f2.device.type == "cpu"):
-        return local_correlation_reference(f1, f2, max_displacement)
-    return local_correlation_kernel(f1, f2, max_displacement)
+    with kernel_flops(correlation_flops(f1, max_displacement) if f1.dim() == 4 else 0):
+        if method == "plain" or (f1.device.type == "cpu" and f2.device.type == "cpu"):
+            return local_correlation_reference(f1, f2, max_displacement)
+        return local_correlation_kernel(f1, f2, max_displacement)
+
+
+def correlation_flops(f1: torch.Tensor, max_displacement: int = 4) -> int:
+    """K2's operations, as the cost ledger counts them: one multiply and
+    one add per (plane, channel, pixel), 2 * 81 * N * C * H * W at d=4."""
+    n, c, h, w = f1.shape
+    return 2 * (2 * max_displacement + 1) ** 2 * n * c * h * w

@@ -18,6 +18,7 @@ import torch
 
 from video_features_tpu_torch.ops import kernels
 from video_features_tpu_torch.ops.attention import blockwise_attention
+from video_features_tpu_torch.telemetry.ledger import kernel_flops
 
 # the kernel's tiles (csrc/flash_attention.cu kBlockQ / kBlockK): 4 warps
 # of 16 query rows, 64-row KV tiles
@@ -68,9 +69,25 @@ def flash_attention(
 
     ``kv_len`` masks KV positions ``>= kv_len``. On the CPU the blocks are
     the plain version's tiles; on the card they must be the kernel's
-    (``BLOCK_Q``, ``BLOCK_K``)."""
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
-        return flash_attention_reference(q, k, v, block_k=block_k, kv_len=kv_len)
+    (``BLOCK_Q``, ``BLOCK_K``). Inside a cost-ledger capture the call
+    counts ``attention_flops`` whichever version runs
+    (``telemetry/ledger.py::kernel_flops``)."""
+    flops = attention_flops(q, k, kv_len) if q.dim() == k.dim() == 4 else 0
+    with kernel_flops(flops):
+        if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+            return flash_attention_reference(q, k, v, block_k=block_k, kv_len=kv_len)
+        return _launch(q, k, v, block_q, block_k, kv_len)
+
+
+def attention_flops(q: torch.Tensor, k: torch.Tensor, kv_len: Optional[int] = None) -> int:
+    """The kernel's operations, as the cost ledger counts them: the
+    ``q k^T`` and ``p v`` products, 2 * 2 * Lq * kv_len * d per (n, h)."""
+    n, h, lq, d = q.shape
+    return 4 * n * h * lq * (k.shape[2] if kv_len is None else int(kv_len)) * d
+
+
+def _launch(q, k, v, block_q: int, block_k: int, kv_len: Optional[int]) -> torch.Tensor:
+    """Check the arguments and launch the kernel on q's device."""
     if not (q.device == k.device == v.device and q.device.type == "cuda"):
         raise ValueError(
             f"flash_attention needs q, k, v on one CUDA device, got "

@@ -4,8 +4,7 @@ manifest and deterministic fault injection.
 Counterpart of ``video_features_tpu/runtime/faults.py``: the batch
 pipeline's stages (decode, prepare, dispatch, sink) and the serve
 daemon's (admission, serve_dispatch, extractor, tracker_write,
-replica_kill, lease_stall; the JAX package's ``hbm_squeeze`` waits with
-the preemptor):
+replica_kill, hbm_squeeze, lease_stall):
 
 - :func:`classify_error` buckets an exception into ``transient`` (I/O
   flake, decode deadline: retrying may help), ``oom`` (memory pressure:
@@ -49,12 +48,15 @@ SUMMARY_BASENAME = "summary.json"
 # extractor call, the resident extractor itself (breaker/teardown
 # coverage), and the durable result write; replica_kill fires in the
 # spool watcher's poll pass (kind 'kill' SIGKILLs the whole replica
-# process — the work-stealing drill) and lease_stall in the lease
-# heartbeat (a raising kind skips that pass's mtime refresh)
+# process — the work-stealing drill), hbm_squeeze in the preemptor's
+# headroom read (any raising kind collapses the observed device-memory
+# headroom to zero, forcing the preemption path without a real wall)
+# and lease_stall in the lease heartbeat (a raising kind skips that
+# pass's mtime refresh)
 STAGES = (
     "decode", "prepare", "dispatch", "sink",
     "admission", "serve_dispatch", "extractor", "tracker_write",
-    "replica_kill", "lease_stall",
+    "replica_kill", "hbm_squeeze", "lease_stall",
 )
 KINDS = ("error", "corrupt", "hang", "oom", "compile", "kill")
 # how long an injected 'hang' sleeps

@@ -289,3 +289,26 @@ class AdmissionController:
     def oldest_wait_s(self) -> float:
         with self._cond:
             return self._oldest_wait_locked(self._clock())
+
+    def queued_by_feature_type(self) -> Dict[str, Dict[str, Any]]:
+        """Per-feature-type view of everything still queued (coalescing
+        buffers + ready groups): ``{ft: {"count", "max_priority",
+        "buckets"}}``. The preemptor's value score reads this — how much
+        work is waiting for each model, at what priority tier, on which
+        spatial buckets."""
+        with self._cond:
+            out: Dict[str, Dict[str, Any]] = {}
+            for key, buf in list(self._buffers.items()) + list(self._ready):
+                ft, bucket = key
+                stat = out.setdefault(
+                    ft, {"count": 0, "max_priority": 0, "buckets": set()}
+                )
+                stat["count"] += len(buf)
+                stat["buckets"].add(bucket)
+                for r in buf:
+                    pri = getattr(r, "priority", None)
+                    if pri is not None and int(pri) > stat["max_priority"]:
+                        stat["max_priority"] = int(pri)
+            for stat in out.values():
+                stat["buckets"] = sorted(stat["buckets"])
+            return out

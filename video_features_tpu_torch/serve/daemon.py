@@ -47,14 +47,27 @@ process. This is the port's own: the JAX daemon has no sticky errors.
 model and drives a synthetic clip of each declared resolution through
 the normal dispatch path: on the card that loads the weights and picks
 cuDNN's algorithms before the first request (eager PyTorch compiles
-nothing). Left out until the device cost ledger is ported (ROADMAP
-queue 1, item 11): the preemptor, the ledger's HBM projection, and the
-``ledger``/``preemptor`` keys of ``stats``; ``sanity_check_serve``
-refuses ``--preempt on`` and a non-zero ``--hbm_budget_bytes``.
+nothing); each warmup line ends with the model's projected resident
+device memory (``hbm=``), and ``--hbm_budget_bytes`` fails the warmup
+when the resident models' projection exceeds it.
+
+The device cost ledger (``telemetry/ledger.py``): the pooled extractors
+record each model call's flops and memory at its first call, and a
+:class:`~video_features_tpu_torch.telemetry.ledger.DeviceMemorySampler`
+polls the daemon's device into the ``device_mem_*`` gauges (none on the
+CPU). With ``--preempt on`` a :class:`~video_features_tpu_torch.serve.
+preemptor.Preemptor` gates admission: a request for a model that is not
+resident and whose projection does not fit the sampler's headroom first
+evicts the lowest-value residents (their breakers tripped, a
+``preempted`` event each), and a failed build of that model rolls the
+victims back (``preemption_rollback``). Every ``torch.cuda`` memory call
+names the daemon's device: groups dispatch from threads that made no
+CUDA call of their own.
 """
 
 from __future__ import annotations
 
+import gc
 import os
 import signal
 import threading
@@ -90,6 +103,7 @@ from video_features_tpu_torch.serve.lifecycle import (
     RequestTracker,
     parse_request,
 )
+from video_features_tpu_torch.serve.preemptor import PreemptionPlan, Preemptor
 from video_features_tpu_torch.serve.scheduler import build_scheduler
 from video_features_tpu_torch.serve.supervisor import (
     CircuitBreaker,
@@ -100,9 +114,16 @@ from video_features_tpu_torch.serve.supervisor import (
 )
 from video_features_tpu_torch.telemetry.exposition import (
     Family,
+    families_from_ledger,
     families_from_snapshot,
     group_service_metric,
     render_families,
+)
+from video_features_tpu_torch.telemetry.ledger import (
+    CostLedger,
+    DeviceMemorySampler,
+    default_ledger_path,
+    format_bytes,
 )
 from video_features_tpu_torch.utils.synth import synth_video
 
@@ -245,9 +266,12 @@ class ExtractorPool:
         """Tear one resident extractor down (breaker opened, or a
         watchdog-abandoned worker may still hold its model state); the
         next :meth:`get` rebuilds from scratch through the same path.
-        Dropping the reference frees nothing by itself: a watchdog-
-        abandoned worker thread may still hold the old model's tensors,
-        and until it lets go a rebuild holds two copies of the weights."""
+        The extractor's tensors go back to the allocator once nothing
+        holds them: a collection after the drop reclaims the ones held
+        only by reference cycles, so a preemption's beneficiary builds
+        into the memory its victims held. A watchdog-abandoned worker
+        thread may still hold the old model's tensors, and until it lets
+        go a rebuild holds two copies of the weights."""
         with self._lock:
             ext = self._extractors.pop(feature_type, None)
             self.built_at.pop(feature_type, None)
@@ -256,6 +280,8 @@ class ExtractorPool:
                 ext.telemetry.close()
             except Exception:  # noqa: BLE001 - eviction must finish
                 pass
+            del ext
+            gc.collect()
 
     def close(self) -> None:
         with self._lock:
@@ -307,6 +333,17 @@ class ServeDaemon:
         # live on the daemon's (injectable) scheduling clock
         self.slo = SloTracker(window_s=scfg.slo_window_s, clock=clock)
         self.cost_model = ServiceTimeModel(path=default_model_path(self.cfg))
+        # device cost ledger: the pooled extractors record each model
+        # call's flops and memory here (extract/base.py hooks the built
+        # state at warmup); shared() so daemon and extractors see one
+        # object per path. The sampler polls the daemon's device into the
+        # registry (no gauge on the CPU)
+        self.ledger = CostLedger.shared(default_ledger_path(self.cfg))
+        self.sampler = DeviceMemorySampler(
+            self.telemetry.metrics,
+            interval_s=max(float(self.cfg.heartbeat_s or 0.0), 10.0),
+            devices=[self.device],
+        )
         # fleet identity: every manifest line is attributed
         # to this replica, and the registry heartbeat is how surviving
         # peers on a shared output store learn this process is alive
@@ -376,6 +413,27 @@ class ServeDaemon:
         )
         self.watchdog = Watchdog(scfg.group_timeout_s)
         self._breakers: Dict[str, CircuitBreaker] = {}
+        # HBM-aware preemption (serve/preemptor.py): only constructed
+        # when --preempt on; with it off, an overcommitting burst meets
+        # no admission gate
+        self.preemptor: Optional[Preemptor] = None
+        self._preempt_plans: Dict[str, PreemptionPlan] = {}
+        if scfg.preempt == "on":
+            self.preemptor = Preemptor(
+                ledger=self.ledger,
+                cost_model=self.cost_model,
+                pool=self.pool,
+                breaker_for=self._breaker,
+                headroom_fn=self._headroom_bytes,
+                queued_fn=self.batcher.queued_by_feature_type,
+                hbm_budget_bytes=scfg.hbm_budget_bytes,
+                cooldown_s=scfg.preempt_cooldown_s,
+                min_residency_s=scfg.preempt_min_residency_s,
+                clock=clock,
+                metrics=(self.telemetry.metrics
+                         if self.telemetry.enabled else None),
+                manifest=self.tracker.manifest,
+            )
         self._cancel_pending: set = set()
         self._http_server: Any = None
         self._http_thread: Any = None
@@ -455,6 +513,7 @@ class ServeDaemon:
                     # the open
                     self.tracker.reject(req, str(exc))
                 raise exc
+            self._hbm_gate(req)
             rec = self.tracker.admit(req)
             try:
                 self.batcher.admit(req)
@@ -527,6 +586,54 @@ class ServeDaemon:
             # own durable record and simply retries after backoff
             self.tracker.reject(req, msg)
         raise QueueFull(msg)
+
+    # -- HBM-aware preemption ------------------------------------------------
+
+    def _headroom_bytes(self) -> Optional[int]:
+        """The live ``device_mem_headroom_bytes`` gauge (set by the
+        DeviceMemorySampler), or None on the CPU — the preemptor then
+        falls back to the static ``--hbm_budget_bytes`` arithmetic."""
+        gauges = self.telemetry.metrics.snapshot().get("gauges", {})
+        h = gauges.get("device_mem_headroom_bytes")
+        return int(h) if h is not None else None
+
+    def _hbm_gate(self, req: ExtractionRequest) -> None:
+        """Admission HBM arbitration (only with ``--preempt on``): a
+        request for a non-resident model whose ledger-projected footprint
+        cannot fit beside the resident set first tries to preempt the
+        lowest-value residents; only if even that cannot make room is it
+        refused (503 with the cooldown as Retry-After; spool files defer
+        and retry, exactly like an open breaker)."""
+        if self.preemptor is None:
+            return
+        verdict, needed, available = self.preemptor.check(req.feature_type)
+        if verdict != "overcommit":
+            return
+        plan = self.preemptor.ensure_room(req.feature_type)
+        if plan is not None:
+            # remember the sacrifice until the beneficiary's build
+            # succeeds — a failed build rolls the victims back
+            with self._lock:
+                self._preempt_plans[req.feature_type] = plan
+            return
+        if self.preemptor.check(req.feature_type)[0] != "overcommit":
+            return  # a concurrent admission already made room
+        exc = ModelUnavailable(
+            req.feature_type, self.scfg.preempt_cooldown_s,
+            reason=(
+                f"model {req.feature_type!r} cannot fit: needs {needed} "
+                f"bytes of HBM, {available} available, and no resident "
+                f"extractor is preemptible right now; retry in "
+                f"{self.scfg.preempt_cooldown_s:.1f}s"
+            ),
+        )
+        if req.source != "spool":
+            self.tracker.reject(req, str(exc))
+        raise exc
+
+    def _pop_plan(self, feature_type: str) -> Optional[PreemptionPlan]:
+        with self._lock:
+            return self._preempt_plans.pop(feature_type, None)
 
     # -- multi-model fan-out ----------------------------------------------
 
@@ -704,12 +811,18 @@ class ServeDaemon:
                 if breaker.record_failure():
                     self.pool.evict(feature_type)
                 resolved = True
+                plan = self._pop_plan(feature_type)
+                if plan is not None and self.preemptor is not None:
+                    # this build was a preemption's beneficiary: hand the
+                    # victims their slots back rather than serving neither
+                    self.preemptor.rollback(plan)
                 for r in live:
                     self.tracker.finish(
                         r, "failed", error_class=faults.classify_error(exc),
                         error_type=type(exc).__name__, message=msg,
                     )
                 return
+            self._pop_plan(feature_type)  # built: the preemption held up
             for r in live:
                 self.tracker.dispatched(r, group_size=len(live))
             # module-level telemetry hooks (decode frame counters, bucket
@@ -792,7 +905,8 @@ class ServeDaemon:
             resolved = True
             if probing:
                 # durable recovery trail: the re-warmed model just proved
-                # itself end to end
+                # itself end to end (pairs with the 'preempted' event
+                # when the open was a preemption trip)
                 self.tracker.manifest.event(
                     "rewarmed", feature_type=feature_type
                 )
@@ -1020,8 +1134,32 @@ class ServeDaemon:
             print(
                 f"serve: warmup {ft} {w}x{h}: {rec.get('state', '?')}"
                 + (f" ({rec.get('message')})" if rec.get("state") == "failed" else "")
+                + f" hbm={self._warmup_hbm(ft)}"
             )
+        self._check_hbm_budget()
         return out
+
+    def _warmup_hbm(self, feature_type: str) -> str:
+        """The ledger's projected resident device memory for one model,
+        for the warmup line — 'n/a' when the ledger has no device-memory
+        entries for it (the CPU records flops only)."""
+        proj = self.ledger.hbm_projection().get(feature_type)
+        return format_bytes(proj["resident"]) if proj else "n/a"
+
+    def _check_hbm_budget(self) -> None:
+        """Fail warmup fast when the projected resident set for ALL the
+        resident models exceeds --hbm_budget_bytes (0 = unlimited)."""
+        budget = int(self.scfg.hbm_budget_bytes or 0)
+        if budget <= 0:
+            return
+        projected = self.ledger.projected_resident_bytes(self.scfg.feature_types)
+        if projected > budget:
+            raise RuntimeError(
+                f"serve: projected resident HBM {format_bytes(projected)} "
+                f"exceeds --hbm_budget_bytes {format_bytes(budget)} for "
+                f"models {', '.join(self.scfg.feature_types)} — shrink the "
+                "resident set or raise the budget"
+            )
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -1033,6 +1171,7 @@ class ServeDaemon:
             self._started = True
         if self.scfg.warmup:
             self.warmup()
+        self.sampler.start()
         self.batcher.start()
         if self.scfg.retention_sweep_s > 0:
             self._sweep_thread = threading.Thread(
@@ -1119,6 +1258,8 @@ class ServeDaemon:
             "watchdog_timeouts": self.watchdog.timeouts(),
             "replica": self.replica_id,
         }
+        if self.preemptor is not None:
+            out["preemptor"] = self.preemptor.snapshot()
         if self.stopped_by is not None:
             out["error"] = self.stopped_by
         return out
@@ -1132,6 +1273,7 @@ class ServeDaemon:
         out["slo"] = self.slo.snapshot()
         out["cost_model"] = self.cost_model.snapshot()
         out["metrics"] = self.telemetry.metrics.snapshot()
+        out["ledger"] = self.ledger.snapshot()
         hits, misses = self._cache_counts(out["metrics"])
         out["cache"] = {
             "enabled": self.cache is not None,
@@ -1163,6 +1305,7 @@ class ServeDaemon:
         families rendered directly from live daemon state (breakers,
         SLO quantiles, uptime, watchdog)."""
         fams = families_from_snapshot(self.telemetry.metrics.snapshot())
+        fams.extend(families_from_ledger(self.ledger.snapshot()))
         fams.extend(self._serve_families())
         return render_families(fams)
 
@@ -1256,6 +1399,9 @@ class ServeDaemon:
             )
         if open_breakers:
             line += " breakers_open=" + ",".join(open_breakers)
+        headroom = snap["gauges"].get("device_mem_headroom_bytes")
+        if headroom is not None:
+            line += f" hbm_headroom={format_bytes(int(headroom))}"
         return line
 
     def shutdown(self, drain: bool = True) -> None:
@@ -1277,6 +1423,7 @@ class ServeDaemon:
         if spool is not None:
             spool.stop()
         self._stop_sweep()
+        self.sampler.stop()  # idempotent; no-op when start() never ran
         self._disposition_undispatched(self.batcher.close(drain=drain))
         self.pool.close()
         # clean exit: drop the heartbeat so surviving replicas reclaim

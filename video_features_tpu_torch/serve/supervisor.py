@@ -2,10 +2,10 @@
 per-feature-type circuit breaker.
 
 Counterpart of ``video_features_tpu/serve/supervisor.py``, copied as it
-is (stdlib only), without ``CircuitBreaker.trip`` and ``force_close``:
-the preemptor that force-opens a breaker and rolls it back is not
-ported (ROADMAP queue 1, item 11). :class:`DaemonStopped` is the port's
-own: the JAX daemon has no process-wide sticky device error to refuse on.
+is (stdlib only), with ``CircuitBreaker.trip`` and ``force_close``, the
+preemptor's teardown and rollback (``serve/preemptor.py``).
+:class:`DaemonStopped` is the port's own: the JAX daemon has no
+process-wide sticky device error to refuse on.
 
 A resident daemon's failure modes differ from a batch run's: a wedged
 extractor (hung decode on the dispatcher thread, a device runtime that
@@ -154,6 +154,29 @@ class CircuitBreaker:
         between two real infra failures must not mask the streak, and
         ignoring it is exactly the point)."""
         with self._lock:
+            self._probing = False
+
+    def trip(self) -> None:
+        """Force-open the breaker (HBM-aware preemption): the preemptor
+        evicts a victim extractor to make room for a burst and trips its
+        breaker so the victim's traffic defers (503 / spool backoff)
+        instead of racing an immediate rebuild into the memory it just
+        freed. The re-warm rides the normal cooldown -> half-open ->
+        probe path, so recovery is observable in /healthz exactly like a
+        failure-opened breaker."""
+        with self._lock:
+            self._state = "open"
+            self._opened_at = self._clock()
+            self._probing = False
+            self._opens += 1
+
+    def force_close(self) -> None:
+        """Roll the breaker back to closed (preemption rollback: the
+        beneficiary's build failed, so the victim should serve again
+        without waiting out a cooldown it did nothing to deserve)."""
+        with self._lock:
+            self._state = "closed"
+            self._failures = 0
             self._probing = False
 
     def record_failure(self) -> bool:

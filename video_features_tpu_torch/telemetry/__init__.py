@@ -7,9 +7,9 @@ recording engine lives in :mod:`video_features_tpu_torch.runtime.telemetry`
 JSONL schema (``spans_schema.json``, byte-equal to the JAX package's) and
 the CLI consumers in ``__main__.py``. The engine's public names are
 re-exported here so consumers can import one module. The serve daemon's
-Prometheus text (``GET /metrics``) is rendered by ``exposition.py``; the
-JAX package's device cost ledger (``ledger.py``) waits for a later slice
-(ROADMAP queue 1, item 11).
+Prometheus text (``GET /metrics``) is rendered by ``exposition.py``, and
+the device cost ledger (each model call's flops and memory, the resident
+projection, the live device-memory gauges) lives in ``ledger.py``.
 """
 
 from __future__ import annotations

@@ -15,11 +15,13 @@ for the span files a run leaves under ``<output>/_telemetry/``.
   (admission, request, queue_wait) and the resident extractor's group
   dispatch and per-video stages (``runtime/telemetry.py::
   request_trace_rows``). Pass the daemon's output root.
+- ``ledger PATH [--json]`` — render the device cost ledger
+  (``telemetry/ledger.py``): per-(model, fn family, bucket, sharding)
+  flops and memory bytes, plus the per-model resident projection. PATH
+  is the ledger JSON, a directory holding it, or a run's output root
+  (ledger under ``_telemetry/``). Either package's ledger file reads.
 
-The JAX package's ``ledger`` subcommand (the device cost ledger) waits
-with the ledger (ROADMAP queue 1, item 11).
-
-Exit codes: 0 ok, 2 usage error or no spans found.
+Exit codes: 0 ok, 2 usage error, no spans found, or no ledger at PATH.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import glob
 import json
 import os
 import sys
-from typing import List
+from typing import Any, List
 
 from video_features_tpu_torch.runtime.telemetry import (
     overlap_report,
@@ -50,6 +52,73 @@ def _resolve_span_files(paths: List[str]) -> List[str]:
         else:
             out.append(p)
     return out
+
+
+def _resolve_ledger_path(path: str) -> str:
+    """PATH may be the ledger file itself, a directory holding it (the
+    JAX package's ``--compile_cache``), or a run's output root (ledger
+    under ``_telemetry/``)."""
+    from video_features_tpu_torch.telemetry.ledger import LEDGER_FILENAME
+
+    if os.path.isdir(path):
+        for candidate in (
+            os.path.join(path, LEDGER_FILENAME),
+            os.path.join(path, "_telemetry", LEDGER_FILENAME),
+        ):
+            if os.path.isfile(candidate):
+                return candidate
+        return os.path.join(path, LEDGER_FILENAME)  # for the error message
+    return path
+
+
+def _ledger_main(args: Any) -> int:
+    from video_features_tpu_torch.telemetry.ledger import format_bytes, load_ledger
+
+    path = _resolve_ledger_path(args.path)
+    ledger = load_ledger(path)
+    if ledger is None:
+        print(f"telemetry: no ledger at {path}", file=sys.stderr)
+        return 2
+    snap = ledger.snapshot()
+    if args.json:
+        print(json.dumps(snap, indent=2, sort_keys=True))
+        return 0
+    entries = snap["entries"]
+    print(f"ledger: {path} ({len(entries)} executable(s))")
+    header = (
+        f"{'model':<20} {'family':<20} {'bucket':<16} {'sharding':<8} "
+        f"{'platform':<8} {'flops':>12} {'moved':>10} {'hbm args':>10} "
+        f"{'temp':>10}"
+    )
+    print(header)
+    print("-" * len(header))
+    for e in entries:
+        mem = e.get("memory", {})
+        flops = e.get("flops")
+        moved = e.get("bytes_accessed")
+        print(
+            f"{e.get('model', '~'):<20} {e.get('family', '~'):<20} "
+            f"{e.get('bucket', '~'):<16} {e.get('sharding', '~'):<8} "
+            f"{e.get('platform', '~'):<8} "
+            f"{(f'{flops:.3g}' if flops is not None else '-'):>12} "
+            f"{(format_bytes(moved) if moved is not None else '-'):>10} "
+            f"{(format_bytes(mem['argument_bytes']) if 'argument_bytes' in mem else '-'):>10} "
+            f"{(format_bytes(mem['temp_bytes']) if 'temp_bytes' in mem else '-'):>10}"
+        )
+    proj = snap["hbm_projection"]
+    if proj:
+        print("projected resident HBM per model:")
+        for model, p in sorted(proj.items()):
+            print(
+                f"  {model}: {format_bytes(p['resident'])} "
+                f"(arguments {format_bytes(p['arguments'])}, outputs "
+                f"{format_bytes(p['outputs'])}, temp {format_bytes(p['temp'])}, "
+                f"code {format_bytes(p['generated_code'])})"
+            )
+    else:
+        print("projected resident HBM: none (no HBM-platform entries — "
+              "CPU-backend runs record flops only)")
+    return 0
 
 
 def main(argv: List[str]) -> int:
@@ -78,7 +147,19 @@ def main(argv: List[str]) -> int:
                          help="spans-*.jsonl files, a _telemetry dir, or an output root")
     p_trace.add_argument("-o", "--output", default=None,
                          help="trace JSON path (default: stdout)")
+    p_ledger = sub.add_parser(
+        "ledger", help="render the device cost ledger (flops/memory per model call)"
+    )
+    p_ledger.add_argument(
+        "path",
+        help="cost_ledger.json, a directory holding it, or an output root",
+    )
+    p_ledger.add_argument("--json", action="store_true",
+                          help="emit the raw ledger snapshot")
     args = parser.parse_args(argv)
+
+    if args.cmd == "ledger":
+        return _ledger_main(args)
 
     rows = []
     for f in _resolve_span_files(args.paths):

@@ -2,12 +2,8 @@
 
 Counterpart of ``video_features_tpu/telemetry/exposition.py``, copied as
 it is (stdlib only; the family names and HELP texts are the JAX
-package's, so one snapshot renders byte-identical text in both), without
-``families_from_ledger`` and the names only the ledger's side writes
-(the ``preemptions.`` counters, the ``device_mem_bytes.`` and
-``device_mem_headroom_bytes`` gauges): the device cost ledger and the
-preemptor are not ported (ROADMAP queue 1, item 11). Such a name would
-render as a generic registry series.
+package's, so one snapshot — registry or cost ledger — renders
+byte-identical text in both).
 
 The serve daemon's ``GET /metrics`` endpoint (serve/server.py) renders
 the live :class:`~video_features_tpu_torch.runtime.telemetry.MetricsRegistry`
@@ -101,6 +97,10 @@ _PLAIN_GAUGES = {
     "queue_age_oldest_s": (
         "Age in seconds of the oldest request waiting in the batcher "
         "queue — the head-of-line latency the scheduler is quoting."
+    ),
+    "device_mem_headroom_bytes": (
+        "HBM budget minus the cost ledger's resident-bytes projection "
+        "(what the preemptor spends; negative means overcommit)."
     ),
 }
 
@@ -221,6 +221,14 @@ def families_from_snapshot(snap: Dict[str, Any]) -> List[Family]:
                 "Serve requests reaching each lifecycle state (terminal "
                 "states plus admitted/deferred/requeued).",
             ).add({"state": name[len("requests_"):]}, value)
+        elif name.startswith("preemptions."):
+            fam(
+                f"{METRIC_PREFIX}preemptions_total", "counter",
+                "HBM-aware preemptions per evicted feature type (the "
+                "victim's extractor was torn down to fit an "
+                "overcommitting burst; see docs/serving.md \"Fleet "
+                "operation\").",
+            ).add({"feature_type": name[len("preemptions."):]}, value)
         elif name.startswith("lease_steals."):
             fam(
                 f"{METRIC_PREFIX}lease_steals_total", "counter",
@@ -279,6 +287,18 @@ def families_from_snapshot(snap: Dict[str, Any]) -> List[Family]:
                 "is fresher than --lease_timeout_s, else 0 (survivors "
                 "reclaim a down replica's leases and requests).",
             ).add({"replica": name[len("replica_up."):]}, value)
+        elif name.startswith("device_mem_bytes."):
+            # DeviceMemorySampler gauges: "device_mem_bytes.<device>|<kind>"
+            # (absent entirely on backends without device.memory_stats())
+            dev, _, kind = name[len("device_mem_bytes."):].partition(
+                GROUP_SERVICE_SEP
+            )
+            fam(
+                f"{METRIC_PREFIX}device_mem_bytes", "gauge",
+                "Live device memory by device and kind (in_use/limit/"
+                "peak/reserved), polled from device.memory_stats(); "
+                "absent on backends without the API.",
+            ).add({"device": dev, "kind": kind or "~"}, value)
         elif name in _PLAIN_GAUGES:
             fam(
                 f"{METRIC_PREFIX}{name}", "gauge",
@@ -312,7 +332,57 @@ def families_from_snapshot(snap: Dict[str, Any]) -> List[Family]:
     return list(fams.values())
 
 
-# -- the checker -------------------------------------------------------------
+# -- ledger snapshot -> families -----------------------------------------
+
+
+def families_from_ledger(snapshot: Dict[str, Any]) -> List[Family]:
+    """Exposition families from a CostLedger snapshot
+    (telemetry/ledger.py): per-executable flops / bytes-accessed for
+    every entry (present on any backend — CPU included, the
+    cost_analysis API is portable), and the per-model resident-HBM
+    projection ``vft_hbm_bytes{model,kind}`` — which only exists for
+    entries built on an HBM platform, so a CPU daemon's /metrics
+    legitimately has no ``vft_hbm_*`` series."""
+    fams: List[Family] = []
+    f_flops = Family(
+        f"{METRIC_PREFIX}executable_flops", "gauge",
+        "Flops per built executable (cost_analysis), keyed by model, "
+        "fn family, spatial bucket, and sharding mode.",
+    )
+    f_moved = Family(
+        f"{METRIC_PREFIX}executable_bytes_accessed", "gauge",
+        "Bytes accessed per built executable (cost_analysis).",
+    )
+    for e in snapshot.get("entries", []):
+        labels = {
+            "model": str(e.get("model", "~")),
+            "family": str(e.get("family", "~")),
+            "bucket": str(e.get("bucket", "~")),
+            "sharding": str(e.get("sharding", "~")),
+        }
+        if "flops" in e:
+            f_flops.add(labels, e["flops"])
+        if "bytes_accessed" in e:
+            f_moved.add(labels, e["bytes_accessed"])
+    if f_flops.samples:
+        fams.append(f_flops)
+    if f_moved.samples:
+        fams.append(f_moved)
+    f_hbm = Family(
+        f"{METRIC_PREFIX}hbm_bytes", "gauge",
+        "Projected resident HBM bytes per model and kind (arguments/"
+        "outputs/temp/generated_code/resident), from memory_analysis "
+        "of each built executable; absent on CPU backends.",
+    )
+    for model, proj in sorted(snapshot.get("hbm_projection", {}).items()):
+        for kind, v in sorted(proj.items()):
+            f_hbm.add({"model": model, "kind": kind}, v)
+    if f_hbm.samples:
+        fams.append(f_hbm)
+    return fams
+
+
+# -- the checker ---------------------------------------------------------
 
 
 def _parse_labels(text: str) -> Tuple[Optional[Dict[str, str]], Optional[str]]:
