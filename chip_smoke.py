@@ -186,19 +186,41 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     launches a forward); then, the wall up again, an I3D + PWC request
     whose build fails hands the preempted CLIP back
     (``preemption_rollback``, its breaker closed, a CLIP request served);
-20. a ``kernels`` JSON line (each kernel's launches on its main path, in
+20. the native host path (``video_features_tpu_torch/native``): first
+    ``g++ --version``, both native builds and their times, the libav
+    versions the decoder links (or the first lines of its build error)
+    and ``cpu_budget()``. Where the decoder builds: phase 4's 4 clips and
+    synthetic clips 240 high at widths 320 to 432, each frame through a
+    raw ``vfdec_retrieve`` into a buffer with a 256-byte sentinel tail
+    (untouched), byte-equal to the host's cv2 with its frame count and
+    fps, and ms per clip by backend (whole decode, ``uni_12``). Where it
+    does not: ``--decoder native --strict`` exits nonzero with the build
+    error in its failed record, and ``--decoder auto`` opens every reader
+    with cv2. Then both C++ chains against PIL on those clips' frames
+    within the JAX package's bounds (ImageNet mean < 0.01, max < 0.08;
+    CLIP mean < 0.02, max < 0.15) with host ms per video of each; CLIP
+    (full width, ``uni_12 --attn flash --host_preprocess native --decoder
+    native`` (``auto`` without the decoder) ``--decode_workers 2``) on
+    phase 12's 8 clips: 96 K1 launches, readers by backend, within 1e-3
+    of the port's ``--cpu`` run of the same flags and within relative L2
+    0.05 of a ``--host_preprocess pil --decoder cv2`` run, and the warm
+    host ms/video at ``pil`` and ``native``; ResNet-50 ``--host_preprocess
+    native --decoder auto`` on phase 9's clip: K1 and K2 0 launches,
+    readers by backend, the same two gates (1e-3 relative L2 to the
+    CPU), and its warm host ms/video at both;
+21. a ``kernels`` JSON line (each kernel's launches on its main path, in
     the fused runs, in the device preprocess runs, in the telemetry runs,
-    in the bf16 phase, in the served requests, in phase 18 and in phase
-    19, its records at the fused shapes, and K1's bf16 record at the CLIP
+    in the bf16 phase, in the served requests, in phases 18, 19 and 20,
+    its records at the fused shapes, and K1's bf16 record at the CLIP
     path's shape), then the ``ok`` JSON line last.
 
-Every CLI run of phases 4-14 and 16-18 passes ``--strict``, so a video that fails
+Every CLI run of phases 4-14, 16-18 and 20 passes ``--strict``, so a video that fails
 in isolation fails its phase (phase 15's first run leaves it out: two of
 its files must fail). Phases 7-11 launch no hand-written kernel:
 RAFT, ResNet, R(2+1)D and VGGish reach no ``pallas_call`` in the JAX
 package, nor does the device preprocess's resample (the JAX package
 leaves it to XLA). Every launch count is read from a run that starts with
-all counts at 0, and each of phases 4-19 prints its wall time.
+all counts at 0, and each of phases 4-20 prints its wall time.
 """
 
 from __future__ import annotations
@@ -206,6 +228,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import glob
+import ctypes
 import io
 import json
 import os
@@ -366,6 +389,15 @@ ROUND_TRIP_RTOL = 0.05
 # another order (kt 2D convolutions), TF32 off
 CONV3D_RTOL = 1e-3
 FPS_RETARGET_FPS = 10.0
+# phase 20: the decoder's width sweep (clips 240 high; the JAX package's
+# decoder overruns at 330 and 424-428 and drifts in the tail columns at
+# 340-342 and 418-420), the sentinel tail behind each retrieved frame,
+# the JAX package's bounds of its C++ chains against PIL (mean, max;
+# tests/test_native.py) and of native against PIL features
+NATIVE_SWEEP_WIDTHS = (320, 330, 340, 342, 418, 420, 424, 426, 428, 432)
+NATIVE_SENTINEL = 256
+NATIVE_PIL_BOUNDS = {"imagenet": (0.01, 0.08), "clip": (0.02, 0.15)}
+NATIVE_REL_L2 = 0.05
 
 
 def card_line() -> str:
@@ -1531,9 +1563,9 @@ def decode_s(ex, clip) -> float:
     if hasattr(ex, "_sample_frames"):  # I3D's sampling grid
         ex._sample_frames(clip)
     elif ex.config.extract_method:  # CLIP's uni_N / fix_N
-        extract_frames(clip, ex.config.extract_method)
+        extract_frames(clip, ex.config.extract_method, ex.config.decoder)
     else:
-        for _ in stream_frames(clip, ex.config.extraction_fps):
+        for _ in stream_frames(clip, ex.config.extraction_fps, ex.config.decoder):
             pass
     return time.perf_counter() - t0
 
@@ -3160,6 +3192,288 @@ def run_preempt_path(root: str, device):
     return {"flash_attention": k1, "local_correlation": k2}
 
 
+def native_build_probe():
+    """Phase 20's first lines: the compiler, both native builds with their
+    times, the libav versions the decoder links (or why it does not
+    build), and the cores the chains may use. Returns (preprocess built,
+    decoder built)."""
+    from video_features_tpu_torch import native
+
+    try:
+        gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()[0]
+    except (OSError, IndexError, subprocess.TimeoutExpired) as exc:
+        gxx = f"not runnable ({type(exc).__name__}: {exc})"
+    print(f"native: g++ --version: {gxx}")
+    built = {}
+    for name, libs, probe in (("preprocess", (), native.available),
+                              ("decoder", native.DECODER_LIBS, native.decoder_available)):
+        found = native.library_path(name, libs).exists()
+        t0 = time.perf_counter()
+        built[name] = probe()
+        err = native.build_error() if name == "preprocess" else native.decoder_build_error()
+        print(f"native: {name} library {'built' if built[name] else 'NOT built'} in "
+              f"{time.perf_counter() - t0:.2f} s ({'found in' if found else 'compiled into'} "
+              f"_build/)" + ("" if built[name] else
+                             f": {' | '.join(err.strip().splitlines()[:3])}"))
+    if built["decoder"]:
+        lib = native.load_decoder()
+        versions = []
+        for part in ("avformat", "avcodec", "swscale", "avutil"):
+            fn = getattr(lib, f"{part}_version")
+            fn.restype = ctypes.c_uint
+            v = fn()
+            versions.append(f"lib{part} {v >> 16}.{(v >> 8) & 0xFF}.{v & 0xFF}")
+        print(f"native: the decoder links {', '.join(versions)}")
+    print(f"native: cpu_budget() {native.cpu_budget()} (os.cpu_count() {os.cpu_count()})")
+    return built["preprocess"], built["decoder"]
+
+
+def native_decode_sweep(clips) -> None:
+    """Phase 20, the decoder built: each clip through a raw
+    ``vfdec_retrieve`` into a buffer with a sentinel tail (untouched),
+    frame for frame against the host's cv2 (byte-equal), with cv2's frame
+    count and fps; then ms per clip by backend, whole decode and uni_12."""
+    import cv2
+
+    from video_features_tpu_torch import native
+    from video_features_tpu_torch.io.video import extract_frames, stream_frames
+
+    worst = 0
+    for path in clips:
+        cap = cv2.VideoCapture(path)
+        with native.NativeVideoReader(path) as reader:
+            h, w = reader.height, reader.width
+            n = touched = diff = 0
+            while reader.grab() >= 0:
+                buf = np.full(h * w * 3 + NATIVE_SENTINEL, 0xA5, np.uint8)
+                reader.retrieve_into(buf)
+                touched += int((buf[-NATIVE_SENTINEL:] != 0xA5).sum())
+                ok, ref = cap.read()
+                if not ok:
+                    raise AssertionError(f"{path}: cv2 ended at frame {n}, the native "
+                                         "decoder went on")
+                ref = cv2.cvtColor(ref, cv2.COLOR_BGR2RGB)
+                diff = max(diff, int(np.abs(buf[:-NATIVE_SENTINEL].reshape(h, w, 3)
+                                            .astype(np.int16) - ref).max()))
+                n += 1
+            more = cap.read()[0]
+            fps, count = reader.fps, reader.frame_count
+        cv2_fps, cv2_count = cap.get(cv2.CAP_PROP_FPS), int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        cap.release()
+        print(f"native decode {os.path.basename(path)} ({w}x{h}): {n} frames, max_abs_diff vs "
+              f"cv2 {diff} (gate 0), sentinel bytes written {touched} (gate 0), count "
+              f"{count} vs cv2 {cv2_count}, fps {fps} vs cv2 {cv2_fps}")
+        if diff or touched or more or (count, fps) != (cv2_count, cv2_fps):
+            raise AssertionError(f"{path}: the native decoder disagrees with cv2 (diff {diff}, "
+                                 f"tail {touched}, cv2 had more {more}, count {count} vs "
+                                 f"{cv2_count}, fps {fps} vs {cv2_fps})")
+        worst = max(worst, diff)
+    ms = {("whole", b): [] for b in ("native", "cv2")}
+    ms.update({("uni_12", b): [] for b in ("native", "cv2")})
+    for backend in ("native", "cv2", "cv2", "native"):
+        for path in clips:
+            t0 = time.perf_counter()
+            for _ in stream_frames(path, None, backend):
+                pass
+            t1 = time.perf_counter()
+            extract_frames(path, f"uni_{FRAMES}", backend)
+            ms[("whole", backend)].append((t1 - t0) * 1e3)
+            ms[("uni_12", backend)].append((time.perf_counter() - t1) * 1e3)
+    print(f"native decode, {len(clips)} clips, mean ms per clip over two passes each: whole "
+          f"decode native {np.mean(ms[('whole', 'native')]):.3f} vs cv2 "
+          f"{np.mean(ms[('whole', 'cv2')]):.3f}; uni_{FRAMES} native "
+          f"{np.mean(ms[('uni_12', 'native')]):.3f} vs cv2 {np.mean(ms[('uni_12', 'cv2')]):.3f}"
+          f"; max_abs_diff {worst}")
+
+
+def native_preprocess_check(clips) -> None:
+    """Phase 20: both C++ chains against PIL on the clips' decoded frames,
+    within the JAX package's bounds, and host ms per video of each."""
+    from PIL import Image
+
+    from video_features_tpu_torch import native
+    from video_features_tpu_torch.io.video import extract_frames, stream_frames
+    from video_features_tpu_torch.ops.preprocess import (
+        CLIP_MEAN,
+        CLIP_STD,
+        imagenet_preprocess,
+        normalize_chw,
+        pil_center_crop,
+        pil_resize,
+        to_float_chw,
+    )
+
+    def pil_clip(f):
+        img = pil_center_crop(pil_resize(f, 224, interpolation=Image.BICUBIC), 224)
+        return normalize_chw(to_float_chw(img), CLIP_MEAN, CLIP_STD)
+
+    threads = native.cpu_budget()
+    chains = {
+        "imagenet": (lambda p: [f for f, _ in stream_frames(p)], imagenet_preprocess,
+                     lambda x: native.imagenet_preprocess_batch(x, threads=threads)),
+        "clip": (lambda p: extract_frames(p, f"uni_{FRAMES}")[0], pil_clip,
+                 lambda x: native.clip_preprocess_batch(x, threads=threads)),
+    }
+    for chain, (frames_of, pil, nat) in chains.items():
+        diffs, t_pil, t_nat = [], 0.0, 0.0
+        for path in clips:
+            frames = frames_of(path)
+            t0 = time.perf_counter()
+            ref = np.stack([pil(f) for f in frames])
+            t1 = time.perf_counter()
+            out = nat(np.stack(frames))
+            t_pil, t_nat = t_pil + t1 - t0, t_nat + time.perf_counter() - t1
+            diffs.append(np.abs(out - ref))
+        mean = float(np.mean([d.mean() for d in diffs]))
+        worst = float(max(d.max() for d in diffs))
+        mean_bound, max_bound = NATIVE_PIL_BOUNDS[chain]
+        print(f"native preprocess, {chain} chain on {len(clips)} clips' frames: vs PIL mean "
+              f"{mean:.5f} (< {mean_bound:g}), max {worst:.5f} (< {max_bound:g}); host ms per "
+              f"video PIL {t_pil / len(clips) * 1e3:.2f} vs native {t_nat / len(clips) * 1e3:.2f} "
+              f"({threads} threads)")
+        if not (mean < mean_bound and worst < max_bound):
+            raise AssertionError(f"native {chain} chain off PIL: mean {mean}, max {worst}")
+
+
+def run_native_path(root: str, device):
+    """Phase 20: --host_preprocess native and --decoder native (module
+    docstring). Returns each kernel's launches in the phase."""
+    from video_features_tpu_torch import cli, native
+    from video_features_tpu_torch.config import ExtractionConfig
+    from video_features_tpu_torch.extract.registry import build_extractor
+    from video_features_tpu_torch.ops.flash_attention import flash_attention
+    from video_features_tpu_torch.utils.synth import synth_video
+
+    print(f"native: {card_line()}")
+    pre_ok, dec_ok = native_build_probe()
+    if not pre_ok:
+        raise AssertionError("the native preprocess library does not build on this host")
+    cell1 = [os.path.join(root, f"clip{i}.mp4") for i in range(N_VIDEOS)]
+    sweep = [synth_video(os.path.join(root, f"native_w{w}.mp4"), width=w, height=240, seed=w)
+             for w in NATIVE_SWEEP_WIDTHS]
+    contract = [os.path.join(root, f"contract{i}.mp4") for i in range(CONTRACT_VIDEOS)]
+    resnet_clip = os.path.join(root, "resnet50.mp4")
+    tmp = os.path.join(root, "tmp")
+    if dec_ok:
+        native_decode_sweep(cell1 + sweep)
+        decoder = "native"
+    else:
+        print("native: the decoder does not build on this host, so --decoder native stays "
+              "unverified here; checking its refusal and auto's fallback to cv2")
+        out = os.path.join(root, "native_refused")
+        try:
+            cli.main(["--feature_type", "CLIP-ViT-B/32", "--extract_method", f"uni_{FRAMES}",
+                      "--attn", "flash", "--allow_random_init", "--decoder", "native",
+                      "--on_extraction", "save_numpy", "--strict", "--output_path", out,
+                      "--tmp_path", tmp, "--video_paths", cell1[0]])
+        except SystemExit as exc:
+            code = exc.code
+        else:
+            raise AssertionError("--decoder native --strict without the decoder exited 0")
+        with open(os.path.join(out, "_manifest", "summary.json")) as f:
+            rec = json.load(f)["videos"][cell1[0]]
+        first = native.decoder_build_error().strip().splitlines()[0]
+        print(f"native: --decoder native --strict without the decoder: exit "
+              f"{str(code).splitlines()[0]!r}; record {rec['status']}, {rec['error_type']}: "
+              f"{rec.get('message', '')[:160]!r}")
+        if code in (0, None) or rec["status"] != "failed" or first not in rec.get("message", ""):
+            raise AssertionError(f"--decoder native refusal: exit {code!r}, record {rec}")
+        decoder = "auto"
+    native_preprocess_check(cell1 + sweep)
+
+    def clip_run(out, *extra, videos=contract):
+        reset_counts()
+        native.reset_reader_counts()
+        t0 = time.perf_counter()
+        cli.main(["--feature_type", "CLIP-ViT-B/32", "--extract_method", f"uni_{FRAMES}",
+                  "--attn", "flash", "--allow_random_init", "--decode_workers", "2",
+                  "--on_extraction", "save_numpy", "--strict", "--output_path",
+                  os.path.join(root, out), "--tmp_path", tmp, *extra, "--video_paths", *videos])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0, flash_attention.launches, dict(native.readers_opened),
+                read_features(os.path.join(root, out)))
+
+    wall, k1, readers, nat = clip_run("native_clip", "--host_preprocess", "native",
+                                      "--decoder", decoder)
+    print(f"native CLIP (--host_preprocess native --decoder {decoder} --decode_workers 2, "
+          f"{CONTRACT_VIDEOS} clips, cold CLI run): {CONTRACT_VIDEOS / wall:.3f} videos/s; "
+          f"flash_attention launches {k1}; readers {readers}")
+    if len(nat) != CONTRACT_VIDEOS or k1 != CONTRACT_VIDEOS * LAYERS:
+        raise AssertionError(f"native CLIP run: {len(nat)} files, {k1} K1 launches")
+    want = {"native": readers["native"] + readers["cv2"], "cv2": 0} if dec_ok else \
+        {"native": 0, "cv2": readers["native"] + readers["cv2"]}
+    if readers != want or not readers[decoder if dec_ok else "cv2"]:
+        raise AssertionError(f"native CLIP run opened readers {readers}, expected {want}")
+    _, k1_pil, _, pil = clip_run("native_clip_pil", "--host_preprocess", "pil",
+                                 "--decoder", "cv2")
+    cpu_wall, _, _, cpu = clip_run("native_clip_cpu", "--host_preprocess", "native",
+                                   "--decoder", decoder, "--cpu")
+    err = max(float(np.abs(nat[k] - cpu[k]).max()) for k in nat)
+    drift = max(rel_l2(nat[k], pil[k]) for k in nat)
+    print(f"native CLIP: card vs the port on the CPU (same flags, {cpu_wall:.1f} s there) "
+          f"max_abs_err {err:.3e} (tol {FEATURE_ATOL:g}); vs the card's pil/cv2 run rel_l2 "
+          f"{drift:.3e} (tol {NATIVE_REL_L2:g})")
+    if sorted(cpu) != sorted(nat) or not err <= FEATURE_ATOL or not drift <= NATIVE_REL_L2:
+        raise AssertionError(f"native CLIP features: card vs CPU {err}, vs pil {drift}")
+
+    def warm_host(feature_type, clips, **kw):
+        """Warm host ms per video (prepare) at pil and at native, over the
+        same clips, in turns pil, native, native, pil."""
+        exs = {hp: build_extractor(ExtractionConfig(
+            feature_type=feature_type, video_paths=clips, allow_random_init=True,
+            host_preprocess=hp, decoder=decoder, **kw), external_call=True)
+            for hp in ("pil", "native")}
+        ms = {"pil": [], "native": []}
+        for hp in ("pil", "native", "native", "pil"):
+            prep, _ = warm_split(exs[hp], clips, device)
+            ms[hp].append(prep / len(clips) * 1e3)
+        return {hp: float(np.mean(v)) for hp, v in ms.items()}
+
+    host = warm_host("CLIP-ViT-B/32", contract, extract_method=f"uni_{FRAMES}", attn="flash")
+    print(f"native CLIP warm host ms/video (decode + preprocess, --decoder {decoder}): pil "
+          f"{host['pil']:.2f} vs native {host['native']:.2f} "
+          f"({host['pil'] / host['native']:.2f}x); {card_line()}")
+    k1 += k1_pil + flash_attention.launches  # the warm runs' launches too
+
+    def resnet_run(out, *extra):
+        reset_counts()
+        native.reset_reader_counts()
+        cli.main(["--feature_type", "resnet50", "--batch_size", str(RESNET_BATCH),
+                  "--allow_random_init", "--on_extraction", "save_numpy", "--strict",
+                  "--output_path", os.path.join(root, out), "--tmp_path", tmp, *extra,
+                  "--video_paths", resnet_clip])
+        torch.cuda.synchronize()
+        (feats,) = read_features(os.path.join(root, out)).values()
+        return feats, dict(native.readers_opened)
+
+    rn, readers = resnet_run("native_resnet", "--host_preprocess", "native", "--decoder", "auto")
+    no_kernel_launches("native ResNet-50 path")
+    print(f"native ResNet-50 (--host_preprocess native --decoder auto): {rn.shape}; "
+          f"readers {readers}")
+    if rn.shape != (RESNET_CLIP_FRAMES, 2048) or not np.isfinite(rn).all():
+        raise AssertionError(f"native ResNet-50: {rn.shape}")
+    want = ({"native": readers["native"], "cv2": 0} if dec_ok
+            else {"native": 0, "cv2": readers["cv2"]})
+    if readers != want or not sum(readers.values()):
+        raise AssertionError(f"--decoder auto opened {readers}, expected {want}")
+    rn_pil, _ = resnet_run("native_resnet_pil", "--host_preprocess", "pil", "--decoder", "cv2")
+    rn_cpu, _ = resnet_run("native_resnet_cpu", "--host_preprocess", "native", "--decoder",
+                           "auto", "--cpu")
+    err, drift = rel_l2(rn, rn_cpu), rel_l2(rn, rn_pil)
+    print(f"native ResNet-50: card vs the port on the CPU rel_l2 {err:.3e} (tol "
+          f"{CNN_FEATURE_RTOL:g}); vs the card's pil/cv2 run rel_l2 {drift:.3e} (tol "
+          f"{NATIVE_REL_L2:g})")
+    if not err <= CNN_FEATURE_RTOL or not drift <= NATIVE_REL_L2:
+        raise AssertionError(f"native ResNet-50 features: card vs CPU {err}, vs pil {drift}")
+    host = warm_host("resnet50", [resnet_clip], batch_size=RESNET_BATCH)
+    print(f"native ResNet-50 warm host ms/video (decode + preprocess, --decoder {decoder}): "
+          f"pil {host['pil']:.2f} vs native {host['native']:.2f} "
+          f"({host['pil'] / host['native']:.2f}x); {card_line()}")
+    no_kernel_launches("native ResNet-50 warm runs")
+    return {"flash_attention": k1, "local_correlation": 0}
+
+
 def _preempt_events(out: str) -> list:
     """The daemon manifests' (event, feature type, beneficiary) rows of
     preemption, rollback and re-warm, in order."""
@@ -3213,6 +3527,7 @@ def main() -> int:
             ("serve", lambda: run_serve_path(root, device)),
             ("disk flow and output flags", lambda: run_flags_path(root, device)),
             ("preemption", lambda: run_preempt_path(root, device)),
+            ("native host path", lambda: run_native_path(root, device)),
         ]
         results = {}
         for name, phase in phases:
@@ -3225,20 +3540,22 @@ def main() -> int:
         # the preemption phase's
         later = [results["async ingest"], results["device preprocess"],
                  results["telemetry and preflight"], results["bfloat16"], results["serve"],
-                 results["disk flow and output flags"], results["preemption"]]
+                 results["disk flow and output flags"], results["preemption"],
+                 results["native host path"]]
         k1_launches = results["CLIP"] + sum(r["flash_attention"] for r in later)
         k2_launches = results["I3D + PWC"] + sum(r["local_correlation"] for r in later)
         print("launches by phase: K1 " + ", ".join(
             [f"CLIP {results['CLIP']}"] + [f"{n} {results[n]['flash_attention']}" for n in (
                 "async ingest", "device preprocess", "telemetry and preflight", "bfloat16",
-                "serve", "disk flow and output flags", "preemption")])
+                "serve", "disk flow and output flags", "preemption", "native host path")])
             + "; K2 " + ", ".join(
             [f"I3D + PWC {results['I3D + PWC']}"] + [f"{n} {results[n]['local_correlation']}"
                                                      for n in ("async ingest", "device preprocess",
                                                                "telemetry and preflight",
                                                                "bfloat16", "serve",
                                                                "disk flow and output flags",
-                                                               "preemption")]))
+                                                               "preemption",
+                                                               "native host path")]))
 
     records = [
         {

@@ -2,7 +2,9 @@
 
 ``video_features_tpu_torch`` starts with ``video_features_tpu``, so the
 scan matches that name only as a whole module name or with a trailing
-``.``.
+``.``. Nor does a port module name a path under ``video_features_tpu/``
+in its code (docstrings may cite the JAX package's files): a loader that
+reused the JAX package's ``native/_build/*.so`` would.
 """
 
 import ast
@@ -57,7 +59,53 @@ def test_no_forbidden_imports(path):
         assert not bad, f"{path.relative_to(ROOT)}:{node.lineno} imports {bad}"
 
 
+def _jax_paths(tree) -> list:
+    """(line, text) of the string constants outside docstrings that name
+    a path under the JAX package: ``video_features_tpu/...``, or the bare
+    ``video_features_tpu`` as a path component."""
+    docstrings = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                docstrings.add(id(body[0].value))
+    hits = []
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docstrings):
+            text = node.value.replace("\\", "/")
+            if any(part == "video_features_tpu" for part in text.split("/")) and (
+                    "/" in text or text == "video_features_tpu"):
+                hits.append((node.lineno, text))
+    return hits
+
+
+def test_path_scan_catches_the_reference_but_not_the_port():
+    tree = ast.parse('"""cites video_features_tpu/native/decoder.cpp"""\n'
+                     'A = "video_features_tpu/native/_build"\n'
+                     'B = os.path.join(ROOT, "video_features_tpu", "native")\n'
+                     'C = "video_features_tpu_torch/_build"\n')
+    assert [line for line, _ in _jax_paths(tree)] == [2, 3]
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_port_module_names_a_jax_package_path(path):
+    hits = _jax_paths(ast.parse(path.read_text(), str(path)))
+    assert not hits, f"{path.relative_to(ROOT)} names {hits}"
+
+
+def test_native_libraries_build_inside_the_port():
+    from video_features_tpu_torch import native
+
+    assert native.BUILD_DIR == PACKAGE / "_build"
+    for name in ("preprocess", "decoder"):
+        assert native.library_path(name).is_relative_to(PACKAGE / "_build")
+        assert (PACKAGE / "native" / f"{name}.cpp").exists()
+
+
 @pytest.mark.parametrize("module", [
+    "video_features_tpu_torch.native",
     "video_features_tpu_torch.serve",
     "video_features_tpu_torch.serve.daemon",
     "video_features_tpu_torch.serve.server",

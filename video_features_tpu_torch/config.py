@@ -9,7 +9,8 @@ preprocess (``--preprocess``, ``--spatial_bucket``,
 ``--frame_delta_threshold``), the run telemetry (``--telemetry``,
 ``--heartbeat_s``, ``--profile_dir``) and the preflight probe with the
 input caps (``--preflight``, ``--decode_timeout``, ``--max_pixels``,
-``--max_duration_s``, ``--max_decode_bytes``), the numerics flag
+``--max_duration_s``, ``--max_decode_bytes``), the host backends
+``--decoder`` and ``--host_preprocess`` (``native/``), the numerics flag
 ``--dtype`` with its admission table, the input and output flags (flow
 read from disk: ``--flow_type flow`` with ``--flow_paths`` or
 ``--video_dir``/``--flow_dir``; ``--on_extraction save_jpg``;
@@ -53,6 +54,8 @@ FLOW_TYPES = ("raft", "pwc", "flow")
 DEVICE_PREPROCESS_FEATURE_TYPES = CLIP_FEATURE_TYPES + RESNET_FEATURE_TYPES + ["raft", "pwc",
                                                                              "i3d"]
 PREPROCESS_MODES = ("host", "device")
+DECODERS = ("auto", "cv2", "native")
+HOST_PREPROCESS = ("pil", "native")
 ATTN_CORES = ("fused", "flash", "blockwise")
 ON_EXTRACTION = ("print", "save_numpy", "save_pickle", "save_jpg")
 FPS_RETARGETS = ("nearest", "reencode")
@@ -175,6 +178,16 @@ class ExtractionConfig:
     # host threads that decode and preprocess upcoming videos while the
     # device computes the current one; 0 runs decode and compute in turn
     decode_workers: int = 2
+    # the decode backend (io/video.py): 'auto' opens the native libav
+    # decoder (native/decoder.cpp) when its library builds and the file
+    # opens in it, else cv2, per file; 'cv2' and 'native' force one
+    decoder: str = "auto"
+    # the host chain of CLIP (bicubic) and the ResNet family (bilinear)
+    # under --preprocess host: 'pil' is the reference's; 'native' the
+    # threaded C++ chains (native/preprocess.cpp, within ~1/255 per pixel
+    # of PIL). An unavailable 'native' raises at setup. Other extractors
+    # ignore it
+    host_preprocess: str = "pil"
     # extra attempts for a transient (I/O) or oom failure, with backoff
     # retry_backoff * 2^(k-1) * jitter seconds before attempt k+1
     retries: int = 2
@@ -392,6 +405,10 @@ def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
             )
     if cfg.preprocess not in PREPROCESS_MODES:
         raise ValueError(f"unknown preprocess mode: {cfg.preprocess}")
+    if cfg.decoder not in DECODERS:
+        raise ValueError(f"unknown decoder backend: {cfg.decoder!r}")
+    if cfg.host_preprocess not in HOST_PREPROCESS:
+        raise ValueError(f"unknown host_preprocess: {cfg.host_preprocess!r}")
     if cfg.preprocess == "device":
         if cfg.feature_type not in DEVICE_PREPROCESS_FEATURE_TYPES:
             supported = ", ".join(sorted(DEVICE_PREPROCESS_FEATURE_TYPES))
@@ -505,6 +522,12 @@ def build_arg_parser(feature_required: bool = True) -> argparse.ArgumentParser:
     p.add_argument("--decode_workers", type=int, default=2,
                    help="host threads decoding upcoming videos while the device "
                         "computes (0: decode and compute in turn)")
+    p.add_argument("--decoder", default="auto", choices=list(DECODERS),
+                   help="decode backend: the native libav decoder when it builds "
+                        "and opens the file, else cv2 (auto); or force one")
+    p.add_argument("--host_preprocess", default="pil", choices=list(HOST_PREPROCESS),
+                   help="--preprocess host chain of clip and resnet*: PIL (the "
+                        "reference's) or the threaded C++ chains (native)")
     p.add_argument("--retries", type=int, default=2,
                    help="retry budget per video for TRANSIENT failures (I/O "
                         "flakes, out of memory); backoff is exponential with "

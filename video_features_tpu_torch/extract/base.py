@@ -149,6 +149,7 @@ class BaseExtractor:
         # --preprocess device: (device, ids of the host taps) -> (the host
         # taps, kept so their ids stay theirs; the placed taps)
         self._taps: Dict[tuple, tuple] = {}
+        self._native_lock = threading.Lock()
         pin_fp32()
         # the manifest roots at output_path (not the feature's subdirectory),
         # so one <output>/_manifest covers the tree and --resume merges it
@@ -321,6 +322,40 @@ class BaseExtractor:
         compile is left out: eager PyTorch compiles nothing, and a failure
         on the device path is a failed video like any other."""
         return self.config.preprocess == "device"
+
+    # --- --host_preprocess native: the threaded C++ chains
+    # (native/preprocess.cpp) of the extractors with a PIL chain, CLIP's
+    # bicubic and the ResNet family's bilinear one
+    _use_native: Optional[bool] = None
+    _native_threads: int = 1
+
+    def _decide_native(self) -> None:
+        """Under ``--preprocess host``, ``--host_preprocess native`` takes
+        the C++ chains, with every core this process may use (the port
+        runs one device worker). Where the JAX package prints that the
+        library is unavailable and goes on with PIL, this raises, naming
+        the build error: a quiet switch would hide which chain ran."""
+        self._use_native = (self.config.host_preprocess == "native"
+                            and not self._device_preprocess_enabled())
+        if not self._use_native:
+            return
+        from video_features_tpu_torch import native
+
+        if not native.available():
+            raise RuntimeError(
+                "--host_preprocess native requested but the preprocess library "
+                f"is unavailable: {native.build_error()}"
+            )
+        self._native_threads = max(native.cpu_budget(), 1)
+
+    def _native_decided(self) -> bool:
+        """The one-shot chain decision; the lock keeps it one-shot under
+        concurrent decode workers. The extractors with a PIL chain call it
+        in ``__init__``, so an unavailable library fails the setup."""
+        with self._native_lock:
+            if self._use_native is None:
+                self._decide_native()
+        return bool(self._use_native)
 
     # the host taps are lru_cached per source resolution (ops/resize.py), so
     # the same arrays come back for every video of a resolution; the bound

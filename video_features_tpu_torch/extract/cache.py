@@ -5,10 +5,14 @@ Counterpart of ``video_features_tpu/extract/cache.py``, copied as it is
 this package's name. The two packages agree within tolerance, not bit
 for bit, so in a ``--cache_dir`` both share, one package's entries are a
 miss for the other, never a hit. (:func:`content_hash` is the JAX
-package's byte for byte: only the digest tells the packages apart. The
-port's config also lacks some of the JAX package's knobs, such as
-``host_preprocess`` and ``conv3d_impl``, which read as None here; the
-salt keeps that from ever matching a JAX entry either.)
+package's byte for byte: only the digest tells the packages apart. A
+knob of the JAX package's digest that the port's config lacks reads as
+None here; the salt keeps that from ever matching a JAX entry either.)
+
+``host_preprocess`` is in the digest (``pil`` and ``native`` give
+features within ~1/255 per pixel of each other, not equal); ``decoder``
+is not, as in the JAX package: the two backends decode the same bytes
+(``tests/test_torch_native.py``'s width sweep), so they share entries.
 
 The CPU and the card agree within tolerance too, not bit for bit, so
 the digest also holds the device kind (``cpu`` under ``--cpu``, else
@@ -129,7 +133,7 @@ def _hash_bytes(path: str, size: int, mode: str) -> str:
 # every knob that changes extracted values or their serialized form —
 # the same family of knobs that keys fused executables (model identity,
 # sampling grid, preprocess placement, numerics). Knobs that only move
-# work around (decode_workers, video_batch, retries, telemetry) are
+# work around (decode_workers, video_batch, retries, telemetry, decoder) are
 # deliberately absent: they must share cache entries. Missing a knob
 # here would serve stale features; including a no-op knob only costs a
 # spurious miss — when in doubt, include.

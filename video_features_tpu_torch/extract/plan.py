@@ -95,8 +95,10 @@ class SharedFrameCache:
                 "evicted": self._evicted,
             }
 
-    def acquire(self, path: str) -> Optional[CachedClip]:
-        """The cached clip for ``path``, populating on first touch.
+    def acquire(self, path: str, decoder: Optional[str] = None) -> Optional[CachedClip]:
+        """The cached clip for ``path``, populating on first touch with the
+        first toucher's ``decoder`` (its config's ``--decoder``; the
+        backends give the same bytes, so the key leaves it out).
         None means "decode directly": unstatable path, over-budget
         clip, or a concurrent builder that hasn't finished in time.
         Decode errors (corrupt container, timeout, resource caps)
@@ -127,7 +129,7 @@ class SharedFrameCache:
                 return clip  # None -> caller decodes directly
         clip = None
         try:
-            clip = self._decode_all(path)
+            clip = self._decode_all(path, decoder)
         finally:
             with self._lock:
                 self._inflight.pop(key, None)
@@ -148,12 +150,12 @@ class SharedFrameCache:
             self._bytes -= old.nbytes
             self._evicted += 1
 
-    def _decode_all(self, path: str) -> Optional[CachedClip]:
+    def _decode_all(self, path: str, decoder: Optional[str]) -> Optional[CachedClip]:
         from video_features_tpu_torch.io import video as vio
 
         frames: List = []
         total = 0
-        with vio._Reader(path) as r:
+        with vio._Reader(path, decoder) as r:
             fps, declared = r.fps, r.frame_count
             width, height = r.width, r.height
             while r.grab():

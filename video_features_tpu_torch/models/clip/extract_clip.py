@@ -21,6 +21,11 @@ taps. ``--frame_delta_threshold``: near-duplicate sampled frames are
 dropped in ``prepare`` (``ops/sampler.py``) and their rows copied forward
 at fetch.
 
+``--host_preprocess native`` (under ``--preprocess host``): the sampled
+frames go through the C++ bicubic chain in one threaded call
+(``native.clip_preprocess_batch``, within ~1/255 per pixel of PIL)
+instead of PIL frame by frame. ``--decoder`` picks the decode backend.
+
 ``--dtype bfloat16``: the tower's bf16 graph (``models/clip/model.py``),
 its weights cast after loading with ``proj`` kept fp32. The host batch
 is rounded to bf16 on the decode thread (``Tensor.to``: round to nearest
@@ -85,6 +90,7 @@ class ExtractCLIP(BaseExtractor):
             raise ValueError("CLIP extraction needs --extract_method (e.g. uni_12 or fix_2)")
         self.model_cfg = CONFIGS[self.feature_type]
         self.dtype = compute_dtype(self.config)
+        self._native_decided()  # an unavailable --host_preprocess native fails here
 
     def _build(self, device: torch.device) -> VisionTransformer:
         model = VisionTransformer(self.model_cfg, core=CORES[self.config.attn])
@@ -106,6 +112,18 @@ class ExtractCLIP(BaseExtractor):
         img = pil_center_crop(pil_resize(frame, size, interpolation=Image.BICUBIC), size)
         return normalize_chw(to_float_chw(img), CLIP_MEAN, CLIP_STD)
 
+    def _preprocess_frames(self, frames) -> np.ndarray:
+        """Sampled frames -> (T, 3, size, size) float32: the C++ bicubic
+        chain in one call under ``--host_preprocess native``, else PIL."""
+        if self._native_decided():
+            from video_features_tpu_torch import native
+
+            return native.clip_preprocess_batch(
+                np.stack(frames), size=self.model_cfg.image_size,
+                threads=self._native_threads,
+            )
+        return np.stack([self._preprocess(f) for f in frames])
+
     def prepare(self, entry):
         """Host half: (padded batch, T, fps, timestamps, keep). The batch is
         (T_pad, 3, S, S) float32 (a bf16 tensor under ``--dtype
@@ -114,7 +132,7 @@ class ExtractCLIP(BaseExtractor):
         triple. ``keep`` is the frame-delta gate's mask, or None when the
         gate is off or kept every frame (the ungated payload)."""
         frames, fps, timestamps_ms = extract_frames(
-            video_path_of(entry), self.config.extract_method
+            video_path_of(entry), self.config.extract_method, self.config.decoder
         )
         keep = None
         if self.config.frame_delta_threshold is not None:
@@ -136,7 +154,7 @@ class ExtractCLIP(BaseExtractor):
             )
             raw = pad_hw(pad_batch(arr, T_pad), bh, bw)
             return (raw, (wt_y, idx_y), (wt_x, idx_x)), T, fps, timestamps_ms, keep
-        batch = pad_batch(np.stack([self._preprocess(f) for f in frames]), T_pad)
+        batch = pad_batch(self._preprocess_frames(frames), T_pad)
         if self.dtype != torch.float32:
             batch = torch.from_numpy(batch).to(self.dtype)
         return batch, T, fps, timestamps_ms, keep

@@ -174,7 +174,8 @@ class PairwiseFlowExtractor(BaseExtractor):
                                         floor=4 * self.batch_size)
 
     def _fps(self, path: str) -> float:
-        return self.config.extraction_fps or fps_or_default(probe(path)[0], path)
+        return self.config.extraction_fps or fps_or_default(
+            probe(path, self.config.decoder)[0], path)
 
     def _layout(self, h: int, w: int):
         """(padder, taps, bucket) of a video of source resolution (h, w):
@@ -199,7 +200,8 @@ class PairwiseFlowExtractor(BaseExtractor):
         path, sel_fps = source
         batch: List[np.ndarray] = []
         layout = cap = None
-        for count, (frame, ts) in enumerate(stream_frames(path, sel_fps), 1):
+        frames = stream_frames(path, sel_fps, self.config.decoder)
+        for count, (frame, ts) in enumerate(frames, 1):
             if layout is None:
                 layout = self._layout(*frame.shape[:2])
             if layout[2] is None:  # the host chain

@@ -277,7 +277,7 @@ class ExtractI3D(BaseExtractor):
         linspace, upsampling to 65 frames (against the default stack of
         64, whatever ``--stack_size`` is) for a shorter video, or all
         frames. Returns (fps, sampled indices)."""
-        fps, frame_cnt = probe(path)
+        fps, frame_cnt = probe(path, self.config.decoder)
         fps = fps_or_default(fps, path)
         if self.config.extraction_fps is not None:
             samples_num = max(int(frame_cnt / fps * self.config.extraction_fps), 1)
@@ -294,7 +294,7 @@ class ExtractI3D(BaseExtractor):
         or the one given); undecodable sampled indices are dropped, as the
         reference does."""
         fps, samples_ix = grid or self._sample_grid(path)
-        got = read_frames_at_indices(path, samples_ix)
+        got = read_frames_at_indices(path, samples_ix, self.config.decoder)
         kept = [i for i in samples_ix if i in got]
         mspf = 1000.0 / fps
         return [got[i] for i in kept], fps, [i * mspf for i in kept]
@@ -387,7 +387,7 @@ class ExtractI3D(BaseExtractor):
                                        floor=DEFAULT_STACK_SIZE + 1)
         cost = len(grid[1])
         if self._device_preprocess_enabled():
-            h, w = frame_size(path)
+            h, w = frame_size(path, self.config.decoder)
             cost = max(cost * h * w * 3 // self._FRAME_BYTES, 1)
         pairs = self._load_flow_pairs(flow_dir) if flow_dir is not None else None
         cost += self._flow_prefetch_cost(pairs)

@@ -111,14 +111,16 @@ class ExtractR21D(BaseExtractor):
         path = video_path_of(entry)
         frames: List[np.ndarray] = []
         timestamps_ms: List[float] = []
-        for frame, ts in stream_frames(path, self.config.extraction_fps):
+        for frame, ts in stream_frames(path, self.config.extraction_fps,
+                                       self.config.decoder):
             frames.append(frame)
             timestamps_ms.append(ts)
         if not frames:
             raise CorruptVideoError(f"no frames decoded from {path}")
         clip = np.stack(frames)
         slices = form_slices(clip.shape[0], self.stack_size, self.step_size)
-        fps = self.config.extraction_fps or fps_or_default(probe(path)[0], path)
+        fps = self.config.extraction_fps or fps_or_default(
+            probe(path, self.config.decoder)[0], path)
         return clip, slices, fps, timestamps_ms, path
 
     @staticmethod

@@ -12,6 +12,11 @@ classes. With ``--video_batch N`` the frames of N videos re-chunk into
 reference's ffmpeg re-encode instead of picking frames of the source
 (``BaseExtractor._fps_source``).
 
+``--host_preprocess native`` (under ``--preprocess host``): a batch's
+frames go through the C++ bilinear chain in one threaded call
+(``native.imagenet_preprocess_batch``, within ~1/255 per pixel of PIL).
+``--decoder`` picks the decode backend.
+
 ``--preprocess device``: the batches hold the raw uint8 frames padded to
 their spatial bucket, with the bilinear resize + crop taps of their
 source resolution; the chain runs on the device before the model
@@ -70,6 +75,7 @@ class ExtractResNet(BaseExtractor):
         super().__init__(config, external_call)
         self.batch_size = max(int(self.config.batch_size or 1), 1)
         self.dtype = compute_dtype(self.config)
+        self._native_decided()  # an unavailable --host_preprocess native fails here
 
     def _build(self, device: torch.device) -> ResNet:
         model = ResNet(self.feature_type)
@@ -100,18 +106,30 @@ class ExtractResNet(BaseExtractor):
         )
         return bh, bw, (wt_y, idx_y), (wt_x, idx_x)
 
+    def _preprocess_batch(self, frames: List[np.ndarray]) -> np.ndarray:
+        """Decoded frames -> (n, 3, 224, 224) float32: the C++ bilinear
+        chain in one call under ``--host_preprocess native``, else the
+        reference's PIL chain frame by frame."""
+        if self._native_decided():
+            from video_features_tpu_torch import native
+
+            return native.imagenet_preprocess_batch(np.stack(frames),
+                                                    threads=self._native_threads)
+        return np.stack([imagenet_preprocess(f) for f in frames])
+
     def _batch(self, frames: List[np.ndarray], geom) -> np.ndarray:
         """Up to ``batch_size`` decoded frames -> one batch padded to
         ``batch_size`` rows: (B, 3, 224, 224) float32 on the host chain;
         (B, bh, bw, 3) uint8 on the device chain (``geom``)."""
         if geom is None:
-            x = np.stack([imagenet_preprocess(f) for f in frames])
+            x = self._preprocess_batch(frames)
         else:
             x = pad_hw(np.stack(frames), geom[0], geom[1])
         return pad_batch(x, self.batch_size)
 
     def _fps(self, path: str) -> float:
-        return self.config.extraction_fps or fps_or_default(probe(path)[0], path)
+        return self.config.extraction_fps or fps_or_default(
+            probe(path, self.config.decoder)[0], path)
 
     def prepare(self, entry):
         """Host half: (batches, their valid row counts, fps, timestamps_ms,
@@ -128,7 +146,7 @@ class ExtractResNet(BaseExtractor):
         timestamps_ms: List[float] = []
         geom = None
         cap = self._prefetch_frame_cap(self.PIPELINE_MAX_BYTES, self._FRAME_BYTES, floor=64)
-        for frame, ts in stream_frames(*source):
+        for frame, ts in stream_frames(*source, self.config.decoder):
             if device_pre and geom is None:
                 geom = self._device_geometry(*frame.shape[:2])
                 cap = self._prefetch_frame_cap(self.PIPELINE_MAX_BYTES,
@@ -177,7 +195,7 @@ class ExtractResNet(BaseExtractor):
             outs.append(self._dispatch_batch(model, self._batch(frames, geom), len(frames), taps))
 
         with torch.inference_mode():
-            for frame, ts in stream_frames(*source):
+            for frame, ts in stream_frames(*source, self.config.decoder):
                 if device_pre and geom is None:
                     geom = self._device_geometry(*frame.shape[:2])
                     taps = self._device_taps((geom[2], geom[3]), device)
