@@ -99,7 +99,8 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     spans, ``summary.json``'s telemetry block with its throughput and
     overlap report (printed), and K1's kernel 96 times in the
     ``--profile_dir`` trace; I3D + PWC on one 129-frame clip under
-    ``--profile_dir`` with K2's kernel 10 times in its trace;
+    ``--profile_dir`` with K2's kernel 10 times in its trace (both runs in
+    a fresh process: ``cli_in_fresh_process``);
     ``--telemetry off`` on 4 of the clips (no ``_telemetry/``, the same
     features); and the telemetry's bookkeeping a video (on minus off over
     2000 videos on this host) under 1% of CLIP's ms/video, cold and warm;
@@ -111,8 +112,8 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     family's relative L2 ceiling of them (``config.PARITY_CEILINGS``:
     "e2e", I3D's flow "e2e_flow", else "model"); K1 48 and K2 40 (PWC)
     and 10 (I3D + PWC) launches at both dtypes, equal in a
-    ``--profile_dir`` trace of the bf16 run, with K1 fed bf16 q/k/v and K2
-    fp32 inputs; warm videos/s at both dtypes and one bf16 forward's top
+    ``--profile_dir`` trace of the bf16 run made again in a fresh process
+    (``cli_in_fresh_process``), with K1 fed bf16 q/k/v and K2 fp32 inputs; warm videos/s at both dtypes and one bf16 forward's top
     kernels, beside the card's name and power limit; and K1 in bf16 at
     the CLIP path's shape against its plain version;
 17. the serve daemon (``video_features_tpu_torch/serve/``): the batch
@@ -208,19 +209,37 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     native --decoder auto`` on phase 9's clip: K1 and K2 0 launches,
     readers by backend, the same two gates (1e-3 relative L2 to the
     CPU), and its warm host ms/video at both;
-21. a ``kernels`` JSON line (each kernel's launches on its main path, in
+21. more than one device (``parallel/``): CLIP (full width, ``uni_12``)
+    on phase 12's 8 clips through the CLI, on this card listed more than
+    once (the machine has one): (a) queue mode, ``--attn flash
+    --device_ids 0 0`` against ``--device_ids 0`` (features within 1e-6,
+    96 K1 launches each, two workers named in the spans' threads and in
+    ``summary.json``'s device lanes; warm videos/s of both, median and
+    range of 3 passes each over a window of 160 names of the 8 clips); (b) ``--sharding mesh --device_ids 0 0 --mesh_model 1`` (within
+    1e-5 of (a)'s one-worker run, the difference printed; 12 x 2 K1
+    launches a forward at (8, 12, 50, 64)); (c) ``--mesh_model 2`` on the
+    same two (within 2e-4; 12 x 2 K1 launches a forward at (16, 6, 50,
+    64)); (d) ``--device_ids 0 0 0 0 --mesh_model 2 --mesh_context``
+    (fused core, within 2e-4, K1 0 launches); (e) ``--sharding mesh`` on
+    resnet50 refused with the JAX package's message; (f) (a)-(c) on
+    distinct cards where there are two (and a 2 x 2 mesh, tensor and
+    context parallel, where there are four), else a line saying so. Phase 3
+    holds and times K1 at those two mesh shapes. One card shows the
+    partitioning, the collectives' order and every shard's launch, but
+    no copy between cards and no speed-up from them;
+22. a ``kernels`` JSON line (each kernel's launches on its main path, in
     the fused runs, in the device preprocess runs, in the telemetry runs,
-    in the bf16 phase, in the served requests, in phases 18, 19 and 20,
-    its records at the fused shapes, and K1's bf16 record at the CLIP
-    path's shape), then the ``ok`` JSON line last.
+    in the bf16 phase, in the served requests, in phases 18, 19, 20 and
+    21, its records at the fused shapes and at the mesh shapes, and K1's
+    bf16 record at the CLIP path's shape), then the ``ok`` JSON line last.
 
-Every CLI run of phases 4-14, 16-18 and 20 passes ``--strict``, so a video that fails
+Every CLI run of phases 4-14, 16-18, 20 and 21 passes ``--strict``, so a video that fails
 in isolation fails its phase (phase 15's first run leaves it out: two of
 its files must fail). Phases 7-11 launch no hand-written kernel:
 RAFT, ResNet, R(2+1)D and VGGish reach no ``pallas_call`` in the JAX
 package, nor does the device preprocess's resample (the JAX package
 leaves it to XLA). Every launch count is read from a run that starts with
-all counts at 0, and each of phases 4-20 prints its wall time.
+all counts at 0, and each of phases 4-21 prints its wall time.
 """
 
 from __future__ import annotations
@@ -279,6 +298,16 @@ ATTENTION_CASES = [
     ((16, 12, 65, 64), torch.float32, None),  # one row past a KV tile: two stages
     ((16, 12, 197, 128), torch.float32, None),  # d=128, the most shared memory
 ]
+# K1's shapes on phase 21's mesh runs, held and timed in phase 3: a
+# --mesh_model 2 shard's 6 heads of uni_12's 16 frames, and one of two
+# data shards' 8 frames
+MESH_ATTENTION_SHAPES = {"N=16, H=6 (--mesh_model 2)": (16, 6, 50, 64),
+                         "N=8, H=12 (two data shards)": (8, 12, 50, 64)}
+# phase 21: against queue mode's one-worker features; a data-parallel
+# mesh does each frame's arithmetic as one device does, at another batch
+# size (the JAX package asks byte-equality there), tensor and context
+# parallelism sum in another order (the JAX package's 2e-4)
+MESH_ATOL = {"data": 1e-5, "tensor": 2e-4, "context": 2e-4}
 # K2's cases in phase 3: (label, shape, dtype); the levels are the main path
 CORRELATION_CASES = [(f"level {lvl}", (PAIRS, c, h, w), torch.float32)
                      for lvl, c, h, w in CORR_LEVELS]
@@ -311,6 +340,10 @@ VGGISH_RTOL = 1e-3
 # same kernels in another loop gives the same features up to launch-order
 # effects, none of which exist in a fixed-shape fp32 forward
 CONTRACT_VIDEOS = 8
+# phase 21's warm queue passes: each of the 8 clips under this many names,
+# a window of 160 videos a pass, so one pass takes seconds, not ~0.4 s
+WARM_QUEUE_COPIES = 20
+WARM_QUEUE_PASSES = 3  # for each worker count, in turns
 # phase 17's ledger gates: CLIP-ViT-B/32 at 224 px is 4.41 GMACs (timm's
 # published figure) at 2 flops a multiply-add; a model's projected resident
 # set against the peak of its largest served group P; a rebuilt CLIP's
@@ -663,6 +696,40 @@ def synth_clips(root: str):
 def read_features(out_dir: str):
     files = sorted(glob.glob(os.path.join(out_dir, "**", "*.npy"), recursive=True))
     return {os.path.basename(f): np.load(f) for f in files}
+
+
+FRESH_CLI = """
+import json, sys, time
+import torch
+from video_features_tpu_torch import cli
+from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
+from video_features_tpu_torch.ops.flash_attention import flash_attention
+t0 = time.perf_counter()
+cli.main(json.loads(sys.argv[1]))
+torch.cuda.synchronize()
+print("FRESH_CLI " + json.dumps({"wall": time.perf_counter() - t0,
+                                 "flash_attention": flash_attention.launches,
+                                 "local_correlation": local_correlation_kernel.launches}))
+"""
+
+
+def cli_in_fresh_process(argv):
+    """(wall s of ``cli.main(argv)``, {kernel: launches}) from a new Python
+    process of this interpreter, environment and repo, which loads the
+    kernels this one built. Phases 15 and 16 take their ``--profile_dir``
+    traces this way: a ``torch.profiler`` trace loses kernel records as a
+    process ages, one more every ~15 s of work on the card
+    (``scripts/profiler_trace_loss.py``), and a fresh process's hold
+    every launch."""
+    done = subprocess.run([sys.executable, "-c", FRESH_CLI, json.dumps(argv)],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=900)
+    marked = [line for line in done.stdout.splitlines() if line.startswith("FRESH_CLI ")]
+    if done.returncode or not marked:
+        raise AssertionError(f"the CLI in a fresh process exited {done.returncode}: "
+                             f"{done.stdout[-2000:]}{done.stderr[-4000:]}")
+    counts = json.loads(marked[-1][len("FRESH_CLI "):])
+    return counts.pop("wall"), counts
 
 
 def warm_split(ex, clips, device):
@@ -1750,6 +1817,14 @@ def hold_fused_shapes(device):
                                   "N=128 (i3d --video_batch 2)": i3d}}
 
 
+def hold_mesh_shapes(device):
+    """Phase 3, K1 at phase 21's mesh shapes (``MESH_ATTENTION_SHAPES``)
+    against its plain version, early, where the profiler keeps every
+    launch. Returns the records by shape."""
+    return {label: hold_flash_attention(device, shape, torch.float32, None, seed=500 + i)
+            for i, (label, shape) in enumerate(MESH_ATTENTION_SHAPES.items())}
+
+
 def resample_taps(src, taps, device):
     """The placed taps of one ``RESAMPLE_CASES`` entry, and the bucket."""
     from video_features_tpu_torch.extract.ingest import place_taps
@@ -1905,7 +1980,6 @@ def run_telemetry_path(root: str, device):
     from video_features_tpu_torch import cli
     from video_features_tpu_torch.config import ExtractionConfig
     from video_features_tpu_torch.extract.registry import build_extractor
-    from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
     from video_features_tpu_torch.ops.flash_attention import flash_attention
     from video_features_tpu_torch.runtime import faults
     from video_features_tpu_torch.runtime.telemetry import overlap_report, read_spans
@@ -1932,9 +2006,13 @@ def run_telemetry_path(root: str, device):
         return time.perf_counter() - t0, flash_attention.launches, read_features(
             os.path.join(root, out))
 
-    # 1. CLIP at the defaults, with two files the probe must reject
+    # 1. CLIP at the defaults, with two files the probe must reject, in a
+    # fresh process for a whole trace (cli_in_fresh_process)
     prof = os.path.join(root, "tele_clip_profile")
-    wall, k1, on = run("tele_clip", clips + [noise, empty], "--profile_dir", prof)
+    wall, fresh = cli_in_fresh_process([*clip_args, "--output_path",
+                                        os.path.join(root, "tele_clip"), "--profile_dir", prof,
+                                        "--video_paths", *clips, noise, empty])
+    k1, on = fresh["flash_attention"], read_features(os.path.join(root, "tele_clip"))
     out = os.path.join(root, "tele_clip")
     with open(os.path.join(out, "_manifest", "summary.json")) as f:
         summary = json.load(f)
@@ -1971,7 +2049,8 @@ def run_telemetry_path(root: str, device):
     ov, tput = tele["overlap"], tele["throughput"]
     ms_video = 1e3 / tput["videos_per_s"]
     print(f"telemetry and preflight, CLIP at the defaults + --decode_workers 2 --preprocess "
-          f"device --profile_dir (cold CLI run, model build and profiler included): "
+          f"device --profile_dir (cold CLI run in a fresh process, model build and profiler "
+          f"included): "
           f"{CONTRACT_VIDEOS} done + 2 rejected in {wall:.3f} s; summary {tput['videos_per_s']:.3f} "
           f"videos/s ({ms_video:.2f} ms/video), {tput['decode_fps']:.1f} decode fps; "
           f"{len(rows)} spans, stages {dict(sorted(tele['stages'].items()))}; "
@@ -1990,18 +2069,17 @@ def run_telemetry_path(root: str, device):
     # 2. I3D + PWC under --profile_dir
     clip129 = synth_video(os.path.join(root, "tele_i3d.mp4"), n_frames=I3D_CLIP_FRAMES, seed=0)
     prof_i3d = os.path.join(root, "tele_i3d_profile")
-    reset_counts()
-    t0 = time.perf_counter()
-    cli.main(["--feature_type", "i3d", "--flow_type", "pwc", "--allow_random_init",
-              "--on_extraction", "save_numpy", "--strict", "--profile_dir", prof_i3d,
-              "--output_path", os.path.join(root, "tele_i3d"),
-              "--tmp_path", os.path.join(root, "tmp"), "--video_paths", clip129])
-    torch.cuda.synchronize()
-    i3d_wall, k2 = time.perf_counter() - t0, local_correlation_kernel.launches
+    i3d_wall, fresh = cli_in_fresh_process(
+        ["--feature_type", "i3d", "--flow_type", "pwc", "--allow_random_init",
+         "--on_extraction", "save_numpy", "--strict", "--profile_dir", prof_i3d,
+         "--output_path", os.path.join(root, "tele_i3d"),
+         "--tmp_path", os.path.join(root, "tmp"), "--video_paths", clip129])
+    k2 = fresh["local_correlation"]
     traced_k2 = trace_kernel_launches(prof_i3d, "local_correlation_kernel")
     want_k2 = I3D_STACKS * len(CORR_LEVELS)
     print(f"telemetry and preflight, I3D + PWC --profile_dir on one {I3D_CLIP_FRAMES}-frame clip "
-          f"(cold CLI run): {i3d_wall:.3f} s; local_correlation_kernel in the trace {traced_k2} "
+          f"(cold CLI run in a fresh process): {i3d_wall:.3f} s; local_correlation_kernel in "
+          f"the trace {traced_k2} "
           f"launches (wrapper count {k2}, expected {want_k2})")
     if traced_k2 != want_k2 or k2 != want_k2:
         raise AssertionError(f"K2 launches: trace {traced_k2}, wrapper {k2}")
@@ -2129,13 +2207,11 @@ def run_bf16_path(root: str, device):
         feats, inputs = {}, {}
         for dtype in ("float32", "bfloat16"):
             out = os.path.join(root, f"bf16_{tag}_{dtype}")
-            prof = out + "_profile" if dtype == "bfloat16" and traced else None
+            argv = [*args, "--dtype", dtype, "--allow_random_init", "--on_extraction",
+                    "save_numpy", "--strict", "--tmp_path", os.path.join(root, "tmp")]
             reset_counts()
             with kernel_inputs() as seen:
-                cli.main([*args, "--dtype", dtype, "--allow_random_init", "--on_extraction",
-                          "save_numpy", "--strict", "--output_path", out, "--tmp_path",
-                          os.path.join(root, "tmp"), "--video_paths", *clips]
-                         + (["--profile_dir", prof] if prof else []))
+                cli.main([*argv, "--output_path", out, "--video_paths", *clips])
                 torch.cuda.synchronize()
             k1, k2 = flash_attention.launches, local_correlation_kernel.launches
             launches["flash_attention"] += k1
@@ -2144,14 +2220,24 @@ def run_bf16_path(root: str, device):
                 raise AssertionError(f"bfloat16 {label} --dtype {dtype}: K1 {k1}, K2 {k2} "
                                      f"launches, expected {want_k1}, {want_k2}")
             feats[dtype], inputs[dtype] = read_features(out), (seen["K1"], seen["K2"])
-            if prof:
+            if dtype == "bfloat16" and traced:
+                # the same run again under --profile_dir, in a fresh process
+                # for a whole trace (cli_in_fresh_process)
+                prof = out + "_profile"
+                _, fresh = cli_in_fresh_process([*argv, "--output_path", out + "_traced",
+                                                 "--profile_dir", prof, "--video_paths", *clips])
+                for name, n in fresh.items():
+                    launches[name] += n
+                wrapper = fresh["flash_attention"] + fresh["local_correlation"]
                 names = trace_kernel_names(prof, traced)
                 kinds = sorted({"bfloat16" if "bfloat16" in n else "float32" for n in names})
                 print(f"bfloat16 {label}: {traced} in the --dtype bfloat16 --profile_dir trace "
-                      f"{len(names)} launches (wrapper count {k1 or k2}), their types {kinds}")
-                if len(names) != k1 + k2:
+                      f"of a fresh process {len(names)} launches (that process's wrapper count "
+                      f"{wrapper}), their types {kinds}")
+                if not len(names) == wrapper == k1 + k2:
                     raise AssertionError(f"bfloat16 {label}: the trace holds {len(names)} "
-                                         f"{traced} launches, the wrapper {k1 + k2}")
+                                         f"{traced} launches, the wrapper {wrapper} there and "
+                                         f"{k1 + k2} here")
         k1_in, k2_in = inputs["bfloat16"]
         if (want_k1 and k1_in != {"bfloat16"}) or (want_k2 and k2_in != {"float32"}):
             raise AssertionError(f"bfloat16 {label}: K1 got {sorted(k1_in)}, K2 got "
@@ -3474,6 +3560,200 @@ def run_native_path(root: str, device):
     return {"flash_attention": k1, "local_correlation": 0}
 
 
+@contextlib.contextmanager
+def k1_shapes():
+    """Yields the set of q shapes CLIP's flash core gets while it is open
+    (a recorder around the real wrapper, whose count stays the only
+    count; the recorder is taken at each extractor's build)."""
+    from video_features_tpu_torch.models.clip import extract_clip
+
+    seen = set()
+    flash = extract_clip.CORES["flash"]
+
+    def k1(q, k, v, **kw):
+        seen.add(tuple(q.shape))
+        return flash(q, k, v, **kw)
+
+    with mock.patch.dict(extract_clip.CORES, {"flash": k1}):
+        yield seen
+
+
+def run_parallel_path(root: str, device):
+    """Phase 21: queue mode and CLIP's mesh (module docstring). Returns
+    each kernel's launches in the phase."""
+    from video_features_tpu_torch import cli
+    from video_features_tpu_torch.config import ExtractionConfig
+    from video_features_tpu_torch.extract.registry import build_extractor
+    from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
+    from video_features_tpu_torch.ops.flash_attention import flash_attention
+    from video_features_tpu_torch.parallel.scheduler import parallel_feature_extraction
+
+    card = card_line()
+    print(f"parallel: {card}; {torch.cuda.device_count()} visible CUDA device(s)")
+    clips = [os.path.join(root, f"contract{i}.mp4") for i in range(CONTRACT_VIDEOS)]
+    launches = {"flash_attention": 0, "local_correlation": 0}
+    forwards = CONTRACT_VIDEOS  # one uni_12 forward a video
+    want_mesh_k1 = LAYERS * 2 * forwards  # 12 blocks x 2 cells x forwards
+
+    def run(out, *extra, attn="flash"):
+        reset_counts()
+        with k1_shapes() as shapes:
+            t0 = time.perf_counter()
+            cli.main(["--feature_type", "CLIP-ViT-B/32", "--extract_method", f"uni_{FRAMES}",
+                      "--attn", attn, "--allow_random_init", "--on_extraction", "save_numpy",
+                      "--strict", "--output_path", os.path.join(root, out), "--tmp_path",
+                      os.path.join(root, "tmp"), *extra, "--video_paths", *clips])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        k1 = flash_attention.launches
+        launches["flash_attention"] += k1
+        launches["local_correlation"] += local_correlation_kernel.launches
+        feats = read_features(os.path.join(root, out))
+        if len(feats) != CONTRACT_VIDEOS:
+            raise AssertionError(f"{out}: {len(feats)} files of {CONTRACT_VIDEOS}")
+        print(f"parallel, {' '.join(extra)} --attn {attn} (cold CLI run, model build "
+              f"included): {CONTRACT_VIDEOS} videos in {wall:.3f} s, "
+              f"{CONTRACT_VIDEOS / wall:.3f} videos/s; K1 launches {k1} at {sorted(shapes)} "
+              f"[{card}]")
+        return k1, sorted(shapes), feats
+
+    def lanes(out):
+        with open(os.path.join(root, out, "_manifest", "summary.json")) as f:
+            summary = json.load(f)
+        threads = set()
+        for path in glob.glob(os.path.join(root, out, "_telemetry", "spans-*.jsonl")):
+            with open(path) as f:
+                threads |= {json.loads(line).get("thread_name") for line in f if line.strip()}
+        return (sorted(summary["telemetry"]["utilization"]["devices"]),
+                sorted(t for t in threads if t and t.startswith("extract-")))
+
+    def warm_queue(devices, where):
+        """Warm queue mode over ``devices`` (two), 1 and 2 workers in turns,
+        ``WARM_QUEUE_PASSES`` passes each over a window of
+        ``WARM_QUEUE_COPIES`` hard links to each clip (its own name each):
+        the median and range of videos/s, and the device lanes of a
+        2-worker pass (both models built, so both workers take videos)."""
+        from video_features_tpu_torch.runtime.telemetry import utilization_report
+
+        window = []
+        os.makedirs(os.path.join(root, "warm_window"), exist_ok=True)
+        for c in range(WARM_QUEUE_COPIES):
+            for clip in clips:
+                dst = os.path.join(root, "warm_window", f"{c:02d}_{os.path.basename(clip)}")
+                if not os.path.exists(dst):
+                    os.link(clip, dst)
+                window.append(dst)
+        ex = build_extractor(ExtractionConfig(
+            feature_type="CLIP-ViT-B/32", video_paths=clips, extract_method=f"uni_{FRAMES}",
+            attn="flash", allow_random_init=True), external_call=True)
+        lists = {1: devices[:1], 2: devices}
+        for w in (1, 2):
+            parallel_feature_extraction(ex, lists[w])  # builds, cuBLAS and allocator set-up
+        ex.path_list = window  # the timed passes run the window on the warm models
+        walls = {1: [], 2: []}
+        for w in (1, 2) * WARM_QUEUE_PASSES:
+            before = len(ex.telemetry.spans())
+            t0 = time.perf_counter()
+            parallel_feature_extraction(ex, lists[w])  # each worker ends in copies to the host
+            torch.cuda.synchronize()
+            walls[w].append(time.perf_counter() - t0)
+            if w == 2:
+                pass_lanes = sorted(utilization_report(ex.telemetry.spans()[before:])["devices"])
+        vps = {w: [len(window) / t for t in ts] for w, ts in walls.items()}
+        med = {w: float(np.median(v)) for w, v in vps.items()}
+        print(f"parallel, warm queue mode {where}, {len(window)} videos a pass, "
+              f"{WARM_QUEUE_PASSES} passes each in turns 1, 2 workers: 1 worker median "
+              f"{med[1]:.3f} videos/s (range {min(vps[1]):.3f}-{max(vps[1]):.3f}; passes "
+              f"{', '.join(f'{v:.3f}' for v in vps[1])}), 2 workers median {med[2]:.3f} "
+              f"(range {min(vps[2]):.3f}-{max(vps[2]):.3f}; passes "
+              f"{', '.join(f'{v:.3f}' for v in vps[2])}); medians {med[2] / med[1]:.3f}x; "
+              f"a 2-worker pass's lanes {pass_lanes} [{card}]")
+        if len(pass_lanes) != 2:
+            raise AssertionError(f"warm queue mode {where}: lanes {pass_lanes}")
+
+    def queue_and_mesh(ids, tag):
+        """(a)-(c) on the device ids ``ids`` (two of them). On one card the
+        second worker's warmup finds the model built, so both workers take
+        videos of the cold run; on two cards the second builds its own and
+        may find the queue drained (``warm_queue`` shows both at work)."""
+        k1, _, one = run(f"par_{tag}_q1", "--device_ids", ids[0])
+        k1_two, _, two = run(f"par_{tag}_q2", "--device_ids", *ids)
+        err = max_abs_diff(two, one)
+        devices, threads = lanes(f"par_{tag}_q2")
+        print(f"parallel (a), queue mode on devices {' '.join(ids)}: features against one "
+              f"worker max_abs_err {err:.3e} (tol {CONTRACT_ATOL:g}); K1 {k1} and {k1_two}; "
+              f"device lanes in summary.json {devices}; worker threads in the spans {threads}")
+        both = len(devices) == 2 and len(threads) == 2
+        if not (err <= CONTRACT_ATOL and k1 == k1_two == CONTRACT_VIDEOS * LAYERS
+                and (both or ids[0] != ids[1])):
+            raise AssertionError(f"queue mode on {ids}: err {err}, K1 {k1}/{k1_two}, "
+                                 f"lanes {devices}, threads {threads}")
+        for label, mesh_args, tol, shape in (
+                ("(b) data parallel", ("--mesh_model", "1"), MESH_ATOL["data"], (8, 12, 50, 64)),
+                ("(c) tensor parallel", ("--mesh_model", "2"), MESH_ATOL["tensor"],
+                 (16, 6, 50, 64))):
+            k1_mesh, shapes, feats = run(f"par_{tag}_{label[1]}", "--sharding", "mesh",
+                                         "--device_ids", *ids, *mesh_args)
+            err = max_abs_diff(feats, one)
+            print(f"parallel {label}, mesh {' '.join(ids)} {' '.join(mesh_args)}: features "
+                  f"against queue mode max_abs_err {err:.3e} (tol {tol:g}); K1 {k1_mesh} "
+                  f"(want {want_mesh_k1}) at {shapes}")
+            if not (err <= tol and k1_mesh == want_mesh_k1 and shapes == [shape]):
+                raise AssertionError(f"mesh {label} on {ids}: err {err}, K1 {k1_mesh}, {shapes}")
+        return one
+
+    t_phase = time.perf_counter()
+    idx = str(device.index or 0)
+    one = queue_and_mesh([idx, idx], "same")
+    warm_queue([device, device], "on one card")
+
+    k1, _, ctx = run("par_context", "--sharding", "mesh", "--device_ids", *[idx] * 4,
+                     "--mesh_model", "2", "--mesh_context",
+                     attn="fused")
+    err = max_abs_diff(ctx, one)
+    print(f"parallel (d) context parallel, mesh 2 x 2 on one card --mesh_context: features "
+          f"against queue mode max_abs_err {err:.3e} (tol {MESH_ATOL['context']:g}); K1 {k1}")
+    if not (err <= MESH_ATOL["context"] and k1 == 0):
+        raise AssertionError(f"--mesh_context: err {err}, K1 {k1}")
+
+    want = ("--sharding mesh is not supported for feature_type 'resnet50': ExtractResNet does "
+            "not declare mesh support (mesh_capable); use --sharding queue")
+    try:
+        cli.main(["--feature_type", "resnet50", "--allow_random_init", "--sharding", "mesh",
+                  "--output_path", os.path.join(root, "par_refused"), "--tmp_path",
+                  os.path.join(root, "tmp"), "--video_paths", clips[0]])
+    except ValueError as exc:
+        got = str(exc)
+    else:
+        raise AssertionError("--sharding mesh on resnet50 was not refused")
+    print(f"parallel (e), --sharding mesh --feature_type resnet50: ValueError (exit 1 from the "
+          f"command line): {got}")
+    if got != want:
+        raise AssertionError(f"the refusal's message differs from the JAX package's: {got!r}")
+
+    if torch.cuda.device_count() > 1:
+        queue_and_mesh(["0", "1"], "distinct")
+        warm_queue([torch.device("cuda", 0), torch.device("cuda", 1)], "on two cards")
+        if torch.cuda.device_count() >= 4:  # a 2 x 2 mesh of distinct cards
+            four = ["0", "1", "2", "3"]
+            for label, extra, attn, tol, want in (
+                    ("data x tensor parallel", (), "flash", MESH_ATOL["tensor"], want_mesh_k1 * 2),
+                    ("context parallel", ("--mesh_context",), "fused", MESH_ATOL["context"], 0)):
+                k1, _, feats = run(f"par_four_{attn}", "--sharding", "mesh", "--device_ids", *four,
+                                   "--mesh_model", "2", *extra, attn=attn)
+                err = max_abs_diff(feats, one)
+                print(f"parallel (f), {label} 2 x 2 on cards 0-3: features against queue mode "
+                      f"max_abs_err {err:.3e} (tol {tol:g}); K1 {k1} (want {want})")
+                if not (err <= tol and k1 == want):
+                    raise AssertionError(f"2 x 2 {label} on cards 0-3: err {err}, K1 {k1}")
+    else:
+        print("parallel (f): one CUDA device on this host, so no run on distinct cards was "
+              "possible: nothing here crossed between cards, and no speed-up from more cards "
+              "was measured")
+    print(f"parallel: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _preempt_events(out: str) -> list:
     """The daemon manifests' (event, feature type, beneficiary) rows of
     preemption, rollback and re-warm, in order."""
@@ -3505,6 +3785,7 @@ def main() -> int:
     k1, k1_bf16 = check_flash_attention(device)
     k2 = check_local_correlation(device)
     fused_shapes = hold_fused_shapes(device)
+    mesh_shapes = hold_mesh_shapes(device)
     measure_resample(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         phases = [
@@ -3528,34 +3809,27 @@ def main() -> int:
             ("disk flow and output flags", lambda: run_flags_path(root, device)),
             ("preemption", lambda: run_preempt_path(root, device)),
             ("native host path", lambda: run_native_path(root, device)),
+            ("parallel", lambda: run_parallel_path(root, device)),
         ]
         results = {}
         for name, phase in phases:
             t0 = time.perf_counter()
             results[name] = phase()
             print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
-        # each kernel's launches: its main path's run, then the fused runs,
-        # the device preprocess runs, the telemetry runs, the bf16 phase's,
-        # the served requests', the disk flow and output flags phase's and
-        # the preemption phase's
-        later = [results["async ingest"], results["device preprocess"],
-                 results["telemetry and preflight"], results["bfloat16"], results["serve"],
-                 results["disk flow and output flags"], results["preemption"],
-                 results["native host path"]]
+        # each kernel's launches: its main path's run, then those of every
+        # later phase that drives it
+        later_names = ("async ingest", "device preprocess", "telemetry and preflight",
+                       "bfloat16", "serve", "disk flow and output flags", "preemption",
+                       "native host path", "parallel")
+        later = [results[n] for n in later_names]
         k1_launches = results["CLIP"] + sum(r["flash_attention"] for r in later)
         k2_launches = results["I3D + PWC"] + sum(r["local_correlation"] for r in later)
         print("launches by phase: K1 " + ", ".join(
-            [f"CLIP {results['CLIP']}"] + [f"{n} {results[n]['flash_attention']}" for n in (
-                "async ingest", "device preprocess", "telemetry and preflight", "bfloat16",
-                "serve", "disk flow and output flags", "preemption", "native host path")])
+            [f"CLIP {results['CLIP']}"]
+            + [f"{n} {results[n]['flash_attention']}" for n in later_names])
             + "; K2 " + ", ".join(
-            [f"I3D + PWC {results['I3D + PWC']}"] + [f"{n} {results[n]['local_correlation']}"
-                                                     for n in ("async ingest", "device preprocess",
-                                                               "telemetry and preflight",
-                                                               "bfloat16", "serve",
-                                                               "disk flow and output flags",
-                                                               "preemption",
-                                                               "native host path")]))
+            [f"I3D + PWC {results['I3D + PWC']}"]
+            + [f"{n} {results[n]['local_correlation']}" for n in later_names]))
 
     records = [
         {
@@ -3566,6 +3840,7 @@ def main() -> int:
             "launches": k1_launches,
             **k1,
             "fused_shapes": fused_shapes["flash_attention"],
+            "mesh_shapes": mesh_shapes,
             "bf16_main_path": k1_bf16,
         },
         {

@@ -8,7 +8,7 @@
   JAX package's warnings, so ``--strict`` fails such a clip;
 - a sticky device error stops the loop after one ``worker_death``, and
   ``--resume`` runs the videos it left;
-- more than one ``--device_ids`` is refused;
+- more than one ``--device_ids`` parses and resolves to that many cards;
 - two containers with one stem rip their audio to distinct files.
 """
 
@@ -28,6 +28,7 @@ from video_features_tpu.runtime import faults as jax_faults
 from video_features_tpu_torch import cli
 from video_features_tpu_torch.config import ExtractionConfig, parse_args, sanity_check
 from video_features_tpu_torch.devices import resolve_device
+from video_features_tpu_torch.parallel.devices import resolve_devices
 from video_features_tpu_torch.extract import ingest
 from video_features_tpu_torch.extract.base import BaseExtractor
 from video_features_tpu_torch.io import ffmpeg
@@ -131,12 +132,13 @@ def test_ingest_checks_match_jax(kw):
     assert str(ours.value) == str(ref.value)
 
 
-def test_more_than_one_device_id_is_refused():
-    with pytest.raises(ValueError, match="item 12"):
-        parse_args(["--feature_type", "resnet18", "--device_ids", "0", "1"])
-    cfg = ExtractionConfig(feature_type="resnet18", device_ids=[0, 1], cpu=True)
-    with pytest.raises(ValueError, match="one CUDA device"):
-        resolve_device(cfg)  # a library caller that skipped sanity_check
+def test_more_than_one_device_id_parses_and_resolves(monkeypatch):
+    cfg = parse_args(["--feature_type", "resnet18", "--device_ids", "0", "1"])
+    assert cfg.device_ids == [0, 1] and cfg.sharding == "queue"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert resolve_devices(cfg) == [torch.device("cuda", 0), torch.device("cuda", 1)]
+    assert resolve_device(cfg) == torch.device("cuda", 0)
     assert parse_args(["--feature_type", "resnet18", "--device_ids", "0"]).device_ids == [0]
 
 

@@ -2,10 +2,14 @@
 the ``video-features-tpu-torch`` script), and ``... serve ...``.
 
 The JAX package's flags and output files (``video_features_tpu/cli.py``).
-The run goes to ``cuda:<device_id>`` (one), or to the CPU with ``--cpu``.
-``--feature_types A B ...`` runs several models over the same videos,
-one after another, with the shared-decode frame cache installed
-(``extract/plan.py::run_multi``): each clip is decoded once. After the run, every
+The run goes to the ``--device_ids`` CUDA devices (every visible one by
+default) or to the CPU with ``--cpu``: one worker per device over a
+shared queue of videos (``--sharding queue``), or one sharded forward
+over a (data, model) mesh of them (``--sharding mesh``, CLIP;
+``parallel/scheduler.py``). ``--feature_types A B ...`` runs several
+models over the same videos, one after another, with the shared-decode
+frame cache installed (``extract/plan.py::run_multi``): each clip is
+decoded once. After the run, every
 record under ``<output_path>/_manifest/`` is merged into
 ``summary.json``, with the run's telemetry block, and its one-line
 outcome printed; with ``--strict`` a failed video, an empty-feature
@@ -21,8 +25,8 @@ from __future__ import annotations
 import sys
 
 from video_features_tpu_torch.config import parse_batch_args
-from video_features_tpu_torch.devices import resolve_device
 from video_features_tpu_torch.extract.plan import run_multi
+from video_features_tpu_torch.parallel.devices import resolve_devices
 from video_features_tpu_torch.runtime.faults import finalize_run, format_summary, strict_failures
 
 
@@ -36,7 +40,7 @@ def main(argv=None):
 
         return serve_main(argv[1:])
     cfg, feature_types = parse_batch_args(argv)
-    device = resolve_device(cfg)  # raises before any work when CUDA is absent
+    resolve_devices(cfg)  # raises before any work: no CUDA, or an id out of range
     if cfg.on_extraction in ("save_numpy", "save_pickle"):
         print(f"Saving features to {cfg.output_path}")
     if cfg.keep_tmp_files:
@@ -44,7 +48,7 @@ def main(argv=None):
     summary = None
     built = []
     try:
-        run_multi(cfg, feature_types, device=device, built=built)
+        run_multi(cfg, feature_types, built=built)
     finally:
         # the merge happens even when the run raised, so a crashed run
         # still leaves a record of what completed; one <output>/_manifest

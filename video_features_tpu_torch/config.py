@@ -17,10 +17,11 @@ read from disk: ``--flow_type flow`` with ``--flow_paths`` or
 ``--show_pred``; ``--fps_retarget``; ``--uint8_transfer``;
 ``--conv3d_impl``), the content-addressed feature
 cache (``--cache_dir``, ``--cache_hash``), the shared-decode fan-out
-(``--feature_types``, ``--ingest_cache_mb``) and the serve daemon's
+(``--feature_types``, ``--ingest_cache_mb``), more than one device
+(``--device_ids``, ``--sharding queue|mesh``, ``--mesh_model``,
+``--mesh_context``; ``parallel/``) and the serve daemon's
 ``ServeConfig`` (``parse_serve_args``, ``sanity_check_serve``). Flag
-names, meanings and defaults are the JAX package's; its ``--sharding
-mesh`` rules are left out, as the port runs on one device. Serve's
+names, meanings and defaults are the JAX package's. Serve's
 ``--hbm_budget_bytes`` (the warmup gate on the device cost ledger's
 projection) and ``--preempt`` with its tuning flags
 (``--preempt_cooldown_s``, ``--preempt_min_residency_s``) parse and
@@ -36,7 +37,6 @@ import re
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
-from video_features_tpu_torch.devices import check_one_device
 from video_features_tpu_torch.runtime.faults import parse_fault_specs
 
 # the feature types this package extracts so far
@@ -53,6 +53,11 @@ FLOW_TYPES = ("raft", "pwc", "flow")
 # this set in its refusal
 DEVICE_PREPROCESS_FEATURE_TYPES = CLIP_FEATURE_TYPES + RESNET_FEATURE_TYPES + ["raft", "pwc",
                                                                              "i3d"]
+# the extractors whose --preprocess device path may run under --sharding
+# mesh (the JAX package's list, so its refusal reads the same here); of
+# them, only CLIP declares mesh support in this package so far, and
+# parallel/scheduler.py refuses the others with the JAX package's message
+MESH_DEVICE_PREPROCESS_FEATURE_TYPES = CLIP_FEATURE_TYPES + ["raft", "pwc", "i3d"]
 PREPROCESS_MODES = ("host", "device")
 DECODERS = ("auto", "cv2", "native")
 HOST_PREPROCESS = ("pil", "native")
@@ -113,9 +118,19 @@ class ExtractionConfig:
     file_with_video_paths: Optional[str] = None
     video_dir: Optional[str] = None
     flow_dir: Optional[str] = None
-    # --- devices: cuda:<device_ids[0]>, or the CPU with --cpu ---
+    # --- devices: the CUDA ids to run on (every visible device when None;
+    # an id may repeat), or the CPU with --cpu (one device) ---
     device_ids: Optional[List[int]] = None
     cpu: bool = False
+    # 'queue': one worker thread and model per device over a shared queue
+    # of videos; 'mesh': one sharded forward over a (data, model) grid of
+    # every selected device (parallel/)
+    sharding: str = "queue"
+    # the mesh's 'model' (tensor-parallel) axis size; 'data' gets the rest
+    mesh_model: int = 1
+    # --sharding mesh only: shard the transformer's tokens over 'data' and
+    # run ring attention, the batch replicated (CLIP, --attn fused)
+    mesh_context: bool = False
     # --- output ---
     tmp_path: str = "./tmp"
     # keep the wav/aac an audio rip leaves in tmp_path (vggish on a video)
@@ -282,9 +297,14 @@ def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
         )
     if cfg.show_pred:
         # predictions print per video (CLIP prints none, as in the JAX
-        # package): pin to one device
-        if cfg.device_ids:
-            cfg = cfg.replace(device_ids=[cfg.device_ids[0]])
+        # package) and would interleave across workers: pin to one device
+        cfg = cfg.replace(device_ids=[cfg.device_ids[0]] if cfg.device_ids else [0])
+    if cfg.sharding not in ("queue", "mesh"):
+        raise ValueError(f"unknown sharding strategy: {cfg.sharding}")
+    if cfg.mesh_model < 1:
+        raise ValueError(f"mesh_model must be >= 1, got {cfg.mesh_model}")
+    if cfg.mesh_context and cfg.sharding != "mesh":
+        raise ValueError("--mesh_context requires --sharding mesh")
     if cfg.dtype != "float32":
         fams = LOW_PRECISION_MODEL_FAMILIES.get(cfg.dtype)
         if fams is None:
@@ -375,7 +395,6 @@ def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
             "--retry_failed only modifies --resume (it re-attempts videos "
             "the manifest recorded as permanently failed); add --resume"
         )
-    check_one_device(cfg.device_ids)
     if cfg.video_batch < 1:
         raise ValueError(f"video_batch must be >= 1, got {cfg.video_batch}")
     if cfg.video_batch > 1 and int(cfg.decode_workers or 0) < 1:
@@ -428,6 +447,22 @@ def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
                 "--preprocess device never materializes for raft/pwc — "
                 "drop one of the two flags"
             )
+        if cfg.sharding == "mesh":
+            if cfg.feature_type not in MESH_DEVICE_PREPROCESS_FEATURE_TYPES:
+                supported = ", ".join(sorted(MESH_DEVICE_PREPROCESS_FEATURE_TYPES))
+                raise ValueError(
+                    "--preprocess device under --sharding mesh needs the "
+                    "fused entry to declare its sharding contract (GC502); "
+                    f"today that covers: {supported} "
+                    f"(got {cfg.feature_type!r})"
+                )
+            if cfg.mesh_context:
+                raise ValueError(
+                    "--preprocess device shards the raw frame axis over "
+                    "'data'; --mesh_context replicates the batch and "
+                    "shards tokens in-model — the two layouts conflict, "
+                    "drop one"
+                )
     if cfg.spatial_bucket < 1:
         raise ValueError(f"spatial_bucket must be >= 1, got {cfg.spatial_bucket}")
     parse_fault_specs(cfg.fault_inject)  # raises naming the bad spec
@@ -435,6 +470,12 @@ def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
         raise ValueError(f"telemetry must be 'on' or 'off', got {cfg.telemetry!r}")
     if cfg.heartbeat_s < 0:
         raise ValueError(f"heartbeat_s must be >= 0, got {cfg.heartbeat_s}")
+    if cfg.mesh_context and cfg.attn != "fused":
+        raise ValueError(
+            "--mesh_context injects the ring-attention core; it cannot "
+            "combine with --attn flash/blockwise (ring already chunks KV "
+            "blockwise per arriving shard)"
+        )
     if cfg.cache_hash not in ("fast", "full"):
         raise ValueError(
             f"cache_hash must be 'fast' or 'full', got {cfg.cache_hash!r}"
@@ -464,7 +505,19 @@ def build_arg_parser(feature_required: bool = True) -> argparse.ArgumentParser:
                    help="dir of optical flow of videos: "
                         "[flow_dir]/[video stem]/[flow_(x/y)_00000.jpg]")
     p.add_argument("--device_ids", type=int, nargs="+",
-                   help="the CUDA device id to run on (one, so far)")
+                   help="the CUDA device ids to run on (default: every visible "
+                        "one; an id may repeat: two workers, or two mesh shards, "
+                        "on one card)")
+    p.add_argument("--sharding", default="queue", choices=["queue", "mesh"],
+                   help="queue: one model and worker thread per device over a "
+                        "shared queue of videos; mesh: one sharded forward over a "
+                        "(data, model) mesh of all selected devices (CLIP)")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="tensor-parallel axis size of the --sharding mesh")
+    p.add_argument("--mesh_context", action="store_true",
+                   help="context parallelism under --sharding mesh: shard the "
+                        "transformer token axis over the mesh and run ring "
+                        "attention; composes with --mesh_model head sharding")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     p.add_argument("--tmp_path", default="./tmp")
     p.add_argument("--keep_tmp_files", action="store_true", default=False)

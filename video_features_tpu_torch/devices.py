@@ -1,15 +1,16 @@
-"""Device selection and the numerics every entry point pins.
+"""The numerics every entry point pins, and the one device of a run
+that drives one.
 
-Counterpart of ``video_features_tpu/parallel/devices.py``: ``--device_ids``
-names one visible CUDA device (more is refused until multi-GPU queue mode
-is ported) and ``--cpu`` selects the CPU. A run
-without ``--cpu`` on a host without CUDA is an error, never a silent
-fallback to the CPU.
+``--device_ids`` and ``--cpu`` resolve in ``parallel/devices.py``
+(``resolve_devices``): a run without ``--cpu`` on a host without CUDA is
+an error, never a silent fallback to the CPU.
 """
 
 from __future__ import annotations
 
 import torch
+
+from video_features_tpu_torch.parallel.devices import resolve_devices
 
 
 def pin_fp32() -> None:
@@ -24,32 +25,8 @@ def pin_fp32() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
-def check_one_device(device_ids) -> None:
-    """Refuse more than one ``--device_ids``: the port runs on one CUDA
-    device until multi-GPU queue mode is ported."""
-    if device_ids is not None and len(device_ids) > 1:
-        raise ValueError(
-            f"--device_ids {' '.join(map(str, device_ids))}: this package runs "
-            "on one CUDA device so far; more than one is multi-GPU queue "
-            "mode (ROADMAP.md queue 1, item 12). Pass one id."
-        )
-
-
 def resolve_device(cfg) -> torch.device:
-    """``cuda:<device_ids[0]>`` (one id at most), or the CPU when
-    ``cfg.cpu``."""
-    check_one_device(cfg.device_ids)
-    if cfg.cpu:
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is visible; pass --cpu to run on the CPU"
-        )
-    ids = list(cfg.device_ids or [0])
-    count = torch.cuda.device_count()
-    bad = [i for i in ids if i < 0 or i >= count]
-    if bad:
-        raise ValueError(
-            f"device_ids {bad} out of range: only {count} CUDA devices visible"
-        )
-    return torch.device("cuda", ids[0])
+    """The first of ``parallel.devices.resolve_devices(cfg)``: the device
+    of a run that drives one (an extractor called without a device, the
+    serve daemon)."""
+    return resolve_devices(cfg)[0]

@@ -18,7 +18,8 @@ The run contract (``runtime/faults.py``):
 - a sticky device error (``faults.is_sticky``: a CUDA error that fails
   every later launch, a kernel that does not build) is recorded as that
   video's failure plus one ``worker_death`` event, and stops the loop:
-  the videos not yet attempted get no record, so ``--resume`` runs them;
+  the videos not yet attempted get no record, so ``--resume`` runs them
+  (in queue mode the other workers take them: ``parallel/scheduler.py``);
 - ``--resume`` skips a video whose output files all exist, or that an
   earlier run recorded as a permanent failure (unless ``--retry_failed``);
 - with ``--preflight on`` (the default) each video is probed before its
@@ -107,7 +108,7 @@ from video_features_tpu_torch.io.video import (
 )
 from video_features_tpu_torch.runtime import faults
 from video_features_tpu_torch.runtime import telemetry as telemetry_mod
-from video_features_tpu_torch.runtime.faults import NULL_MANIFEST, RunManifest
+from video_features_tpu_torch.runtime.faults import NULL_MANIFEST, LoopStopped, RunManifest
 from video_features_tpu_torch.runtime.telemetry import Telemetry
 from video_features_tpu_torch.telemetry.ledger import (
     CostLedger,
@@ -115,11 +116,6 @@ from video_features_tpu_torch.telemetry.ledger import (
     instrument_state,
 )
 from video_features_tpu_torch.utils.profiling import device_trace
-
-
-class LoopStopped(Exception):
-    """Raised by the failure policy at a sticky device error: the loop
-    ends there and leaves the videos not yet attempted without a record."""
 
 
 def device_of(state) -> torch.device:
@@ -149,7 +145,11 @@ class BaseExtractor:
         # --preprocess device: (device, ids of the host taps) -> (the host
         # taps, kept so their ids stay theirs; the placed taps)
         self._taps: Dict[tuple, tuple] = {}
+        self._taps_lock = threading.Lock()
         self._native_lock = threading.Lock()
+        # queue mode's workers share this extractor: warmup builds each
+        # device's state once, under this lock
+        self._build_lock = threading.Lock()
         pin_fp32()
         # the manifest roots at output_path (not the feature's subdirectory),
         # so one <output>/_manifest covers the tree and --resume merges it
@@ -331,10 +331,11 @@ class BaseExtractor:
 
     def _decide_native(self) -> None:
         """Under ``--preprocess host``, ``--host_preprocess native`` takes
-        the C++ chains, with every core this process may use (the port
-        runs one device worker). Where the JAX package prints that the
-        library is unavailable and goes on with PIL, this raises, naming
-        the build error: a quiet switch would hide which chain ran."""
+        the C++ chains, with the cores this process may use split between
+        its queue workers (``_queue_workers``). Where the JAX package
+        prints that the library is unavailable and goes on with PIL, this
+        raises, naming the build error: a quiet switch would hide which
+        chain ran."""
         self._use_native = (self.config.host_preprocess == "native"
                             and not self._device_preprocess_enabled())
         if not self._use_native:
@@ -346,7 +347,19 @@ class BaseExtractor:
                 "--host_preprocess native requested but the preprocess library "
                 f"is unavailable: {native.build_error()}"
             )
-        self._native_threads = max(native.cpu_budget(), 1)
+        self._native_threads = max(native.cpu_budget() // self._queue_workers(), 1)
+
+    def _queue_workers(self) -> int:
+        """The device workers of this run, which share the host's cores:
+        one per ``--device_ids`` entry in queue mode (every visible CUDA
+        device without ids), one for ``--cpu`` and for a mesh (one loop
+        drives every device). Counted without touching a device."""
+        cfg = self.config
+        if cfg.cpu or cfg.sharding == "mesh":
+            return 1
+        if cfg.device_ids:
+            return len(cfg.device_ids)
+        return max(torch.cuda.device_count(), 1)
 
     def _native_decided(self) -> bool:
         """The one-shot chain decision; the lock keeps it one-shot under
@@ -367,11 +380,12 @@ class BaseExtractor:
         once per set of host arrays and then reused. Call it on the loop
         thread."""
         key = (device,) + tuple(id(a) for pair in taps for a in pair)
-        hit = self._taps.get(key)
-        if hit is None:
-            if len(self._taps) >= self._TAPS_MAX:
-                self._taps.pop(next(iter(self._taps)))
-            hit = self._taps[key] = (taps, place_taps(taps, device))
+        with self._taps_lock:  # queue workers share the cache
+            hit = self._taps.get(key)
+            if hit is None:
+                if len(self._taps) >= self._TAPS_MAX:
+                    self._taps.pop(next(iter(self._taps)))
+                hit = self._taps[key] = (taps, place_taps(taps, device))
         return hit[1]
 
     def _note_windows_skipped(self, entry, skipped: int, total: int) -> None:
@@ -389,39 +403,64 @@ class BaseExtractor:
         resident = max(int(self.config.decode_workers or 0), 1) + 2
         return max(max_bytes // resident // frame_bytes, floor)
 
-    def warmup(self, device: torch.device) -> Any:
-        """Build (once) and cache this device's model state. On the runs
+    def warmup(self, device) -> Any:
+        """Build (once) and cache this device's model state (a
+        ``torch.device``, or a ``parallel.sharding.Mesh``). Thread-safe:
+        queue workers on one device build it once, and workers on distinct
+        devices never race the cache or the ledger's hooks. On the runs
         with a ledger the state's modules are hooked for it
-        (``telemetry/ledger.py::instrument_state``): the first call per
-        (fn family, signature) records its flops and memory; every call
-        still runs the module as it is."""
+        (``telemetry/ledger.py::instrument_state``, labelled with the
+        run's ``--sharding``): the first call per (fn family, signature)
+        records its flops and memory; every call still runs the module as
+        it is."""
         state = self._device_state.get(device)
         if state is None:
-            state = self._build(device)
-            if self.ledger is not None:
-                instrument_state(state, self.ledger, model=self.feature_type, device=device)
-            self._device_state[device] = state
+            with self._build_lock:
+                state = self._device_state.get(device)
+                if state is None:
+                    state = self._build(device)
+                    if self.ledger is not None:
+                        from video_features_tpu_torch.parallel.sharding import is_mesh
+
+                        instrument_state(
+                            state, self.ledger, model=self.feature_type,
+                            sharding=self.config.sharding,
+                            device=device.devices[0, 0] if is_mesh(device) else device,
+                        )
+                    self._device_state[device] = state
         return state
 
     def __call__(
         self,
         indices: Optional[Sequence[int]] = None,
-        device: Optional[torch.device] = None,
+        device=None,
+        worker: Optional[str] = None,
+        raise_stop: bool = False,
     ) -> Optional[List[Dict[str, np.ndarray]]]:
+        """Run ``indices`` (every video by default) on ``device``.
+        ``worker`` names the caller's worker in spans (default: the
+        device's name); queue mode passes one per worker, so two workers
+        on one device stay apart. A sticky device error ends the call
+        (``_stop_on_sticky``); with ``raise_stop`` it then raises
+        ``LoopStopped``, so queue mode marks the worker dead and hands the
+        rest of its chunk to the others."""
         if indices is None:
             indices = range(len(self.path_list))
         if device is None:
             device = resolve_device(self.config)
         state = self.warmup(device)
-        self._device_label = str(device)
+        wid = worker or str(device)
         indices = [int(i) for i in indices]
         results: List = []  # external_call: (position, feats_dict) pairs
+        stop: Optional[LoopStopped] = None
         try:
             with device_trace(self.config.profile_dir):
                 if len(indices) > 1 and int(self.config.decode_workers or 0) >= 1:
-                    self._run_pipelined(indices, state, results)
+                    self._run_pipelined(indices, device, wid, state, results)
                 else:
-                    self._run_serial(indices, state, results)
+                    self._run_serial(indices, device, wid, state, results)
+        except LoopStopped as e:
+            stop = e
         finally:
             self.manifest.close()
         # the stage totals reach summary.json through the metrics snapshot;
@@ -429,6 +468,8 @@ class BaseExtractor:
         self.telemetry.flush()
         if self.config.profile_dir:
             print(self.timer.summary())
+        if stop is not None and raise_stop:
+            raise stop
         if self.external_call:
             return [d for _, d in sorted(results, key=lambda t: t[0])]
         return None
@@ -458,10 +499,10 @@ class BaseExtractor:
         return self(range(start, len(self.path_list)), device)
 
     # --- the two loops ------------------------------------------------------
-    def _run_serial(self, indices, state, results) -> None:
+    def _run_serial(self, indices, device, wid: str, state, results) -> None:
         """Each video prepared and computed in turn, over a retry deque: a
-        retry goes to the back with its backoff deadline (``not_before``)."""
-        wid = self._device_label
+        retry goes to the back with its backoff deadline (``not_before``).
+        ``wid`` labels the spans; ``device`` names a sticky death."""
         queue: deque = deque((pos, idx, 1, 0.0) for pos, idx in enumerate(indices))
         while queue:
             pos, idx, attempt, not_before = queue.popleft()
@@ -494,14 +535,11 @@ class BaseExtractor:
                 def requeue(delay, pos=pos, idx=idx, attempt=attempt):
                     queue.append((pos, idx, attempt + 1, time.monotonic() + delay))
 
-                try:
-                    self._on_failure(entry, "extract", attempt, requeue=requeue)
-                except LoopStopped:
-                    return
+                self._on_failure(entry, "extract", attempt, requeue=requeue, device=device)
                 continue
             self._on_success(entry, attempt)
 
-    def _run_pipelined(self, indices, state, results) -> None:
+    def _run_pipelined(self, indices, device, wid: str, state, results) -> None:
         """The JAX package's ``_run_pipelined`` (module docstring), with its
         spans, counters and queue-depth gauges. ``prepare`` (and the
         preflight probe of a first attempt) runs on ``--decode_workers``
@@ -509,7 +547,6 @@ class BaseExtractor:
         ``pending`` as a fresh prepare future once its backoff timer
         fires, from any drain, so the final drain is one loop that also
         waits on armed timers."""
-        wid = self._device_label
         workers = max(1, int(self.config.decode_workers))
         depth = workers + 1  # prepared and waiting beyond the one consumed
         split = self._supports_device_pipeline()
@@ -554,7 +591,8 @@ class BaseExtractor:
             except KeyboardInterrupt:
                 raise
             except Exception:  # noqa: BLE001 - this video's sink failed
-                self._on_failure(entry, "sink", attempt, requeue=requeue(pos, idx, attempt))
+                self._on_failure(entry, "sink", attempt, requeue=requeue(pos, idx, attempt),
+                                 device=device)
                 return
             self._on_success(entry, attempt)
 
@@ -576,7 +614,8 @@ class BaseExtractor:
             except KeyboardInterrupt:
                 raise
             except Exception:  # noqa: BLE001 - classify, maybe retry
-                self._on_failure(entry, "dispatch", attempt, requeue=requeue(pos, idx, attempt))
+                self._on_failure(entry, "dispatch", attempt, requeue=requeue(pos, idx, attempt),
+                                 device=device)
                 return
             sink_one(pos, idx, attempt, entry, feats_dict)
 
@@ -616,7 +655,7 @@ class BaseExtractor:
                     raise
                 except Exception as exc:  # noqa: BLE001 - a fused fetch fails together
                     if faults.is_sticky(exc):
-                        self._stop_on_sticky([(e, att) for _, _, att, e in slots], "fetch")
+                        self._stop_on_sticky([(e, att) for _, _, att, e in slots], "fetch", device)
                     fused_err = traceback.format_exc()
                 if fused_err is not None:
                     del handle  # free the group's device memory before the re-runs
@@ -635,7 +674,8 @@ class BaseExtractor:
             except KeyboardInterrupt:
                 raise
             except Exception:  # noqa: BLE001 - classify, maybe retry
-                self._on_failure(entry, "dispatch", attempt, requeue=requeue(pos, idx, attempt))
+                self._on_failure(entry, "dispatch", attempt, requeue=requeue(pos, idx, attempt),
+                                 device=device)
                 return True
             sink_one(pos, idx, attempt, entry, feats_dict)
             return True
@@ -665,7 +705,8 @@ class BaseExtractor:
                 raise
             except Exception as exc:  # noqa: BLE001 - a fused dispatch fails together
                 if faults.is_sticky(exc):
-                    self._stop_on_sticky([(e, att) for _, _, att, e, _ in items], "dispatch")
+                    self._stop_on_sticky([(e, att) for _, _, att, e, _ in items], "dispatch",
+                                         device)
                 fused_err = traceback.format_exc()
             if fused_err is not None:
                 staged = None  # free the staged group before the re-runs
@@ -692,7 +733,8 @@ class BaseExtractor:
             except KeyboardInterrupt:
                 raise
             except Exception:  # noqa: BLE001 - classify, maybe retry
-                self._on_failure(entry, "dispatch", attempt, requeue=requeue(pos, idx, attempt))
+                self._on_failure(entry, "dispatch", attempt, requeue=requeue(pos, idx, attempt),
+                                 device=device)
             else:
                 inflight.push([(pos, idx, attempt, entry)], handle, False, None)
                 self.telemetry.metrics.set_gauge("queue_depth.inflight", len(inflight))
@@ -716,7 +758,8 @@ class BaseExtractor:
             except KeyboardInterrupt:
                 raise
             except Exception:  # noqa: BLE001 - prepare or decode failed: classify
-                self._on_failure(entry, "prepare", attempt, requeue=requeue(pos, idx, attempt))
+                self._on_failure(entry, "prepare", attempt, requeue=requeue(pos, idx, attempt),
+                                 device=device)
                 return
             if key is not None:
                 buf = groups.setdefault(key, [])
@@ -756,6 +799,7 @@ class BaseExtractor:
                 with stop_lock:
                     stopped.append(True)
                 pool.shutdown(wait=True, cancel_futures=True)
+                raise
 
     # --- outcomes -----------------------------------------------------------
     def _sink_or_collect(self, feats_dict, entry, results, order: int) -> None:
@@ -852,17 +896,18 @@ class BaseExtractor:
         self._feature_cache.publish(chash, self._cache_digest, dests,
                                     feature_type=self.feature_type)
 
-    def _on_failure(self, entry, stage: str, attempt: int, requeue=None) -> None:
+    def _on_failure(self, entry, stage: str, attempt: int, requeue=None, device=None) -> None:
         """The per-video failure policy, called from an ``except`` block
         (the live exception is read off ``sys.exc_info``): a transient or
         oom failure with attempts left is recorded as ``retry`` and handed
         to ``requeue(delay)``; any other is recorded as ``failed`` and
-        printed; a sticky device error stops the loop (``_stop_on_sticky``).
+        printed; a sticky device error stops the loop (``_stop_on_sticky``,
+        naming ``device``).
         An exception's own ``stage`` (decode errors, injected faults)
         overrides the caller's coarser label."""
         exc = sys.exc_info()[1]
         if exc is not None and faults.is_sticky(exc):
-            self._stop_on_sticky([(entry, attempt)], stage)
+            self._stop_on_sticky([(entry, attempt)], stage, device)
         stage = getattr(exc, "stage", None) or stage
         error_class = faults.classify_error(exc) if exc is not None else "permanent"
         video = self._video_key(entry)
@@ -893,10 +938,10 @@ class BaseExtractor:
         traceback.print_exc()
         print("Continuing...")
 
-    def _stop_on_sticky(self, members, stage: str) -> None:
+    def _stop_on_sticky(self, members, stage: str, device=None) -> None:
         """At a sticky device error, called from its ``except`` block:
         record each of the failing dispatch's ``(entry, attempt)`` members
-        as failed and one ``worker_death`` event, then raise
+        as failed and one ``worker_death`` event naming ``device``, then raise
         ``LoopStopped``. Every later launch in this process would fail the
         same way, so the videos not yet attempted are left without a
         record, for ``--resume``."""
@@ -911,7 +956,7 @@ class BaseExtractor:
                 **({"span": span_id} if span_id is not None else {}),
             )
         self.manifest.event(
-            "worker_death", device=getattr(self, "_device_label", None), phase=stage,
+            "worker_death", device=None if device is None else str(device), phase=stage,
             error_type=type(exc).__name__, message=str(exc)[:300],
         )
         videos = ", ".join(str(video_path_of(e)) for e, _ in members)
@@ -919,7 +964,7 @@ class BaseExtractor:
         traceback.print_exc()
         print("Stopping: every later launch in this process would fail the same way; "
               "the videos not attempted yet are left for --resume.")
-        raise LoopStopped(str(exc)) from exc
+        raise LoopStopped(str(exc), videos=[self._video_key(e) for e, _ in members]) from exc
 
     def _preflight_entry(self, entry) -> None:
         """``--preflight on``: probe the input before its first attempt,

@@ -51,11 +51,13 @@ class _Stager:
     def __init__(self, device: torch.device) -> None:
         self.stream = torch.cuda.Stream(device)
         self.inflight: deque = deque()  # (copy event, pinned buffer)
+        self._lock = threading.Lock()  # queue workers on one device share it
 
     def keep(self, event: torch.cuda.Event, host: torch.Tensor) -> None:
-        while self.inflight and self.inflight[0][0].query():
-            self.inflight.popleft()
-        self.inflight.append((event, host))
+        with self._lock:
+            while self.inflight and self.inflight[0][0].query():
+                self.inflight.popleft()
+            self.inflight.append((event, host))
 
 
 # one stager per CUDA device, made on first use by the loop thread (a

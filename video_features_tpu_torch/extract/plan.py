@@ -204,32 +204,46 @@ def run_multi(config, feature_types, external_call: bool = False, device=None,
     Extractor-major order — model A finishes every video before model B
     starts — so each resident model's weights are built once; the frame
     cache (not interleaving) is what makes the second model's decode
-    free. Every model runs on the one device (``cuda:<id>``, or the CPU
-    with ``--cpu``). Returns {feature_type: extractor-call result} for
-    ``external_call`` (the in-process API), else {feature_type:
-    extractor} after each save run completes. ``built``, when given, is
-    a list each extractor is appended to as soon as it is built, so the
-    caller sees every model that started even when a later one raises
-    (the CLI merges the run manifest from it)."""
+    free. A save run puts each model on its devices as the JAX package
+    does: ``resolve_devices`` of its config, then
+    ``mesh_feature_extraction`` under ``--sharding mesh``, else
+    ``parallel_feature_extraction`` (``device``, when given, is the one
+    device instead). Returns {feature_type: extractor-call result} for
+    ``external_call`` (the in-process API, on ``device`` or the config's
+    first device), else {feature_type: extractor} after each save run
+    completes. ``built``, when given, is a list each extractor is
+    appended to as soon as it is built, so the caller sees every model
+    that started even when a later one raises (the CLI merges the run
+    manifest from it)."""
     from video_features_tpu_torch.config import sanity_check
-    from video_features_tpu_torch.devices import resolve_device
     from video_features_tpu_torch.extract.registry import build_extractor
+    from video_features_tpu_torch.parallel.devices import resolve_devices
+    from video_features_tpu_torch.parallel.scheduler import (
+        mesh_feature_extraction,
+        parallel_feature_extraction,
+    )
 
     fts = list(dict.fromkeys(feature_types))
     results = {}
     with shared_frame_cache(config, fts):
         for ft in fts:
             fcfg = sanity_check(config.replace(feature_type=ft))
-            dev = device if device is not None else resolve_device(fcfg)
             ext = build_extractor(fcfg, external_call=external_call)
             if built is not None:
                 built.append(ext)
             try:
-                out = ext(device=dev)
+                if external_call:
+                    results[ft] = ext(device=device)
+                    continue
+                devices = [device] if device is not None else resolve_devices(fcfg)
+                if fcfg.sharding == "mesh":
+                    mesh_feature_extraction(ext, devices)
+                else:
+                    parallel_feature_extraction(ext, devices)
             finally:
                 # the last telemetry drain goes before the caller's
                 # manifest merge, so summary.json's telemetry block
                 # covers the whole run
                 ext.telemetry.close()
-            results[ft] = out if external_call else ext
+            results[ft] = ext
     return results

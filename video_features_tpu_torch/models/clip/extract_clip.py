@@ -32,6 +32,14 @@ is rounded to bf16 on the decode thread (``Tensor.to``: round to nearest
 even, as the JAX package's ``ml_dtypes`` cast; the patch conv would
 round it there anyway), which halves its transfer; the device
 preprocess returns bf16. Features are fp32.
+
+``--sharding mesh`` (``parallel/``): the state is a
+``ShardedVisionTransformer`` over the mesh. The padded frame batch
+splits over the ``data`` rows (``--preprocess device``: the uint8 frames
+split, the taps replicated on each row), each block runs Megatron-sharded
+over ``--mesh_model``, and the rows gather onto the first device before
+the copy to the host. Under ``--mesh_context`` the batch is replicated
+and the patch tokens shard inside attention (ring attention).
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from video_features_tpu_torch.models.clip.convert import convert_state_dict
 from video_features_tpu_torch.models.clip.model import (
     CONFIGS,
     FP32_PARAMS,
+    ShardedVisionTransformer,
     VisionTransformer,
     init_weights,
 )
@@ -84,6 +93,13 @@ CORES = {"fused": attention, "flash": flash_attention, "blockwise": blockwise_at
 
 
 class ExtractCLIP(BaseExtractor):
+    # --sharding mesh: data parallel over the frame batch, Megatron tensor
+    # parallel over --mesh_model, ring attention over the patch tokens
+    # under --mesh_context (parallel/scheduler.py reads these)
+    mesh_capable = True
+    mesh_tp_capable = True
+    mesh_context_capable = True
+
     def __init__(self, config: ExtractionConfig, external_call: bool = False) -> None:
         super().__init__(config, external_call)
         if self.config.extract_method is None:
@@ -92,7 +108,15 @@ class ExtractCLIP(BaseExtractor):
         self.dtype = compute_dtype(self.config)
         self._native_decided()  # an unavailable --host_preprocess native fails here
 
-    def _build(self, device: torch.device) -> VisionTransformer:
+    def _build(self, device):
+        """The tower on ``device``; on a mesh, built on its first device and
+        sharded over the mesh (``ShardedVisionTransformer``)."""
+        from video_features_tpu_torch.parallel.sharding import is_mesh
+
+        if is_mesh(device):
+            model = self._build(device.devices[0, 0])
+            return ShardedVisionTransformer(model, device, core=CORES[self.config.attn],
+                                            context=self.config.mesh_context)
         model = VisionTransformer(self.model_cfg, core=CORES[self.config.attn])
         if self.config.weights_path:
             sd = convert_state_dict(
@@ -159,26 +183,40 @@ class ExtractCLIP(BaseExtractor):
             batch = torch.from_numpy(batch).to(self.dtype)
         return batch, T, fps, timestamps_ms, keep
 
-    def _encode_raw(self, model: VisionTransformer, x_u8: torch.Tensor, taps) -> torch.Tensor:
-        """uint8 frames -> resize, crop and normalize on the device -> the
-        tower; a fused group's (N, T_pad, ...) frames flatten to N * T_pad
-        images."""
+    def _images_of_raw(self, x_u8: torch.Tensor, taps) -> torch.Tensor:
+        """uint8 frames -> resized, cropped and normalized on the device,
+        the tower's input; a fused group's (N, T_pad, ...) frames flatten
+        to N * T_pad images."""
         x = device_preprocess_frames(x_u8, *taps, CLIP_MEAN, CLIP_STD, out_dtype=self.dtype)
-        return model(x.flatten(0, x.dim() - 4))
+        return x.flatten(0, x.dim() - 4)
 
     # --- the device half, split (extract/base.py): H2D, forward and D2H
     # enqueued at dispatch, waited for at fetch
     def dispatch_prepared(self, model: VisionTransformer, payload):
         padded, T, fps, timestamps_ms, keep = payload
-        device = device_of(model)
         with torch.inference_mode():
-            if isinstance(padded, tuple):  # --preprocess device
+            if isinstance(model, ShardedVisionTransformer):
+                out = model(self._place_sharded(model, padded))
+            elif isinstance(padded, tuple):  # --preprocess device
+                device = device_of(model)
                 raw, wy, wx = padded
-                out = self._encode_raw(model, place_batch(raw, device),
-                                       self._device_taps((wy, wx), device))
+                out = model(self._images_of_raw(place_batch(raw, device),
+                                                self._device_taps((wy, wx), device)))
             else:
-                out = model(place_batch(padded, device))
+                out = model(place_batch(padded, device_of(model)))
             return HostCopy(out[:T]), fps, timestamps_ms, keep
+
+    def _place_sharded(self, model: ShardedVisionTransformer, padded):
+        """A host batch onto the mesh's data rows (``model.place``); under
+        ``--preprocess device`` the uint8 frames padded and split over the
+        rows, the taps replicated on each (``sharding.place_raw_payload``),
+        and each row resized on its own device."""
+        from video_features_tpu_torch.parallel.sharding import place_raw_payload
+
+        if not isinstance(padded, tuple):
+            return model.place(padded)
+        rows = place_raw_payload(padded, model.mesh, place_taps=self._device_taps)
+        return [self._images_of_raw(x, taps) for x, taps in rows]
 
     def fetch_dispatched(self, handle) -> Dict[str, np.ndarray]:
         out, fps, timestamps_ms, keep = handle
@@ -205,7 +243,9 @@ class ExtractCLIP(BaseExtractor):
     def agg_key(self, payload):
         head = payload[0]
         if isinstance(head, tuple):  # --preprocess device
-            if head[0].shape[0] > self.AGG_MAX_FRAMES:
+            # a mesh spreads one video's frames over 'data' already; the
+            # raw payload's split covers one video, not a stacked group
+            if self.config.sharding == "mesh" or head[0].shape[0] > self.AGG_MAX_FRAMES:
                 return None
             # the bucketed (T_pad, bh, bw, 3): videos of other source
             # resolutions in one spatial bucket fuse, each with its taps
@@ -223,7 +263,7 @@ class ExtractCLIP(BaseExtractor):
         and each video's rows are its own."""
         device = device_of(model)
         head = payloads[0][0]
-        raw = isinstance(head, tuple)  # --preprocess device
+        raw = isinstance(head, tuple)  # --preprocess device; never on a mesh (agg_key)
         bucket = (head[0] if raw else head).shape[0]
         metas = [(i * bucket, T, fps, ts, keep) for i, (_, T, fps, ts, keep) in enumerate(payloads)]
         if raw:
@@ -233,6 +273,8 @@ class ExtractCLIP(BaseExtractor):
         heads = [p[0] for p in payloads]
         x = (torch.cat(heads) if isinstance(heads[0], torch.Tensor)
              else np.concatenate(heads, axis=0))
+        if isinstance(model, ShardedVisionTransformer):
+            return StagedGroup((model.place(x),), metas)
         return StagedGroup((place_batch(x, device),), metas)
 
     def dispatch_group(self, model: VisionTransformer, payloads):
@@ -241,7 +283,7 @@ class ExtractCLIP(BaseExtractor):
         arrays = payloads.arrays
         with torch.inference_mode():
             if len(arrays) == 2:  # --preprocess device: frames and taps
-                out = self._encode_raw(model, *arrays)
+                out = model(self._images_of_raw(*arrays))
             else:
                 out = model(arrays[0])
             return HostCopy(out), payloads.metas

@@ -16,11 +16,13 @@ gets bf16 q/k/v; LayerNorm statistics, the softmax (inside every core),
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from collections import OrderedDict
-from typing import Callable, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from video_features_tpu_torch.ops.attention import attention as fused_attention
@@ -135,15 +137,217 @@ class VisionTransformer(nn.Module):
         self.ln_post = LayerNorm(w, eps=cfg.eps)
         self.proj = nn.Parameter(torch.empty(w, cfg.embed_dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        """Images -> the (N, L, width) token stream entering the blocks."""
         x = self.conv1(x.to(self.conv1.weight.dtype))  # (N, width, grid, grid)
         x = x.flatten(2).transpose(1, 2)  # (N, grid*grid, width), row-major patches
         cls = self.class_embedding.to(x.dtype).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding
-        x = self.transformer(self.ln_pre(x))
+        return self.ln_pre(x)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """The blocks' output -> the fp32 (N, embed_dim) embedding."""
         x = self.ln_post(x[:, 0].float())
         # the 512-d embedding is the user-facing contract: fp32 projection
         return x.float() @ self.proj.float()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.head(self.transformer(self.embed(x)))
+
+
+class _Shard(nn.Module):
+    """One block's tensor-parallel shard on one device, its tensors
+    registered (unsaved) so ``.parameters``/``.buffers`` walks count
+    them; read as ``shard["in_w"]``."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor]) -> None:
+        super().__init__()
+        for name, t in tensors.items():
+            self.register_buffer(name, t, persistent=False)
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return getattr(self, name)
+
+
+def _replica(model: VisionTransformer, device) -> VisionTransformer:
+    """What every device of a mesh holds whole, as a copy on ``device``:
+    the tower without its blocks (``embed``, ``head``) and each block's
+    two LayerNorms (``norms[b]``). The blocks' weights are never copied."""
+    empty = Transformer(dataclasses.replace(model.cfg, layers=0), None)
+    rep = copy.deepcopy(model, {id(model.transformer): empty})
+    rep.norms = nn.ModuleList(nn.ModuleList([copy.deepcopy(b.ln_1), copy.deepcopy(b.ln_2)])
+                              for b in model.transformer.resblocks)
+    return rep.to(device)
+
+
+_GELU = QuickGELU()
+
+
+class ShardedVisionTransformer(nn.Module):
+    """``VisionTransformer``'s forward over a ``parallel.sharding.Mesh``
+    (``--sharding mesh``), driven by one host thread.
+
+    Each distinct device of the (data, model) grid holds the replicated
+    parts once (``conv1``, the embeddings, the LayerNorms, ``proj``:
+    ``_replica``), and cell ``(i, j)`` the ``j``-th tensor-parallel shard
+    of every block (``sharding.clip_vit_shard_state``), so a device of a
+    ``--mesh_model m`` mesh holds 1/m of the block weights per model
+    shard it runs; the built model is not kept. Per block, each cell runs its
+    column-parallel half (``in_proj`` rows of q, k and v; ``c_fc`` rows)
+    on its heads, its row-parallel partial product (``out_proj`` and
+    ``c_proj`` columns, no bias), the partials are summed over ``model``
+    (``sharding.all_reduce_sum``) and the bias is added once. With one
+    model shard the bias stays inside the matmul, as in the unsharded
+    block. Where ``model`` does not divide the heads (a head split across
+    shards), each cell gathers q/k/v over ``model`` and attends over the
+    heads its columns touch.
+
+    The attention core of a cell:
+
+    - data parallel (the default): ``core`` on the cell's (N/d, H/m, L,
+      hd) q/k/v: the fused core, or K1 under ``--attn flash``; the batch
+      splits over ``data`` (``place`` pads and splits it) and the rows
+      are gathered onto the first device at the end;
+    - ``context`` (``--mesh_context``): the batch is replicated on every
+      data row and each model shard runs a ring over its data devices
+      (``parallel/ring_attention.py::context_parallel_attention``), the
+      tokens sharded inside attention only; the first row's output is
+      returned.
+    """
+
+    def __init__(self, model: VisionTransformer, mesh, core: Optional[AttnCore] = None,
+                 context: bool = False) -> None:
+        super().__init__()
+        from video_features_tpu_torch.parallel.sharding import clip_vit_shard_state
+
+        cfg = model.cfg
+        data, m = mesh.shape["data"], mesh.shape["model"]
+        if cfg.width % m:
+            raise ValueError(f"--mesh_model {m} does not divide the CLIP width {cfg.width}")
+        if context and cfg.heads % m:
+            raise ValueError(f"head axis {cfg.heads} not divisible by mesh axis 'model' ({m})")
+        self.cfg, self.mesh, self.context = cfg, mesh, context
+        self.core = core or fused_attention
+        # the first cell's replica comes first: the module's device is its
+        # device, where the output lands
+        distinct = list(dict.fromkeys(mesh.devices.flat))
+        self.replicas = nn.ModuleList(_replica(model, dev) for dev in distinct)
+        self._replicas = dict(zip(distinct, self.replicas))
+        state = model.state_dict()
+        names = (("in_w", "attn.in_proj_weight"), ("in_b", "attn.in_proj_bias"),
+                 ("out_w", "attn.out_proj.weight"), ("out_b", "attn.out_proj.bias"),
+                 ("fc_w", "mlp.c_fc.weight"), ("fc_b", "mlp.c_fc.bias"),
+                 ("proj_w", "mlp.c_proj.weight"), ("proj_b", "mlp.c_proj.bias"))
+        # (device, j) -> per block, the j-th shard; a copy even on the
+        # model's own device, so no shard keeps a full tensor alive
+        shards: Dict[tuple, nn.ModuleList] = {}
+        for j in range(m):
+            cut = clip_vit_shard_state(state, m, j)
+            for dev in dict.fromkeys(mesh.devices[:, j]):
+                shards[dev, j] = nn.ModuleList(
+                    _Shard({k: cut[f"transformer.resblocks.{b}.{name}"].to(dev, copy=True)
+                            for k, name in names}) for b in range(cfg.layers))
+        self.shards = nn.ModuleList(shards.values())
+        self._shards = [[shards[mesh.devices[i, j], j] for j in range(m)] for i in range(data)]
+        # cell j's columns of the width, and the heads they touch
+        hd, cols = cfg.width // cfg.heads, cfg.width // m
+        self._spans = [(j * cols // hd, -(-(j + 1) * cols // hd)) for j in range(m)]
+        self._aligned = cfg.heads % m == 0
+
+    def place(self, x) -> List[torch.Tensor]:
+        """A host batch onto the data rows: padded and split, or under
+        ``context`` replicated (``parallel.sharding.place_batch``)."""
+        from video_features_tpu_torch.parallel.sharding import pad_batch_for, place_batch
+
+        if self.context:
+            return place_batch(x, self.mesh, spec=None)
+        return place_batch(pad_batch_for(self.mesh, x), self.mesh)
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Per-data-row images (``place``) -> the (rows, embed_dim) fp32
+        embedding on the first cell's device."""
+        from video_features_tpu_torch.parallel.sharding import gather
+
+        dev = self.mesh.devices
+        grid = [[self._replicas[dev[i, j]].embed(x.to(dev[i, j], non_blocking=True))
+                 for j in range(dev.shape[1])] for i, x in enumerate(xs)]
+        for b in range(self.cfg.layers):
+            grid = self._attention(b, grid)
+            grid = self._mlp(b, grid)
+        outs = [self._replicas[dev[i, 0]].head(row[0]) for i, row in enumerate(grid)]
+        return outs[0] if self.context else gather(outs, dev[0, 0])
+
+    def _norms(self, i: int, j: int, b: int) -> nn.ModuleList:
+        """Block ``b``'s ``ln_1``, ``ln_2`` on cell ``(i, j)``'s device."""
+        return self._replicas[self.mesh.devices[i, j]].norms[b]
+
+    def _reduce(self, b: int, grid, partials, bias: str):
+        """x + (the sum over ``model`` of the partials + the bias, once)."""
+        from video_features_tpu_torch.parallel.sharding import all_reduce_sum
+
+        if len(partials[0]) == 1:  # the bias went into the matmul
+            return [[x + p for x, p in zip(xr, pr)] for xr, pr in zip(grid, partials)]
+        out = []
+        for i, (xr, pr) in enumerate(zip(grid, partials)):
+            sums = all_reduce_sum(pr)
+            out.append([x + (s + self._shards[i][j][b][bias])
+                        for j, (x, s) in enumerate(zip(xr, sums))])
+        return out
+
+    def _attention(self, b: int, grid):
+        from video_features_tpu_torch.parallel.ring_attention import context_parallel_attention
+        from video_features_tpu_torch.parallel.sharding import all_gather
+
+        data, m = len(grid), len(grid[0])
+        hd = self.cfg.width // self.cfg.heads
+        N, L, _ = grid[0][0].shape
+        qkv = [[F.linear(self._norms(i, j, b)[0](x), self._shards[i][j][b]["in_w"],
+                         self._shards[i][j][b]["in_b"]).reshape(N, L, 3, -1)
+                for j, x in enumerate(row)] for i, row in enumerate(grid)]
+        if not self._aligned:  # a head spans shards: every cell sees all of q, k, v
+            qkv = [all_gather(row, dim=3) for row in qkv]
+
+        def heads(t, j):
+            h0, h1 = self._spans[j]
+            if not self._aligned:
+                t = t[..., h0 * hd:h1 * hd]
+            # one copy gives contiguous (N, H, L, hd) heads for the core
+            t = t.reshape(N, L, 3, h1 - h0, hd).permute(2, 0, 3, 1, 4)
+            return t.contiguous().unbind(0)
+
+        qkv = [[heads(t, j) for j, t in enumerate(row)] for row in qkv]
+        if self.context:
+            cols = [context_parallel_attention(*([qkv[i][j][s] for i in range(data)]
+                                                 for s in range(3)))
+                    for j in range(m)]
+            outs = [[cols[j][i] for j in range(m)] for i in range(data)]
+        else:
+            outs = [[self.core(*t) for t in row] for row in qkv]
+        cols = self.cfg.width // m
+        partials = []
+        for i, row in enumerate(outs):
+            pr = []
+            for j, o in enumerate(row):
+                o = o.transpose(1, 2).reshape(N, L, -1)
+                if not self._aligned:  # this cell's columns of its heads
+                    c0 = j * cols - self._spans[j][0] * hd
+                    o = o[..., c0:c0 + cols]
+                s = self._shards[i][j][b]
+                pr.append(F.linear(o, s["out_w"], s["out_b"] if m == 1 else None))
+            partials.append(pr)
+        return self._reduce(b, grid, partials, "out_b")
+
+    def _mlp(self, b: int, grid):
+        m = len(grid[0])
+        partials = []
+        for i, row in enumerate(grid):
+            pr = []
+            for j, x in enumerate(row):
+                s = self._shards[i][j][b]
+                f = _GELU(F.linear(self._norms(i, j, b)[1](x), s["fc_w"], s["fc_b"]))
+                pr.append(F.linear(f, s["proj_w"], s["proj_b"] if m == 1 else None))
+            partials.append(pr)
+        return self._reduce(b, grid, partials, "proj_b")
 
 
 def init_weights(model: VisionTransformer, seed: int = 0) -> VisionTransformer:

@@ -12,7 +12,9 @@ are rounded to v's dtype before p·v. ``kv_len`` masks KV positions
 - ``blockwise_attention``: FlashAttention's recurrence over KV blocks
   with a running (max, sum, acc) carry; O(L_q * block) live scores. It is
   also the plain version of the flash kernel
-  (``ops/flash_attention.py::flash_attention_reference``).
+  (``ops/flash_attention.py::flash_attention_reference``). Its pieces,
+  ``init_carry``, ``accumulate_blockwise`` and ``_finalize``, are what
+  ring attention replays across devices.
 """
 
 from __future__ import annotations
@@ -82,6 +84,50 @@ def online_softmax_step(
     return m_new, l_new, acc_new
 
 
+def init_carry(q: torch.Tensor):
+    """A fresh fp32 (m, l, acc) carry of the online softmax for ``q``."""
+    N, H, Lq, d = q.shape
+    m = torch.full((N, H, Lq), _MASK_VALUE, dtype=torch.float32, device=q.device)
+    l = torch.zeros((N, H, Lq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((N, H, Lq, d), dtype=torch.float32, device=q.device)
+    return m, l, acc
+
+
+def _finalize(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor, dtype) -> torch.Tensor:
+    """The carry's output, ``acc / l`` in ``dtype`` (``m`` is not read);
+    the epsilon only guards a sum that underflowed."""
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(dtype)
+
+
+def accumulate_blockwise(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    carry,
+    scale: float,
+    block_size: int,
+    offset: int = 0,
+    limit: Optional[int] = None,
+):
+    """Fold ``k``/``v`` into an online-softmax ``(m, l, acc)`` carry in
+    ``block_size`` chunks. Row ``i`` of ``k`` is global position
+    ``offset + i``; positions ``>= limit`` are masked (None: none), and a
+    chunk wholly past ``limit`` is skipped, so a ring hop whose shard is
+    all padding leaves the carry as it was. Shared by
+    ``blockwise_attention`` (one span) and ring attention
+    (``parallel/ring_attention.py``, one call per arriving KV shard)."""
+    Lk = k.shape[2]
+    end = offset + Lk if limit is None else min(int(limit), offset + Lk)
+    m, l, acc = carry
+    for start in range(0, max(end - offset, 0), block_size):
+        stop = min(start + block_size, Lk)
+        mask = (offset + torch.arange(start, stop, device=q.device)) < end
+        m, l, acc = online_softmax_step(
+            q, k[:, :, start:stop], v[:, :, start:stop], m, l, acc, scale, kv_mask=mask
+        )
+    return m, l, acc
+
+
 def blockwise_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -93,19 +139,7 @@ def blockwise_attention(
 
     Blocks past ``kv_len`` are skipped: after at least one valid position
     they would add exp(-1e30 - m) = 0 to every sum."""
-    N, H, Lq, d = q.shape
-    Lk = k.shape[2]
-    _check_kv_len(kv_len, Lk)
-    limit = Lk if kv_len is None else int(kv_len)
-    scale = d ** -0.5
-    m = torch.full((N, H, Lq), _MASK_VALUE, dtype=torch.float32, device=q.device)
-    l = torch.zeros((N, H, Lq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((N, H, Lq, d), dtype=torch.float32, device=q.device)
-    for start in range(0, limit, block_size):
-        end = min(start + block_size, Lk)
-        mask = torch.arange(start, end, device=q.device) < limit
-        m, l, acc = online_softmax_step(
-            q, k[:, :, start:end], v[:, :, start:end], m, l, acc, scale, kv_mask=mask
-        )
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.to(q.dtype)
+    _check_kv_len(kv_len, k.shape[2])
+    carry = accumulate_blockwise(q, k, v, init_carry(q), q.shape[-1] ** -0.5, block_size,
+                                 limit=kv_len)
+    return _finalize(*carry, q.dtype)

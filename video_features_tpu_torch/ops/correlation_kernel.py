@@ -187,7 +187,7 @@ def local_correlation_kernel(
         )
     if err != 0:
         raise RuntimeError(f"local_correlation kernel launch failed: CUDA error {err}")
-    local_correlation_kernel.launches += 1
+    kernels.count_launch(local_correlation_kernel)
     return out
 
 

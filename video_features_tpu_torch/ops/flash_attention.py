@@ -129,7 +129,7 @@ def _launch(q, k, v, block_q: int, block_k: int, kv_len: Optional[int]) -> torch
         )
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
-    flash_attention.launches += 1
+    kernels.count_launch(flash_attention)
     return out
 
 

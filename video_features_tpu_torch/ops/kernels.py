@@ -40,6 +40,15 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """One more launch on ``wrapper.launches``, under a lock: queue mode's
+    workers launch from several threads, and an unlocked ``+= 1`` can lose
+    a count."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def sources():

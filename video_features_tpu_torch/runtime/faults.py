@@ -188,6 +188,17 @@ def is_sticky(exc: BaseException) -> bool:
     return any(m in msg for m in _STICKY_MARKERS)
 
 
+class LoopStopped(Exception):
+    """Raised by an extractor's failure policy at a sticky device error
+    (``extract/base.py::_stop_on_sticky``): the loop ends there and leaves
+    the videos not yet attempted without a record. ``videos`` holds the
+    keys of the videos it recorded failed."""
+
+    def __init__(self, message: str, videos=()) -> None:
+        super().__init__(message)
+        self.videos = frozenset(videos)
+
+
 # exception types that indict the INPUT rather than the stack. The serve
 # circuit breaker must ignore these — a burst of corrupt user uploads is
 # not a sick model, and tearing down a healthy resident extractor over
