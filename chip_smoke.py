@@ -215,31 +215,50 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     --device_ids 0 0`` against ``--device_ids 0`` (features within 1e-6,
     96 K1 launches each, two workers named in the spans' threads and in
     ``summary.json``'s device lanes; warm videos/s of both, median and
-    range of 3 passes each over a window of 160 names of the 8 clips); (b) ``--sharding mesh --device_ids 0 0 --mesh_model 1`` (within
+    range of 2 passes each over a window of 80 names of the 8 clips); (b) ``--sharding mesh --device_ids 0 0 --mesh_model 1`` (within
     1e-5 of (a)'s one-worker run, the difference printed; 12 x 2 K1
     launches a forward at (8, 12, 50, 64)); (c) ``--mesh_model 2`` on the
     same two (within 2e-4; 12 x 2 K1 launches a forward at (16, 6, 50,
     64)); (d) ``--device_ids 0 0 0 0 --mesh_model 2 --mesh_context``
-    (fused core, within 2e-4, K1 0 launches); (e) ``--sharding mesh`` on
-    resnet50 refused with the JAX package's message; (f) (a)-(c) on
-    distinct cards where there are two (and a 2 x 2 mesh, tensor and
-    context parallel, where there are four), else a line saying so. Phase 3
+    (fused core, within 2e-4, K1 0 launches); (f) (a)-(c) on distinct
+    cards where there are two (and a 2 x 2 mesh, tensor and context
+    parallel, where there are four), else a line saying so. Phase 3
     holds and times K1 at those two mesh shapes. One card shows the
     partitioning, the collectives' order and every shard's launch, but
     no copy between cards and no speed-up from them;
-22. a ``kernels`` JSON line (each kernel's launches on its main path, in
+22. ``--sharding mesh`` for every family but CLIP, through the CLI with
+    ``--strict``, the card listed twice (``--device_ids 0 0``) or four
+    times, each case against its family's one-device run of phases 5-11
+    (the same clips and flags; made here if absent), the difference
+    printed: (a) ``resnet50`` (``--batch_size 16``), ``r21d_rgb``
+    (``--batch_size 4``: the stack batch splits) and ``vggish`` (phase
+    11's five wavs), data parallel on two rows, within relative L2 1e-5,
+    K1 and K2 0 launches; (b) ``pwc`` and ``raft`` at ``--batch_size 8``
+    at ``data`` 2 and 4 (each window's frames split with their halo
+    frame): flows within 1e-4 of the largest, K2 = 5 levels x the rows
+    that ran x the windows, at N=4 and N=2 pairs, K1 0; RAFT K1 and K2 0;
+    (c) ``i3d --flow_type pwc`` (phase 5's two 129-frame clips, 64/64
+    stacks) at ``data`` 2 and 4, both streams within 2e-4 max abs, K2 =
+    5 x rows x stacks at N=32 and N=16, the rows that sat out printed;
+    (d) ``--preprocess device`` on the mesh for ``pwc`` and ``i3d`` at
+    ``data`` 2 against (b)'s and (c)'s host-preprocess mesh runs, within
+    relative L2 5e-3; (e) ``--mesh_model 2`` on ``resnet50`` refused with
+    the JAX package's "tensor-parallel" message; (f) (a)-(c) on distinct
+    cards where there are two or four, else a line saying so. Phase 3
+    holds and times K2 at those four per-shard shapes;
+23. a ``kernels`` JSON line (each kernel's launches on its main path, in
     the fused runs, in the device preprocess runs, in the telemetry runs,
-    in the bf16 phase, in the served requests, in phases 18, 19, 20 and
-    21, its records at the fused shapes and at the mesh shapes, and K1's
-    bf16 record at the CLIP path's shape), then the ``ok`` JSON line last.
+    in the bf16 phase, in the served requests, in phases 18-22, its
+    records at the fused shapes and at the mesh shapes, and K1's bf16
+    record at the CLIP path's shape), then the ``ok`` JSON line last.
 
-Every CLI run of phases 4-14, 16-18, 20 and 21 passes ``--strict``, so a video that fails
+Every CLI run of phases 4-14, 16-18 and 20-22 passes ``--strict``, so a video that fails
 in isolation fails its phase (phase 15's first run leaves it out: two of
 its files must fail). Phases 7-11 launch no hand-written kernel:
 RAFT, ResNet, R(2+1)D and VGGish reach no ``pallas_call`` in the JAX
 package, nor does the device preprocess's resample (the JAX package
 leaves it to XLA). Every launch count is read from a run that starts with
-all counts at 0, and each of phases 4-21 prints its wall time.
+all counts at 0, and each of phases 4-22 prints its wall time.
 """
 
 from __future__ import annotations
@@ -308,6 +327,21 @@ MESH_ATTENTION_SHAPES = {"N=16, H=6 (--mesh_model 2)": (16, 6, 50, 64),
 # size (the JAX package asks byte-equality there), tensor and context
 # parallelism sum in another order (the JAX package's 2e-4)
 MESH_ATOL = {"data": 1e-5, "tensor": 2e-4, "context": 2e-4}
+# phase 22: the families' meshes against their one-device runs. A data
+# parallel row does the one-device math at a smaller batch (cuDNN may pick
+# another algorithm): relative L2 1e-5; the flows, relative to their
+# largest magnitude, as the device preprocess phase holds them; I3D at the
+# JAX package's own mesh tolerance (max abs); --preprocess device against
+# the host preprocess mesh at DEVICE_DRIFT
+FAMILY_MESH_RTOL = 1e-5
+I3D_MESH_ATOL = 2e-4
+# K2's shapes on phase 22's mesh runs, held and timed in phase 3: one
+# row's pairs of an I3D stack of 64 (256x384 grid) at data 2 and 4, and of
+# a standalone PWC window of 8 (256x320) at data 2 and 4
+MESH_CORRELATION_CASES = {"N=32 (i3d, data 2)": (32, 256, 384),
+                          "N=16 (i3d, data 4)": (16, 256, 384),
+                          "N=4 (pwc, data 2)": (4, 256, 320),
+                          "N=2 (pwc, data 4)": (2, 256, 320)}
 # K2's cases in phase 3: (label, shape, dtype); the levels are the main path
 CORRELATION_CASES = [(f"level {lvl}", (PAIRS, c, h, w), torch.float32)
                      for lvl, c, h, w in CORR_LEVELS]
@@ -341,9 +375,10 @@ VGGISH_RTOL = 1e-3
 # effects, none of which exist in a fixed-shape fp32 forward
 CONTRACT_VIDEOS = 8
 # phase 21's warm queue passes: each of the 8 clips under this many names,
-# a window of 160 videos a pass, so one pass takes seconds, not ~0.4 s
-WARM_QUEUE_COPIES = 20
-WARM_QUEUE_PASSES = 3  # for each worker count, in turns
+# a window of 80 videos a pass, so one pass takes seconds, not ~0.4 s
+# (160 names and 3 passes until phase 22 needed the time)
+WARM_QUEUE_COPIES = 10
+WARM_QUEUE_PASSES = 2  # for each worker count, in turns
 # phase 17's ledger gates: CLIP-ViT-B/32 at 224 px is 4.41 GMACs (timm's
 # published figure) at 2 flops a multiply-add; a model's projected resident
 # set against the peak of its largest served group P; a rebuilt CLIP's
@@ -1823,6 +1858,15 @@ def hold_mesh_shapes(device):
     launch. Returns the records by shape."""
     return {label: hold_flash_attention(device, shape, torch.float32, None, seed=500 + i)
             for i, (label, shape) in enumerate(MESH_ATTENTION_SHAPES.items())}
+
+
+def hold_mesh_correlation(device):
+    """Phase 3, K2 at phase 22's per-shard shapes (``MESH_CORRELATION_CASES``:
+    PWC's five levels at each) against its plain version, early, where the
+    profiler keeps every launch. Returns the records by shape."""
+    return {label: hold_correlation_levels(device, n, pwc_levels(hp, wp), f"a mesh row, {label}",
+                                           seed=600 + 10 * i)
+            for i, (label, (n, hp, wp)) in enumerate(MESH_CORRELATION_CASES.items())}
 
 
 def resample_taps(src, taps, device):
@@ -3716,21 +3760,6 @@ def run_parallel_path(root: str, device):
     if not (err <= MESH_ATOL["context"] and k1 == 0):
         raise AssertionError(f"--mesh_context: err {err}, K1 {k1}")
 
-    want = ("--sharding mesh is not supported for feature_type 'resnet50': ExtractResNet does "
-            "not declare mesh support (mesh_capable); use --sharding queue")
-    try:
-        cli.main(["--feature_type", "resnet50", "--allow_random_init", "--sharding", "mesh",
-                  "--output_path", os.path.join(root, "par_refused"), "--tmp_path",
-                  os.path.join(root, "tmp"), "--video_paths", clips[0]])
-    except ValueError as exc:
-        got = str(exc)
-    else:
-        raise AssertionError("--sharding mesh on resnet50 was not refused")
-    print(f"parallel (e), --sharding mesh --feature_type resnet50: ValueError (exit 1 from the "
-          f"command line): {got}")
-    if got != want:
-        raise AssertionError(f"the refusal's message differs from the JAX package's: {got!r}")
-
     if torch.cuda.device_count() > 1:
         queue_and_mesh(["0", "1"], "distinct")
         warm_queue([torch.device("cuda", 0), torch.device("cuda", 1)], "on two cards")
@@ -3751,6 +3780,168 @@ def run_parallel_path(root: str, device):
               "possible: nothing here crossed between cards, and no speed-up from more cards "
               "was measured")
     print(f"parallel: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def run_mesh_path(root: str, device):
+    """Phase 22: ``--sharding mesh`` for ResNet-50, R(2+1)D-18, VGGish,
+    PWC, RAFT and I3D + PWC (module docstring). Returns each kernel's
+    launches in the phase."""
+    from video_features_tpu_torch import cli
+    from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
+    from video_features_tpu_torch.ops.flash_attention import flash_attention
+    from video_features_tpu_torch.parallel.sharding import row_sizes
+    from video_features_tpu_torch.utils.synth import synth_video, synth_wav
+
+    card = card_line()
+    print(f"mesh: {card}; {torch.cuda.device_count()} visible CUDA device(s)")
+    launches = {"flash_attention": 0, "local_correlation": 0}
+    idx = str(device.index or 0)
+    tmp = os.path.join(root, "tmp")
+
+    def run(out, feature_type, inputs, *extra):
+        reset_counts()
+        t0 = time.perf_counter()
+        cli.main(["--feature_type", feature_type, "--allow_random_init", "--on_extraction",
+                  "save_numpy", "--strict", "--output_path", os.path.join(root, out),
+                  "--tmp_path", tmp, *extra, "--video_paths", *inputs])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k2 = flash_attention.launches, local_correlation_kernel.launches
+        launches["flash_attention"] += k1
+        launches["local_correlation"] += k2
+        return read_features(os.path.join(root, out)), k1, k2, wall
+
+    # each family's clips and its one-device run of phases 5-11 (the same
+    # clips, seeds and flags), made here when this phase runs alone
+    def video(name, n, seed, **size):
+        path = os.path.join(root, name)
+        return path if os.path.exists(path) else synth_video(path, n_frames=n, seed=seed, **size)
+
+    def wav(i):
+        path = os.path.join(root, f"audio{i}.wav")
+        return path if os.path.exists(path) else synth_wav(
+            path, seconds=VGGISH_SECONDS[i], sample_rate=VGGISH_RATE, channels=2, seed=i)
+
+    n_raft, w_raft, h_raft = RAFT_CLIP
+    clips = {
+        "resnet50": [video("resnet50.mp4", RESNET_CLIP_FRAMES, 7)],
+        "r21d_rgb": [video("r21d_rgb.mp4", R21D_CLIP_FRAMES, 7)],
+        "vggish": [wav(i) for i in range(len(VGGISH_SECONDS))],
+        "pwc": [video("pwc.mp4", PWC_CLIP_FRAMES, 5)],
+        "raft": [video("raft.mp4", n_raft, 6, width=w_raft, height=h_raft)],
+        "i3d": [video(f"i3d{i}.mp4", I3D_CLIP_FRAMES, i) for i in range(I3D_VIDEOS)],
+    }
+    flags = {"resnet50": ("--batch_size", str(RESNET_BATCH)), "r21d_rgb": (),
+             "vggish": (), "pwc": ("--batch_size", str(PWC_BATCH)),
+             "raft": ("--batch_size", str(RAFT_BATCH)), "i3d": ("--flow_type", "pwc")}
+    # R(2+1)D's phase ran one stack a forward: the mesh splits a batch of 4
+    mesh_flags = dict(flags, r21d_rgb=("--batch_size", "4"))
+    refs = {}
+    for ft, paths in clips.items():
+        out = f"{ft}_out"
+        if not os.path.isdir(os.path.join(root, out)):
+            print(f"mesh: {out} absent, the one-device run made here")
+            run(out, ft, paths, *flags[ft], "--device_ids", idx)
+        refs[ft] = read_features(os.path.join(root, out))
+
+    def held(got, want, k1, k2, k2_want, label, tol_fn, against="the one-device run"):
+        names = sorted(want)
+        if sorted(got) != names:
+            raise AssertionError(f"mesh {label}: files {sorted(got)}, want {names}")
+        shapes_ok = all(got[n].shape == want[n].shape and np.isfinite(got[n]).all()
+                        for n in names)
+        errs = [tol_fn(got[n], want[n]) for n in names]
+        err, tol = max(e for e, _ in errs), errs[0][1]
+        print(f"mesh {label}: {len(names)} file(s) {[want[n].shape for n in names]} against "
+              f"{against} {err:.3e} (tol {tol:g}); K1 {k1}, K2 {k2} (want {k2_want})")
+        if not (shapes_ok and err <= tol and k1 == 0 and k2 == k2_want):
+            raise AssertionError(f"mesh {label}: err {err}, K1 {k1}, K2 {k2}, "
+                                 f"shapes {shapes_ok}")
+
+    def rel(a, b):
+        return rel_l2(a, b), FAMILY_MESH_RTOL
+
+    def flow(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max()), FLOW_RTOL
+
+    def i3d_abs(a, b):
+        return float(np.abs(a - b).max()), I3D_MESH_ATOL
+
+    pwc_windows = -(-(PWC_CLIP_FRAMES - 1) // PWC_BATCH)
+    i3d_stacks = I3D_VIDEOS * I3D_STACKS
+
+    def families(ids, tag):
+        """(a)-(c) on the device ids ``ids``: the DP families on two rows,
+        the flows and I3D on ``data`` 2 and 4 (``ids`` repeated to 4)."""
+        two, four = ids[:2], (ids * 4)[:4]
+        for ft in ("resnet50", "r21d_rgb", "vggish"):
+            got, k1, k2, wall = run(f"mesh_{tag}_{ft}", ft, clips[ft], *mesh_flags[ft],
+                                    "--sharding", "mesh", "--device_ids", *two)
+            held(got, refs[ft], k1, k2, 0,
+                 f"(a) {ft} data parallel on {' '.join(two)} ({wall:.1f} s)", rel)
+        host = {}
+        for ft in ("pwc", "raft"):
+            for rows in (two, four):
+                got, k1, k2, wall = run(f"mesh_{tag}_{ft}{len(rows)}", ft, clips[ft],
+                                        *flags[ft], "--sharding", "mesh", "--device_ids", *rows)
+                shard = row_sizes(PWC_BATCH, len(rows))
+                want = len(CORR_LEVELS) * sum(1 for s in shard if s) * pwc_windows
+                held(got, refs[ft], k1, k2, want if ft == "pwc" else 0,
+                     f"(b) {ft} --batch_size {PWC_BATCH}, data {len(rows)} on "
+                     f"{' '.join(rows)}, a window's pairs per row {shard} ({wall:.1f} s)", flow)
+                host[ft, len(rows)] = got
+        for rows in (two, four):
+            got, k1, k2, wall = run(f"mesh_{tag}_i3d{len(rows)}", "i3d", clips["i3d"],
+                                    *flags["i3d"], "--sharding", "mesh", "--device_ids", *rows)
+            shard = row_sizes(STACK, len(rows), 8)
+            ran = sum(1 for s in shard if s)
+            held(got, refs["i3d"], k1, k2, len(CORR_LEVELS) * ran * i3d_stacks,
+                 f"(c) i3d --flow_type pwc, data {len(rows)} on {' '.join(rows)}, each stack's "
+                 f"pairs per row {shard} (K2 at N={max(shard)}), rows that sat out on the tail "
+                 f"stack {len(rows) - ran} ({wall:.1f} s)", i3d_abs)
+            host["i3d", len(rows)] = got
+        return host
+
+    t_phase = time.perf_counter()
+    host = families([idx, idx], "same")
+
+    def drift(a, b):
+        return rel_l2(a, b), DEVICE_DRIFT
+
+    for ft, k2_want in (("pwc", len(CORR_LEVELS) * 2 * pwc_windows),
+                        ("i3d", len(CORR_LEVELS) * 2 * i3d_stacks)):
+        got, k1, k2, wall = run(f"mesh_device_{ft}", ft, clips[ft], *flags[ft],
+                                "--preprocess", "device", "--sharding", "mesh",
+                                "--device_ids", idx, idx)
+        held(got, host[ft, 2], k1, k2, k2_want,
+             f"(d) {ft} --preprocess device, data 2 ({wall:.1f} s)", drift,
+             against="the --preprocess host mesh run")
+
+    want = ("--mesh_model 2 needs tensor-parallel param specs, which ExtractResNet does not "
+            "define (only the batch axis shards); use --mesh_model 1")
+    try:
+        cli.main(["--feature_type", "resnet50", "--allow_random_init", "--sharding", "mesh",
+                  "--mesh_model", "2", "--device_ids", idx, idx, "--output_path",
+                  os.path.join(root, "mesh_refused"), "--tmp_path", tmp,
+                  "--video_paths", clips["resnet50"][0]])
+    except ValueError as exc:
+        got = str(exc)
+    else:
+        raise AssertionError("--mesh_model 2 on resnet50 was not refused")
+    print(f"mesh (e), --sharding mesh --mesh_model 2 --feature_type resnet50: ValueError (exit 1 "
+          f"from the command line): {got}")
+    if got != want:
+        raise AssertionError(f"the refusal's message differs from the JAX package's: {got!r}")
+
+    count = torch.cuda.device_count()
+    if count > 1:  # two rows on cards 0 and 1; four on 0-3, or 0 1 0 1 on two
+        families([str(i) for i in range(min(count, 4))], "distinct")
+    else:
+        print("mesh (f): one CUDA device on this host, so no run on distinct cards was "
+              "possible: nothing here crossed between cards, and no speed-up from more cards "
+              "was measured")
+    print(f"mesh: phase wall {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -3786,6 +3977,7 @@ def main() -> int:
     k2 = check_local_correlation(device)
     fused_shapes = hold_fused_shapes(device)
     mesh_shapes = hold_mesh_shapes(device)
+    mesh_correlation = hold_mesh_correlation(device)
     measure_resample(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         phases = [
@@ -3810,6 +4002,7 @@ def main() -> int:
             ("preemption", lambda: run_preempt_path(root, device)),
             ("native host path", lambda: run_native_path(root, device)),
             ("parallel", lambda: run_parallel_path(root, device)),
+            ("mesh", lambda: run_mesh_path(root, device)),
         ]
         results = {}
         for name, phase in phases:
@@ -3820,7 +4013,7 @@ def main() -> int:
         # later phase that drives it
         later_names = ("async ingest", "device preprocess", "telemetry and preflight",
                        "bfloat16", "serve", "disk flow and output flags", "preemption",
-                       "native host path", "parallel")
+                       "native host path", "parallel", "mesh")
         later = [results[n] for n in later_names]
         k1_launches = results["CLIP"] + sum(r["flash_attention"] for r in later)
         k2_launches = results["I3D + PWC"] + sum(r["local_correlation"] for r in later)
@@ -3851,6 +4044,7 @@ def main() -> int:
             "launches": k2_launches,
             **k2,
             "fused_shapes": fused_shapes["local_correlation"],
+            "mesh_shapes": mesh_correlation,
         },
     ]
     print(json.dumps({"kernels": records}))

@@ -109,6 +109,38 @@ def test_shape_contract_banded_matches_jax(case):
         assert g.dtype == w_.dtype and np.array_equal(g, w_)
 
 
+def test_taps_builders_give_concurrent_callers_one_set_of_arrays():
+    """Decode workers preparing two videos of one resolution at once must
+    get the same host arrays, which the extractors place once per set
+    (``BaseExtractor._device_taps`` keys by the arrays). Twelve threads
+    released together ask for sizes no earlier call has built."""
+    import sys
+    import threading
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for k, (build, args) in enumerate([
+                (port_resize.fused_resize_crop_banded, (237, 311, 256, 224, "bilinear")),
+                (port_resize.shape_contract_banded,
+                 (229, 307, 256, 256, 343, 0, 0, "bilinear"))]):
+            gate, got = threading.Barrier(12), []
+
+            def ask():
+                gate.wait(timeout=30)
+                got.append(build(*args, pad_h=240, pad_w=320))
+
+            threads = [threading.Thread(target=ask) for _ in range(12)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+            assert not any(t.is_alive() for t in threads) and len(got) == 12
+            assert all(g is got[0] or all(a is b for a, b in zip(g, got[0])) for g in got), k
+    finally:
+        sys.setswitchinterval(switch)
+
+
 def test_taps_refuse_what_jax_refuses():
     for mod in (port_resize, jax_resize):
         with pytest.raises(ValueError, match="crop_offset"):

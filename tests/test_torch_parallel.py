@@ -603,13 +603,42 @@ def test_mesh_refusals_match_jax(attrs):
 
 
 def test_cli_mesh_refuses_resnet_with_the_jax_message(clip_videos, tmp_path):
+    """ResNet runs ``--sharding mesh`` (data parallel); the refusal that
+    stands is tensor parallelism, with the JAX package's message."""
     with pytest.raises(ValueError) as exc:
         cli.main(["--feature_type", "resnet50", "--cpu", "--allow_random_init", "--sharding",
-                  "mesh", "--video_paths", clip_videos[0], "--output_path", str(tmp_path / "o"),
-                  "--tmp_path", str(tmp_path / "t")])
+                  "mesh", "--mesh_model", "2", "--video_paths", clip_videos[0],
+                  "--output_path", str(tmp_path / "o"), "--tmp_path", str(tmp_path / "t")])
     assert str(exc.value) == (
-        "--sharding mesh is not supported for feature_type 'resnet50': ExtractResNet does not "
-        "declare mesh support (mesh_capable); use --sharding queue")
+        "--mesh_model 2 needs tensor-parallel param specs, which ExtractResNet does not "
+        "define (only the batch axis shards); use --mesh_model 1")
+
+
+def test_cli_mesh_resnet_on_two_cpus_matches_queue(clip_videos, tmp_path, monkeypatch):
+    """``resnet50 --sharding mesh`` through the CLI on a mesh of two CPU
+    devices: the frame batches split over both rows, the files equal to
+    queue mode's."""
+    monkeypatch.setattr(port_devices, "resolve_devices",
+                        lambda cfg=None, **kw: _cpus(len(getattr(cfg, "device_ids", None) or [0])))
+    meshes = []
+    real = sharding.make_mesh
+    monkeypatch.setattr(sharding, "make_mesh",
+                        lambda *a, **kw: meshes.append(real(*a, **kw)) or meshes[-1])
+
+    def run(out, *extra):
+        cli.main(["--feature_type", "resnet50", "--cpu", "--allow_random_init", "--decoder",
+                  "cv2", "--extraction_fps", "2", "--batch_size", "3", "--on_extraction",
+                  "save_numpy", "--output_path", str(tmp_path / out), "--tmp_path",
+                  str(tmp_path / "t"), *extra, "--video_paths", *clip_videos[:2]])
+        return [np.load(f) for f in sorted((tmp_path / out / "resnet50").glob("*.npy"))]
+
+    queue = run("q")
+    mesh = run("m", "--sharding", "mesh", "--device_ids", "0", "0")
+    assert [m.shape["data"] for m in meshes] == [2]
+    assert len(queue) == len(mesh) == 2
+    for a, b in zip(mesh, queue):
+        assert a.shape[1] == 2048
+        np.testing.assert_allclose(a, b, atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("kw", [

@@ -5,7 +5,8 @@ The JAX package's flags and output files (``video_features_tpu/cli.py``).
 The run goes to the ``--device_ids`` CUDA devices (every visible one by
 default) or to the CPU with ``--cpu``: one worker per device over a
 shared queue of videos (``--sharding queue``), or one sharded forward
-over a (data, model) mesh of them (``--sharding mesh``, CLIP;
+over a (data, model) mesh of them (``--sharding mesh``, every family:
+data parallel, or the frame axis with halos for RAFT, PWC and I3D;
 ``parallel/scheduler.py``). ``--feature_types A B ...`` runs several
 models over the same videos, one after another, with the shared-decode
 frame cache installed (``extract/plan.py::run_multi``): each clip is

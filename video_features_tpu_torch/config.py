@@ -54,9 +54,10 @@ FLOW_TYPES = ("raft", "pwc", "flow")
 DEVICE_PREPROCESS_FEATURE_TYPES = CLIP_FEATURE_TYPES + RESNET_FEATURE_TYPES + ["raft", "pwc",
                                                                              "i3d"]
 # the extractors whose --preprocess device path may run under --sharding
-# mesh (the JAX package's list, so its refusal reads the same here); of
-# them, only CLIP declares mesh support in this package so far, and
-# parallel/scheduler.py refuses the others with the JAX package's message
+# mesh (the JAX package's list, so its refusal reads the same here): CLIP
+# splits the raw frame batch over 'data', raft and pwc each window's frame
+# axis and i3d each stack's, with the taps replicated on every row. The
+# ResNet family runs mesh only on its host chain, as in the JAX package
 MESH_DEVICE_PREPROCESS_FEATURE_TYPES = CLIP_FEATURE_TYPES + ["raft", "pwc", "i3d"]
 PREPROCESS_MODES = ("host", "device")
 DECODERS = ("auto", "cv2", "native")
@@ -511,7 +512,9 @@ def build_arg_parser(feature_required: bool = True) -> argparse.ArgumentParser:
     p.add_argument("--sharding", default="queue", choices=["queue", "mesh"],
                    help="queue: one model and worker thread per device over a "
                         "shared queue of videos; mesh: one sharded forward over a "
-                        "(data, model) mesh of all selected devices (CLIP)")
+                        "(data, model) mesh of all selected devices: data parallel "
+                        "for CLIP (tensor parallel too), ResNet, R(2+1)D and VGGish; "
+                        "the frame axis with halos for RAFT, PWC and I3D")
     p.add_argument("--mesh_model", type=int, default=1,
                    help="tensor-parallel axis size of the --sharding mesh")
     p.add_argument("--mesh_context", action="store_true",

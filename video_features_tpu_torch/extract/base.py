@@ -94,7 +94,6 @@ from video_features_tpu_torch.extract.ingest import (
     CompletionQueue,
     HostCopy,
     RequeueTimers,
-    place_batch,
     place_taps,
 )
 from video_features_tpu_torch.io.ffmpeg import reencode_video_with_diff_fps
@@ -292,19 +291,20 @@ class BaseExtractor:
 
     @staticmethod
     def _dispatch_rows_grouped(rows: List[np.ndarray], chunk_rows: int,
-                               device: torch.device, forward) -> List[Tuple[HostCopy, int]]:
+                               forward) -> List[Tuple[HostCopy, int]]:
         """The row re-chunking of fused ResNet frames and R(2+1)D stacks:
         the videos' valid rows concatenated and run ``chunk_rows`` at a
-        time through ``forward`` (a device batch -> its feature rows),
-        the last chunk unpadded (eager PyTorch compiles no shape, so a
-        short chunk costs nothing extra). Returns ``[(HostCopy, rows)]``
-        without waiting."""
+        time through ``forward`` (a host chunk -> its feature rows on the
+        device, placed by the caller: on one device, or split over a
+        mesh's data rows), the last chunk unpadded (eager PyTorch compiles
+        no shape, so a short chunk costs nothing extra). Returns
+        ``[(HostCopy, rows)]`` without waiting."""
         all_rows = np.concatenate(rows, axis=0)
         outs = []
         with torch.inference_mode():
             for i in range(0, all_rows.shape[0], chunk_rows):
                 piece = all_rows[i : i + chunk_rows]
-                outs.append((HostCopy(forward(place_batch(piece, device))), piece.shape[0]))
+                outs.append((HostCopy(forward(piece)), piece.shape[0]))
         return outs
 
     @staticmethod

@@ -42,6 +42,19 @@ video's taps.
 after loading, those in ``_fp32_params`` kept fp32. The windows stay
 fp32 [0, 255] frames; the flow is fp32.
 
+``--sharding mesh`` (:40-55, :140-172): sequence parallelism over the
+frame axis. The flow net is replicated on the mesh's data rows
+(``parallel/sharding.py::replicate``); a window's B+1 frames go through
+``halo_split``, so row ``r`` runs the unchanged model on its ``b_r + 1``
+frames and returns its ``b_r`` pairs (PWC's cost volumes at ``N = b_r``
+on each row), and the pairs gather onto the first device in order. Under
+``--preprocess device`` the raw window splits so and the taps are
+replicated on each row. With ``--video_batch`` the fused windows split
+over the rows whole (data parallel), so no pair couples two videos; a
+device payload is not fused on a mesh (``agg_key``), as in the JAX
+package. The JAX package's last-frame mesh fill has no counterpart: a
+list of per-row tensors may be uneven.
+
 Output: ``{<feature_type>: (T-1, 2, H, W), fps, timestamps_ms}``, flow at
 the frames' resolution.
 """
@@ -77,6 +90,13 @@ from video_features_tpu_torch.models.common.weights import (
 from video_features_tpu_torch.ops.preprocess import device_resize_frames, pil_resize
 from video_features_tpu_torch.ops.resize import resized_hw, shape_contract_banded
 from video_features_tpu_torch.ops.window import pad_hw, spatial_bucket
+from video_features_tpu_torch.parallel.sharding import (
+    Replicas,
+    gather_rows,
+    halo_split,
+    is_mesh,
+    replicate,
+)
 from video_features_tpu_torch.utils import flow_viz
 
 
@@ -98,6 +118,9 @@ class PairwiseFlowExtractor(BaseExtractor):
 
     checkpoint = ""
     _fp32_params: tuple = ()
+    # --sharding mesh: sequence parallel over each window's frame axis
+    # (halo_split), the weights replicated (parallel/scheduler.py reads this)
+    mesh_capable = True
 
     def __init__(self, config, external_call: bool = False) -> None:
         super().__init__(config, external_call)
@@ -117,7 +140,11 @@ class PairwiseFlowExtractor(BaseExtractor):
     def _make_padder(self, shape):
         return NullPadder()
 
-    def _build(self, device: torch.device) -> torch.nn.Module:
+    def _build(self, device):
+        """The flow net on ``device``; on a mesh, one copy a distinct
+        device of its data rows (``sharding.replicate``)."""
+        if is_mesh(device):
+            return replicate(self._build, device)
         model = self._model()
         if self.config.weights_path:
             sd = self._convert_state_dict(load_state_dict(self.config.weights_path))
@@ -254,18 +281,24 @@ class PairwiseFlowExtractor(BaseExtractor):
         return windows, n_pairs, padder, taps, self._fps(path), timestamps_ms
 
     # --- the device half, split (extract/base.py) --------------------------
-    @staticmethod
-    def _dispatch_window(model: torch.nn.Module, window: np.ndarray, n_pairs: int,
-                         padder, taps, device: torch.device) -> HostCopy:
+    def _dispatch_window(self, model: torch.nn.Module, window: np.ndarray, n_pairs: int,
+                         padder, taps) -> HostCopy:
         """One padded window -> its (n, 2, H, W) flows on their way to the
-        host, surplus pairs cut; ``taps`` (placed) resize a uint8 window
-        on the device first."""
+        host, surplus pairs cut; ``taps`` (host) resize a uint8 window on
+        the device first. On a mesh the window's frames split over the
+        data rows with their halo frame (``halo_split``), each row's pairs
+        come from its own copy of the net, and they gather in order."""
         with torch.inference_mode():
-            x = place_batch(window, device)
+            mesh = isinstance(model, Replicas)
+            if mesh:
+                parts, sizes = halo_split(window, model.mesh)
+            else:
+                parts = [place_batch(window, device_of(model))]
             if taps is not None:
-                x = device_resize_frames(x, *taps)
-            flow = padder.unpad(model(x))
-            return HostCopy(flow[:n_pairs].permute(0, 3, 1, 2))
+                parts = [device_resize_frames(x, *self._device_taps(taps, x.device))
+                         for x in parts]
+            flow = gather_rows(model(parts), model.device, sizes) if mesh else model(parts[0])
+            return HostCopy(padder.unpad(flow)[:n_pairs].permute(0, 3, 1, 2))
 
     def _stream(self, model: torch.nn.Module, entry, source=None) -> Dict[str, np.ndarray]:
         """A video over the prefetch cap, or under ``--show_pred``: decode
@@ -277,11 +310,9 @@ class PairwiseFlowExtractor(BaseExtractor):
         path = video_path_of(entry)
         source = source or self._fps_source(path)
         timestamps_ms: List[float] = []
-        device = device_of(model)
         flows = []
         for w, n, (padder, taps) in self._windows(source, timestamps_ms, capped=False):
-            taps = self._device_taps(taps, device) if taps is not None else None
-            flows.append(self._dispatch_window(model, w, n, padder, taps, device))
+            flows.append(self._dispatch_window(model, w, n, padder, taps))
             if self.config.show_pred:
                 flow, frames = flows[-1].numpy().transpose(0, 2, 3, 1), padder.unpad(w)
                 for i in range(n):
@@ -300,10 +331,7 @@ class PairwiseFlowExtractor(BaseExtractor):
         if isinstance(payload[0], str):  # ("stream", entry[, source])
             return ("done", self._stream(model, *payload[1:]))
         windows, n_pairs, padder, taps, fps, timestamps_ms = payload
-        device = device_of(model)
-        if taps is not None:
-            taps = self._device_taps(taps, device)
-        outs = [self._dispatch_window(model, w, n, padder, taps, device)
+        outs = [self._dispatch_window(model, w, n, padder, taps)
                 for w, n in zip(windows, n_pairs)]
         return ("batched", outs, fps, timestamps_ms)
 
@@ -329,6 +357,10 @@ class PairwiseFlowExtractor(BaseExtractor):
             return None
         if taps is None:
             return windows[0].shape  # (B+1, Hp, Wp, 3)
+        if self.config.sharding == "mesh":
+            # as in the JAX package, a mesh fuses host windows only: its
+            # device payloads run the solo window's sequence parallelism
+            return None
         # --preprocess device: (B+1, bh, bw, 3) uint8 and the grid and K of
         # the taps, so source resolutions sharing the contract fuse
         return ("dev", windows[0].shape, taps[0][0].shape, taps[1][0].shape)
@@ -336,7 +368,9 @@ class PairwiseFlowExtractor(BaseExtractor):
     def dispatch_group(self, model: torch.nn.Module, payloads):
         """The windows of the group's videos, G at a time, as (G, B+1, Hp,
         Wp, 3) forwards; the last forward is not padded to G windows. Under
-        ``--preprocess device`` each window resizes with its video's taps."""
+        ``--preprocess device`` each window resizes with its video's taps.
+        On a mesh the G windows split over the data rows whole (data
+        parallel: each window's pairs stay on one row)."""
         group = max(int(self.config.video_batch or 1), 1)
         device = device_of(model)
         flat_w = [w for p in payloads for w in p[0]]
@@ -344,6 +378,9 @@ class PairwiseFlowExtractor(BaseExtractor):
         outs = []
         with torch.inference_mode():
             for i in range(0, len(flat_w), group):
+                if isinstance(model, Replicas):  # host windows only (agg_key)
+                    outs.append(HostCopy(model.run(stack_group(flat_w[i : i + group]))))
+                    continue
                 x = place_batch(stack_group(flat_w[i : i + group]), device)
                 if flat_taps[i] is not None:
                     x = device_resize_frames(x, *stack_taps(flat_taps[i : i + group]))

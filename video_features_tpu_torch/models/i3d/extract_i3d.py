@@ -60,6 +60,26 @@ mixed-precision graph (``models/raft/model.py``, ``models/pwc/model.py``:
 PWC's cost volumes get fp32 inputs), each with its family's parameters
 kept fp32; the flow goes through ``flow_to_uint8`` in fp32. Features are
 fp32.
+
+``--sharding mesh`` (the JAX package's :176-193, :376-459, :811-827):
+sequence parallelism over each stack's frame axis, one stack at a time
+(``--batch_size`` pinned to 1), every net replicated on the mesh's data
+rows (``parallel/sharding.py::replicate``). The split is chosen once per
+stack, in blocks of 8 frames (I3D's cumulative temporal stride; only the
+last block ragged, and a row left without frames sits out):
+
+- rgb: the stack's first ``stack_size`` frames through ``split_rows``;
+- flow from RAFT or PWC: the ``stack_size + 1`` frames through
+  ``halo_split``, so row ``r``'s pairs are exactly the rgb split's block
+  ``r``; each row runs the flow net (PWC's cost volumes at ``N = b_r``)
+  and ``flow_chain`` on its own frames, and the flow never moves;
+- flow from disk: the flow images through ``split_rows``.
+
+Each stream's blocks then go through ``I3D.forward_sharded`` (the time
+halos of its temporal convs and pools, the time mean a sum over blocks).
+Under ``--preprocess device`` the raw uint8 stack splits so, with the
+taps and the flow crop offsets on each row. Nothing is fused across
+videos on a mesh (``agg_key``).
 """
 
 from __future__ import annotations
@@ -117,10 +137,20 @@ from video_features_tpu_torch.ops.resize import (
     shape_contract_banded,
 )
 from video_features_tpu_torch.ops.window import flow_output_bucket, pad_hw, spatial_bucket
+from video_features_tpu_torch.parallel.sharding import (
+    Replicas,
+    halo_split,
+    is_mesh,
+    replicate,
+    split_rows,
+)
 from video_features_tpu_torch.utils.labels import show_predictions_on_dataset
 
 MIN_SIDE_SIZE = 256
 CENTRAL_CROP_SIZE = 224
+# a mesh's time blocks: I3D's cumulative temporal stride (the stem and the
+# two strided max pools), so each block's strided outputs are its own
+TIME_BLOCK = 8
 DEFAULT_STACK_SIZE = 64
 DEFAULT_STEP_SIZE = 64
 # checkpoint file names looked up under --weights_path (a directory)
@@ -208,12 +238,20 @@ def disk_flow_chain(flow_imgs: torch.Tensor) -> torch.Tensor:
 
 
 class ExtractI3D(BaseExtractor):
+    # --sharding mesh: each stack's frame axis over 'data' (sequence
+    # parallelism, time halos), the weights replicated
+    # (parallel/scheduler.py reads this)
+    mesh_capable = True
+
     def __init__(self, config, external_call: bool = False) -> None:
         super().__init__(config, external_call)
         self.streams = list(self.config.streams or ["rgb", "flow"])
         self.stack_size = int(self.config.stack_size or DEFAULT_STACK_SIZE)
         self.step_size = int(self.config.step_size or DEFAULT_STEP_SIZE)
-        self.stack_batch = max(int(self.config.batch_size or 1), 1)
+        # a mesh shards one stack's frame axis: one stack a forward, as the
+        # JAX package pins B=1 there
+        self.stack_batch = (1 if self.config.sharding == "mesh"
+                            else max(int(self.config.batch_size or 1), 1))
         self.flow_type = self.config.flow_type
         # --conv3d_impl for THIS extractor's I3D models (None: auto)
         self.conv_impl = explicit_conv3d_impl(self.config)
@@ -254,14 +292,20 @@ class ExtractI3D(BaseExtractor):
             load_checked(model, convert(load_state_dict(path)), f"i3d[{kind}]")
         return set_conv3d_impl(model, self.conv_impl)
 
-    def _build(self, device: torch.device) -> Dict[str, torch.nn.Module]:
-        # the flow net, unless the flow is read from disk
+    def _build(self, device) -> Dict[str, torch.nn.Module]:
+        """Each stream's I3D and the flow net (unless the flow is read from
+        disk) on ``device``; on a mesh, each replicated over its data rows
+        (``sharding.replicate``)."""
         kinds = self.streams + ([self.flow_type] if "flow" in self.streams
                                 and self.flow_type != "flow" else [])
-        dt = compute_dtype(self.config)
-        return {kind: cast_for_compute(self._model(kind).to(device).eval(), dt,
-                                       exclude=FP32_PARAMS[kind])
-                for kind in kinds}
+        if is_mesh(device):
+            return {kind: replicate(functools.partial(self._built, kind), device)
+                    for kind in kinds}
+        return {kind: self._built(kind, device) for kind in kinds}
+
+    def _built(self, kind: str, device: torch.device) -> torch.nn.Module:
+        return cast_for_compute(self._model(kind).to(device).eval(),
+                                compute_dtype(self.config), exclude=FP32_PARAMS[kind])
 
     # --- host: decode and resize -------------------------------------------
     # A prepared video is T x 256 x W x 3 float32 and the pipeline keeps
@@ -402,9 +446,13 @@ class ExtractI3D(BaseExtractor):
     def flow(self, models: Dict[str, torch.nn.Module], stacks: torch.Tensor) -> torch.Tensor:
         """(B, S+1, H, W, 3) stacks -> (B, S, H', W', 2) flow: PWC's at
         (H, W); RAFT's at its padded grid, which the crop then reads."""
+        return models[self.flow_type](self._flow_input(stacks))
+
+    def _flow_input(self, stacks: torch.Tensor) -> torch.Tensor:
+        """The flow net's input: RAFT's InputPadder grid, PWC's frames."""
         if self.flow_type == "raft":
-            stacks = InputPadder(stacks.shape[-3:-1]).pad_tensor(stacks)
-        return models[self.flow_type](stacks)
+            return InputPadder(stacks.shape[-3:-1]).pad_tensor(stacks)
+        return stacks
 
     def _stacks(self, frames, flow_imgs=None) -> List[tuple]:
         """The video's stacks, as (frames, flow images, start, end),
@@ -423,13 +471,12 @@ class ExtractI3D(BaseExtractor):
         """Enqueue the stacks ``--batch_size`` at a time, the last group
         zero-padded to that size (so a fused group runs at the solo path's
         shapes), each stream's (features, logits under ``--show_pred``) on
-        their way to the host."""
+        their way to the host. On a mesh: ``_dispatch_stacks_sharded``."""
+        if isinstance(models[self.streams[0]], Replicas):
+            return self._dispatch_stacks_sharded(models, stacks)
         device = device_of(models)
-        geom = None
-        if self._device_preprocess_enabled() and stacks:
-            frames0 = stacks[0][0]
-            geom = _device_geometry(*frames0[0].shape[:2], int(self.config.spatial_bucket),
-                                    self.flow_type)
+        geom = self._geometry(stacks)
+        if geom is not None:
             taps = {k: self._device_taps(geom[k], device) for k in ("rgb", "flow")}
         outs = []
         with torch.inference_mode():
@@ -461,6 +508,63 @@ class ExtractI3D(BaseExtractor):
                     # the 400-class logits cross only for --show_pred
                     feats[stream] = (HostCopy(f[: len(chunk)]),
                                      HostCopy(logits[: len(chunk)]) if self.config.show_pred
+                                     else None)
+                outs.append(feats)
+        return outs
+
+    def _geometry(self, stacks):
+        """``_device_geometry`` of the stacks' source resolution under
+        ``--preprocess device``, else None."""
+        if not (self._device_preprocess_enabled() and stacks):
+            return None
+        return _device_geometry(*stacks[0][0][0].shape[:2], int(self.config.spatial_bucket),
+                                self.flow_type)
+
+    def _stream_blocks(self, models, stream: str, stack: np.ndarray, flow_imgs,
+                       geom) -> List[torch.Tensor]:
+        """One stack's input to ``stream``'s I3D as (1, T_r, 224, 224, C)
+        time blocks on the mesh's data rows (module docstring): ``stack``
+        is the host window (raw uint8 on its bucket under ``--preprocess
+        device``), ``flow_imgs`` the window's disk flow or None."""
+        mesh = models[stream].mesh
+        if stream == "rgb":
+            parts, _ = split_rows(stack[:-1], mesh, TIME_BLOCK)
+            if geom is None:
+                return [rgb_chain(p[None]) for p in parts]
+            return [scale_to_1_1(device_resize_frames(
+                p[None], *self._device_taps(geom["rgb"], p.device))) for p in parts]
+        if flow_imgs is not None:
+            parts, _ = split_rows(flow_imgs, mesh, TIME_BLOCK)
+            return [disk_flow_chain(p[None]) for p in parts]
+        # the pairs of row r are the rgb split's block r
+        parts, _ = halo_split(stack, mesh, TIME_BLOCK)
+        if geom is None:
+            flows = models[self.flow_type]([self._flow_input(p[None]) for p in parts])
+            return [flow_chain(f) for f in flows]
+        flows = models[self.flow_type]([device_resize_frames(
+            p[None], *self._device_taps(geom["flow"], p.device)) for p in parts])
+        return [flow_chain(f, geom["crop"]) for f in flows]
+
+    def _dispatch_stacks_sharded(self, models: Dict[str, Replicas],
+                                 stacks) -> List[Dict[str, tuple]]:
+        """The mesh's dispatch: one stack at a time, each stream's time
+        blocks (``_stream_blocks``) through ``I3D.forward_sharded`` over the
+        stream's replicas, the (1, 1024) features and logits landing on the
+        first device."""
+        geom = self._geometry(stacks)
+        outs = []
+        with torch.inference_mode():
+            for frames, flow_imgs, s, e in stacks:
+                stack = np.stack(frames[s:e])  # (S+1, H, W, 3); S with disk flow
+                if geom is not None:  # raw uint8 onto the spatial bucket
+                    stack = pad_hw(stack, *geom["bucket"])
+                fl = flow_imgs[s:e] if flow_imgs is not None else None
+                feats = {}
+                for stream in self.streams:
+                    i3d = models[stream]
+                    blocks = self._stream_blocks(models, stream, stack, fl, geom)
+                    f, logits = i3d.rows[0].forward_sharded(blocks, i3d.rows)
+                    feats[stream] = (HostCopy(f), HostCopy(logits) if self.config.show_pred
                                      else None)
                 outs.append(feats)
         return outs
@@ -512,8 +616,10 @@ class ExtractI3D(BaseExtractor):
 
     def agg_key(self, payload):
         # deferred videos, disk flow (zipped frame and flow-image payloads,
-        # as in the JAX package) and --show_pred (per-video prints) stay solo
-        if isinstance(payload[0], str) or payload[3] is not None or self.config.show_pred:
+        # as in the JAX package), --show_pred (per-video prints) and a mesh
+        # (one stack at a time) stay solo
+        if (isinstance(payload[0], str) or payload[3] is not None or self.config.show_pred
+                or self.config.sharding == "mesh"):
             return None
         frames = payload[0]
         if len(frames) > self.AGG_MAX_FRAMES or len(frames) < self.stack_size + 1:

@@ -23,6 +23,12 @@ model.py``), its weights cast after loading with ``fc`` kept fp32;
 ``kinetics_preprocess`` stays fp32 and its output is rounded to bf16 at
 the first conv.
 
+``--sharding mesh``: data parallelism over the stack batch. The network
+is replicated on the mesh's data rows (``parallel/sharding.py::
+replicate``), each group of stacks (and each fused chunk) splits over the
+rows (``split_rows``; a row left without stacks sits out), and the rows'
+features gather onto the first device before the copy to the host.
+
 Output: ``{r21d_rgb: (S, 512), fps, timestamps_ms}``, fp32, one timestamp
 per decoded frame.
 """
@@ -60,6 +66,7 @@ from video_features_tpu_torch.models.r21d.model import (
 )
 from video_features_tpu_torch.ops.preprocess import KINETICS_MEAN, KINETICS_STD
 from video_features_tpu_torch.ops.resize import resize_bilinear
+from video_features_tpu_torch.parallel.sharding import Replicas, is_mesh, replicate
 from video_features_tpu_torch.utils.labels import show_predictions_on_dataset
 
 PRE_CENTRAL_CROP_SIZE = (128, 171)
@@ -92,7 +99,15 @@ class ExtractR21D(BaseExtractor):
         # --conv3d_impl for THIS extractor's model (None: auto)
         self.conv_impl = explicit_conv3d_impl(self.config)
 
-    def _build(self, device: torch.device) -> R2Plus1D:
+    # --sharding mesh: pure data parallelism over the stack batch, the
+    # weights replicated (parallel/scheduler.py reads this)
+    mesh_capable = True
+
+    def _build(self, device):
+        """The network on ``device``; on a mesh, one copy a distinct device
+        of its data rows (``sharding.replicate``)."""
+        if is_mesh(device):
+            return replicate(self._build, device)
         model = R2Plus1D()
         if self.config.weights_path:
             load_checked(model, convert_state_dict(load_state_dict(self.config.weights_path)),
@@ -124,9 +139,19 @@ class ExtractR21D(BaseExtractor):
         return clip, slices, fps, timestamps_ms, path
 
     @staticmethod
-    def _features(model: R2Plus1D, stacks: torch.Tensor):
-        """(B, T, H, W, 3) uint8 stacks on the device -> (features, logits)."""
-        return model(kinetics_preprocess(stacks).permute(0, 4, 1, 2, 3))
+    def _prepare(stacks: torch.Tensor) -> torch.Tensor:
+        """(B, T, H, W, 3) uint8 stacks on the device -> the network's
+        (B, 3, T, 112, 112) input."""
+        return kinetics_preprocess(stacks).permute(0, 4, 1, 2, 3)
+
+    def _features(self, model, stacks: np.ndarray):
+        """(B, T, H, W, 3) host stacks -> (features, logits) on the model's
+        device: placed whole, or on a mesh split over the data rows, each
+        row preprocessing its own, and gathered (``Replicas.run``)."""
+        stacks = self._maybe_widen(stacks)
+        if isinstance(model, Replicas):
+            return model.run(stacks, prepare=self._prepare)
+        return model(self._prepare(place_batch(stacks, device_of(model))))
 
     def _maybe_widen(self, stacks: np.ndarray) -> np.ndarray:
         """``--uint8_transfer off``: the stacks cast to fp32 on the host, for
@@ -141,13 +166,12 @@ class ExtractR21D(BaseExtractor):
     # and D2H enqueued at dispatch
     def dispatch_prepared(self, model: R2Plus1D, payload):
         clip, slices, fps, timestamps_ms, path = payload
-        device = device_of(model)
         outs = []
         with torch.inference_mode():
             for g0 in range(0, len(slices), self.batch_size):
                 chunk = slices[g0 : g0 + self.batch_size]
                 stacks = stack_group([clip[s:e] for s, e in chunk], pad_to=self.batch_size)
-                f, logits = self._features(model, place_batch(self._maybe_widen(stacks), device))
+                f, logits = self._features(model, stacks)
                 # the 400-class logits cross only for --show_pred
                 outs.append((chunk, HostCopy(f[: len(chunk)]),
                              HostCopy(logits[: len(chunk)]) if self.config.show_pred else None))
@@ -192,9 +216,8 @@ class ExtractR21D(BaseExtractor):
 
     def dispatch_group(self, model: R2Plus1D, payloads):
         group = max(int(self.config.video_batch or 1), 1)
-        rows = [self._maybe_widen(np.stack([clip[s:e] for s, e in slices]))
-                for clip, slices, *_ in payloads]
-        outs = self._dispatch_rows_grouped(rows, self.batch_size * group, device_of(model),
+        rows = [np.stack([clip[s:e] for s, e in slices]) for clip, slices, *_ in payloads]
+        outs = self._dispatch_rows_grouped(rows, self.batch_size * group,
                                            lambda x: self._features(model, x)[0])
         return outs, [len(p[1]) for p in payloads], [(p[2], p[3]) for p in payloads]
 

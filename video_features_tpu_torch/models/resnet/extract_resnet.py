@@ -30,6 +30,13 @@ decoded batch by batch at dispatch, so it is never held whole.
 model.py``), its weights cast after loading with ``fc`` kept fp32; the
 device preprocess returns bf16.
 
+``--sharding mesh``: data parallelism. The network is replicated on the
+mesh's data rows (``parallel/sharding.py::replicate``), each frame batch
+(and each fused chunk) splits over the rows (``split_rows``), and the
+rows' features gather onto the first device before the copy to the host.
+``--preprocess device`` stays refused on a mesh (``config.py``), as in
+the JAX package.
+
 Output: ``{resnetXX: (T, 512 * expansion), fps, timestamps_ms}``, 2048-d
 for resnet50 and deeper, fp32.
 """
@@ -67,6 +74,7 @@ from video_features_tpu_torch.ops.preprocess import (
 )
 from video_features_tpu_torch.ops.resize import fused_resize_crop_banded
 from video_features_tpu_torch.ops.window import pad_batch, pad_hw, spatial_bucket
+from video_features_tpu_torch.parallel.sharding import Replicas, is_mesh, replicate
 from video_features_tpu_torch.utils.labels import show_predictions_on_dataset
 
 
@@ -77,7 +85,15 @@ class ExtractResNet(BaseExtractor):
         self.dtype = compute_dtype(self.config)
         self._native_decided()  # an unavailable --host_preprocess native fails here
 
-    def _build(self, device: torch.device) -> ResNet:
+    # --sharding mesh: pure data parallelism, the weights replicated and
+    # the frame batch split over 'data' (parallel/scheduler.py reads this)
+    mesh_capable = True
+
+    def _build(self, device):
+        """The network on ``device``; on a mesh, one copy a distinct device
+        of its data rows (``sharding.replicate``)."""
+        if is_mesh(device):
+            return replicate(self._build, device)
         model = ResNet(self.feature_type)
         if self.config.weights_path:
             sd = convert_state_dict(load_state_dict(self.config.weights_path), self.feature_type)
@@ -174,10 +190,17 @@ class ExtractResNet(BaseExtractor):
                                          out_dtype=self.dtype)
         return model(x)
 
+    def _run(self, model, x: np.ndarray, taps):
+        """One host batch -> (features, logits) on the model's device; on a
+        mesh split over the data rows and gathered (``Replicas.run``)."""
+        if isinstance(model, Replicas):
+            return model.run(x)
+        return self._forward(model, place_batch(x, device_of(model)), taps)
+
     def _dispatch_batch(self, model: ResNet, x: np.ndarray, n: int, taps):
         """Enqueue one batch: its first ``n`` feature rows (and logits, for
         ``--show_pred``) on their way to the host."""
-        f, logits = self._forward(model, place_batch(x, device_of(model)), taps)
+        f, logits = self._run(model, x, taps)
         # the 1000-class logits cross only for --show_pred
         return HostCopy(f[:n]), HostCopy(logits[:n]) if self.config.show_pred else None
 
@@ -268,7 +291,7 @@ class ExtractResNet(BaseExtractor):
             rows.extend(x[:n] for x, n in zip(batches, counts))
             totals.append(sum(counts))
         chunk = self.batch_size * group
-        forward = lambda x: model(x)[0]  # noqa: E731
+        forward = lambda x: self._run(model, x, None)[0]  # noqa: E731
         if payloads[0][4] is not None:  # --preprocess device: each row its video's taps
             video_taps = stack_taps([self._device_taps(p[4], device) for p in payloads])
             row_ids = np.repeat(np.arange(len(payloads)), totals)
@@ -278,9 +301,9 @@ class ExtractResNet(BaseExtractor):
             def forward(x):
                 ids = place_batch(next(chunk_ids), device)
                 taps = tuple((wt[ids], idx[ids]) for wt, idx in video_taps)
-                return self._forward(model, x, taps)[0]
+                return self._forward(model, place_batch(x, device), taps)[0]
 
-        outs = self._dispatch_rows_grouped(rows, chunk, device, forward)
+        outs = self._dispatch_rows_grouped(rows, chunk, forward)
         return outs, totals, [(p[2], p[3]) for p in payloads]
 
     def fetch_group(self, handle):

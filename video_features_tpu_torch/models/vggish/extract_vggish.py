@@ -10,6 +10,12 @@ with no fps or timestamp keys; a clip shorter than 0.96 s gives (0, 128).
 The raw embeddings, as both reference extractors emit them: the PCA
 postprocess (``model.postprocess``) is for library users. With
 ``--video_batch N`` the example batches of N clips run as one forward.
+
+``--sharding mesh``: data parallelism over the 0.96 s example batch. The
+VGG is replicated on the mesh's data rows (``parallel/sharding.py::
+replicate``), each batch (and each fused group) splits over the rows
+(``split_rows``; a row left without examples sits out), and the rows'
+embeddings gather onto the first device before the copy to the host.
 """
 
 from __future__ import annotations
@@ -32,12 +38,20 @@ from video_features_tpu_torch.models.vggish.convert import convert_state_dict
 from video_features_tpu_torch.models.vggish.mel import SAMPLE_RATE, waveform_to_examples
 from video_features_tpu_torch.models.vggish.model import VGGISH_EMBEDDING_DIM, VGGish, init_weights
 from video_features_tpu_torch.ops.window import bucket_size, pad_batch
+from video_features_tpu_torch.parallel.sharding import Replicas, is_mesh, replicate
 
 
 class ExtractVGGish(BaseExtractor):
     media_need = "audio"  # the preflight probe checks a wav's header, or opens a video's
+    # --sharding mesh: pure data parallelism over the example batch, the
+    # weights replicated (parallel/scheduler.py reads this)
+    mesh_capable = True
 
-    def _build(self, device: torch.device) -> VGGish:
+    def _build(self, device):
+        """The VGG on ``device``; on a mesh, one copy a distinct device of
+        its data rows (``sharding.replicate``)."""
+        if is_mesh(device):
+            return replicate(self._build, device)
         model = VGGish()
         if self.config.weights_path:
             load_checked(model, convert_state_dict(load_state_dict(self.config.weights_path)),
@@ -59,6 +73,14 @@ class ExtractVGGish(BaseExtractor):
             return None, 0
         return pad_batch(examples[:, None], bucket_size(n, buckets=self.config.shape_buckets)), n
 
+    @staticmethod
+    def _embed(model, x: np.ndarray) -> torch.Tensor:
+        """Host examples -> embeddings on the model's device: placed whole,
+        or on a mesh split over the data rows and gathered."""
+        if isinstance(model, Replicas):
+            return model.run(x)
+        return model(place_batch(x, device_of(model)))
+
     # --- the device half, split (extract/base.py): H2D, forward and D2H
     # enqueued at dispatch, waited for at fetch
     def dispatch_prepared(self, model: VGGish, payload):
@@ -66,7 +88,7 @@ class ExtractVGGish(BaseExtractor):
         if n == 0:
             return None, 0
         with torch.inference_mode():
-            return HostCopy(model(place_batch(x, device_of(model)))[:n]), n
+            return HostCopy(self._embed(model, x)[:n]), n
 
     def fetch_dispatched(self, handle) -> Dict[str, np.ndarray]:
         out, n = handle
@@ -94,7 +116,7 @@ class ExtractVGGish(BaseExtractor):
         bucket = payloads[0][0].shape[0]
         x = np.concatenate([p[0] for p in payloads], axis=0)
         with torch.inference_mode():
-            out = HostCopy(model(place_batch(x, device_of(model))))
+            out = HostCopy(self._embed(model, x))
         return out, [(i * bucket, n) for i, (_, n) in enumerate(payloads)]
 
     def fetch_group(self, handle):

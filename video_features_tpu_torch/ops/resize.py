@@ -21,18 +21,43 @@ Counterpart of ``video_features_tpu/ops/resize.py``.
   taps of one shape. ``ops/preprocess.py::device_preprocess_frames``
   accumulates them in PIL's order and replays PIL's uint8 rounding
   between the passes; the residual against PIL is its 8-bit fixed-point
-  coefficient table, about 1/255 a pixel.
+  coefficient table, about 1/255 a pixel. Each builder of taps is cached
+  per size (``_cached``), under one lock, so decode workers preparing two
+  videos of one resolution at once get the same arrays: the extractors
+  place taps once per set of host arrays (``BaseExtractor._device_taps``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from functools import lru_cache
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+_TAPS_LOCK = threading.RLock()
+
+
+def _cached(maxsize: int):
+    """``lru_cache(maxsize)`` whose calls run under one re-entrant lock:
+    without it two threads missing on one key both build, and the second
+    result replaces the first, so callers of one size hold different
+    arrays."""
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with _TAPS_LOCK:
+                return cached(*args, **kwargs)
+
+        return call
+
+    return wrap
 
 
 def resize_bilinear(x: torch.Tensor, size, align_corners: bool = False) -> torch.Tensor:
@@ -114,7 +139,7 @@ def resized_hw(
     return size, int(size * w / h)
 
 
-@lru_cache(maxsize=128)
+@_cached(maxsize=128)
 def fused_resize_crop_matrices(
     h: int,
     w: int,
@@ -204,7 +229,7 @@ def banded(matrix: np.ndarray, k: Optional[int] = None) -> Tuple[np.ndarray, np.
     return wt, idx
 
 
-@lru_cache(maxsize=128)
+@_cached(maxsize=128)
 def fused_resize_crop_banded(
     h: int,
     w: int,
@@ -249,7 +274,7 @@ def fused_resize_crop_banded(
 
 # --- shape-contracted outputs (flow + I3D device preprocess) ---------------
 
-@lru_cache(maxsize=256)
+@_cached(maxsize=256)
 def shape_contract_matrices(
     h: int,
     w: int,
@@ -312,7 +337,7 @@ def shape_contract_matrices(
     return wy, wx
 
 
-@lru_cache(maxsize=256)
+@_cached(maxsize=256)
 def shape_contract_banded(
     h: int,
     w: int,

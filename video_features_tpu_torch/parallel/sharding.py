@@ -1,5 +1,6 @@
 """Mesh mode's pieces: the (data, model) device grid, batch placement,
-the explicit collectives, and CLIP's tensor-parallel cut.
+the replicated weights and row splits of the convolutional families, the
+explicit collectives, and CLIP's tensor-parallel cut.
 
 Counterpart of ``video_features_tpu/parallel/sharding.py``. The JAX
 package hands a ``jax.sharding.Mesh`` and partition specs to GSPMD,
@@ -17,7 +18,14 @@ between cards.
 Axes, as in the JAX package:
 
 - ``data``: the frame batch of one forward splits into row blocks, one
-  per data row of the grid (``place_batch``);
+  per data row of the grid (``place_batch`` for CLIP; ``split_rows``,
+  uneven, for the families whose weights ``replicate`` copies onto each
+  row: ResNet, R(2+1)D, VGGish and the fused flow windows). The flow
+  nets and I3D split a frame axis instead (sequence parallelism):
+  ``halo_split`` gives each row its frames plus its right neighbour's
+  first, so its pairs are its own, and ``temporal_halo`` lends each of
+  I3D's time blocks the frames its temporal kernels reach across the
+  block's edges;
 - ``model``: Megatron tensor parallelism inside each transformer block
   (``clip_vit_shard_state``): the q/k/v projections and the MLP's
   ``c_fc`` split by output rows (column parallel), ``attn.out_proj`` and
@@ -27,10 +35,12 @@ Axes, as in the JAX package:
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence
+import copy
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from video_features_tpu_torch.extract import ingest
 
@@ -120,6 +130,150 @@ def place_batch(x, mesh: Mesh, spec: Optional[str] = "data") -> List[torch.Tenso
     return [ingest.place_batch(x[i * step:(i + 1) * step], d) for i, d in enumerate(rows)]
 
 
+def row_sizes(n: int, data: int, block: int = 1) -> List[int]:
+    """``n`` items over ``data`` rows in contiguous blocks: each row takes
+    ``ceil(n / data)`` rounded up to a multiple of ``block``, until the
+    items run out; the last row that gets any may be ragged, and the rows
+    after it get 0."""
+    per = -(-max(-(-n // data), 1) // block) * block
+    return [max(min(per, n - r * per), 0) for r in range(data)]
+
+
+def split_rows(x, mesh: Mesh, block: int = 1) -> Tuple[List[torch.Tensor], List[int]]:
+    """Axis 0 of one host batch in contiguous blocks, one a data row
+    (``row_sizes``: every block but the last a multiple of ``block``),
+    each placed on its row's first device (``ingest.place_batch``). A row
+    left without items sits out: it gets no tensor and so no launch.
+    Returns (the placed blocks of the rows that run, every row's size),
+    the sizes being what ``gather_rows`` checks. Counterpart of the JAX
+    package's ``pad_batch_for`` + ``place_batch``, without the zero rows:
+    a list of tensors may be uneven."""
+    sizes = row_sizes(x.shape[0], mesh.shape["data"], block)
+    return _place_rows(x, mesh, sizes, halo=0), sizes
+
+
+def halo_split(frames, mesh: Mesh, block: int = 1) -> Tuple[List[torch.Tensor], List[int]]:
+    """The flow nets' neighbour exchange: the ``T - 1`` consecutive pairs
+    of ``T`` host frames in ``row_sizes`` blocks, and data row ``r`` gets
+    the frames of its block plus the first frame of the next block, so
+    the pairs it forms are exactly the global pairs of its block (the last
+    row's block ends at the last frame: no extra). Each part is placed on
+    its row's first device; a row without pairs sits out. Returns (parts,
+    every row's pair count).
+
+    Counterpart of the JAX package's sharded frame axis, where the
+    models' consecutive-pair views become GSPMD halo exchanges
+    (``models/common/flow_extract.py``). Here the one frame is exchanged
+    at the input, so the models run unchanged on each row; the cost is
+    that each row boundary encodes its frame twice (once on each side).
+    Moving the exchange to the feature maps would save that."""
+    sizes = row_sizes(frames.shape[0] - 1, mesh.shape["data"], block)
+    return _place_rows(frames, mesh, sizes, halo=1), sizes
+
+
+def _place_rows(x, mesh: Mesh, sizes: Sequence[int], halo: int) -> List[torch.Tensor]:
+    """Row ``r``'s block of ``sizes[r]`` entries of ``x`` and the next
+    ``halo`` after it, on the row's first device; rows of size 0 get none."""
+    parts, off = [], 0
+    for size, dev in zip(sizes, mesh.axis_devices("data")):
+        if size:
+            parts.append(ingest.place_batch(x[off:off + size + halo], dev))
+        off += size
+    return parts
+
+
+def _edge(parts: Sequence[torch.Tensor], count: int, dim: int, last: bool,
+          device: torch.device) -> List[torch.Tensor]:
+    """The first (``last=False``) or last ``count`` entries along ``dim``
+    of the concatenation of ``parts`` (which may run over several parts),
+    each piece copied to ``device``, in order."""
+    pieces, need = [], count
+    for p in (reversed(parts) if last else parts):
+        if need <= 0:
+            break
+        take = min(need, p.shape[dim])
+        if take:
+            piece = p.narrow(dim, p.shape[dim] - take, take) if last else p.narrow(dim, 0, take)
+            pieces.append(_to(piece, device))
+            need -= take
+    return pieces[::-1] if last else pieces
+
+
+def temporal_halo(parts: Sequence[torch.Tensor], lo: int, hi: int,
+                  ends: bool = True) -> List[torch.Tensor]:
+    """Sequence parallelism's halo exchange for a temporal kernel: each
+    part (a contiguous time block of an NCDHW tensor, on its device) gets
+    the last ``lo`` frames of the blocks before it prepended and the first
+    ``hi`` of the blocks after it appended (a short neighbour lends what
+    it has and its own neighbour the rest). Where the global sequence
+    ends, ``ends`` fills the missing frames with zeros, which is the
+    TF-SAME zero padding the unsharded op applies with ``F.pad``; without
+    ``ends`` nothing is added there (a valid, unpadded kernel). Counterpart
+    of the halos GSPMD inserts for the JAX package's sharded time axis."""
+    dim = 2
+    out = []
+    for i, p in enumerate(parts):
+        left = _edge(parts[:i], lo, dim, last=True, device=p.device) if lo else []
+        right = _edge(parts[i + 1:], hi, dim, last=False, device=p.device) if hi else []
+        got_lo = sum(t.shape[dim] for t in left)
+        got_hi = sum(t.shape[dim] for t in right)
+        if ends and got_lo < lo:
+            left.insert(0, p.new_zeros(p.shape[:dim] + (lo - got_lo,) + p.shape[dim + 1:]))
+        if ends and got_hi < hi:
+            right.append(p.new_zeros(p.shape[:dim] + (hi - got_hi,) + p.shape[dim + 1:]))
+        out.append(torch.cat([*left, p, *right], dim=dim) if left or right else p)
+    return out
+
+
+class Replicas(nn.Module):
+    """One module's copies over a mesh's data rows (``replicate``):
+    ``rows[r]`` is the copy on row ``r``'s device, the same object for
+    rows that share a device. Calling it runs part ``r`` of a list through
+    ``rows[r]``; the module's device (``device_of``) is the first row's."""
+
+    def __init__(self, mesh: Mesh, copies: Dict[torch.device, nn.Module]) -> None:
+        super().__init__()
+        self.mesh = mesh
+        self.copies = nn.ModuleList(copies.values())
+        self.rows = [copies[d] for d in mesh.axis_devices("data")]
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.axis_devices("data")[0]
+
+    def forward(self, parts: Sequence[torch.Tensor]) -> list:
+        """Part ``r`` through row ``r``'s copy (rows past the parts sit
+        out)."""
+        return [self.rows[r](p) for r, p in enumerate(parts)]
+
+    def run(self, x, prepare: Optional[Callable] = None):
+        """One host batch, data parallel: ``split_rows``, each part
+        through ``prepare`` (on its device) and its row's copy, then the
+        outputs (a tensor, or each tensor of a tuple) gathered onto the
+        first device (``gather_rows``)."""
+        parts, sizes = split_rows(x, self.mesh)
+        if prepare is not None:
+            parts = [prepare(p) for p in parts]
+        outs = self(parts)
+        if isinstance(outs[0], tuple):
+            return tuple(gather_rows(list(o), self.device, sizes) for o in zip(*outs))
+        return gather_rows(outs, self.device, sizes)
+
+
+def replicate(build: Callable[[torch.device], nn.Module], mesh: Mesh) -> Replicas:
+    """Data parallelism's weights: ``build`` once on the first device of
+    the mesh's data axis, and a copy of that module (its ``state_dict``,
+    dtypes and options as built) on each other distinct device of the
+    axis, so a grid of one repeated card holds one copy. Counterpart of
+    the JAX package's ``place_params`` with no specs, which replicates."""
+    distinct = list(dict.fromkeys(mesh.axis_devices("data")))
+    first = build(distinct[0])
+    copies = {distinct[0]: first}
+    for dev in distinct[1:]:
+        copies[dev] = copy.deepcopy(first).to(dev)
+    return Replicas(mesh, copies)
+
+
 def place_raw_payload(payload, mesh: Mesh, place_taps: Callable = ingest.place_taps):
     """One ``--preprocess device`` payload, the ``(frames, (wt_y, idx_y),
     (wt_x, idx_x))`` triple, onto the mesh's data rows: the uint8 frame
@@ -159,6 +313,19 @@ def all_gather(parts: Sequence[torch.Tensor], dim: int) -> List[torch.Tensor]:
 def gather(parts: Sequence[torch.Tensor], device: torch.device, dim: int = 0) -> torch.Tensor:
     """Every part onto ``device``, concatenated along ``dim``."""
     return torch.cat([_to(p, device) for p in parts], dim=dim)
+
+
+def gather_rows(parts: Sequence[torch.Tensor], device: torch.device,
+                sizes: Sequence[int]) -> torch.Tensor:
+    """The rows' outputs back onto ``device`` in row order, before the
+    copy to the host (``gather`` along axis 0): ``parts`` are those of the
+    rows that ran, which must be the rows of nonzero ``sizes``
+    (``split_rows``, ``halo_split``), each with that many rows."""
+    ran = [s for s in sizes if s]
+    if [p.shape[0] for p in parts] != ran:
+        raise ValueError(f"gather_rows: parts of {[p.shape[0] for p in parts]} rows for row "
+                         f"sizes {list(sizes)}")
+    return gather(parts, device)
 
 
 def ring_permute(parts: Sequence[torch.Tensor], devices: Sequence[torch.device]) -> List[torch.Tensor]:
