@@ -246,19 +246,38 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     the JAX package's "tensor-parallel" message; (f) (a)-(c) on distinct
     cards where there are two or four, else a line saying so. Phase 3
     holds and times K2 at those four per-shard shapes;
-23. a ``kernels`` JSON line (each kernel's launches on its main path, in
+23. ``--weights_path`` from files, without ``--allow_random_init``, for
+    CLIP-ViT-B/32 (``--attn flash``), ``resnet50``, ``r21d_rgb``,
+    ``vggish``, ``raft``, ``pwc`` and ``i3d --flow_type pwc``, each on one
+    short input (phase 4's first clip, 16 frames, a 10 s wav, 17 frames,
+    one 64-frame stack) under deterministic cuDNN: a random-init run, whose
+    seeded weights, read back from the card, are saved as a ``.pt`` in the
+    reference layout and, through ``params_to_jax`` and ``save_msgpack``,
+    as the JAX package's ``.msgpack`` (I3D: a directory of its reference
+    names, the only form either package looks up for it). Each file
+    through the CLI: the weights on the card equal to the seeded ones bit
+    for bit, the features within 1e-6 of the largest magnitude of the
+    random-init run (0 expected), K1 12 a CLIP run, K2 10 a PWC run and 5
+    an I3D run, and the ms from ``--weights_path`` to a model on the card,
+    per family and format. CLIP ``--sharding mesh`` with the card listed
+    twice from the ``.msgpack`` against the random-init mesh run. Where ``tensorstore``
+    imports, each family also from an orbax directory (written here with
+    tensorstore in orbax's layout); else an orbax directory is refused,
+    naming ``tensorstore``, and the script prints ``orbax: refused (no
+    tensorstore)``;
+24. a ``kernels`` JSON line (each kernel's launches on its main path, in
     the fused runs, in the device preprocess runs, in the telemetry runs,
-    in the bf16 phase, in the served requests, in phases 18-22, its
+    in the bf16 phase, in the served requests, in phases 18-23, its
     records at the fused shapes and at the mesh shapes, and K1's bf16
     record at the CLIP path's shape), then the ``ok`` JSON line last.
 
-Every CLI run of phases 4-14, 16-18 and 20-22 passes ``--strict``, so a video that fails
+Every CLI run of phases 4-14, 16-18 and 20-23 passes ``--strict``, so a video that fails
 in isolation fails its phase (phase 15's first run leaves it out: two of
 its files must fail). Phases 7-11 launch no hand-written kernel:
 RAFT, ResNet, R(2+1)D and VGGish reach no ``pallas_call`` in the JAX
 package, nor does the device preprocess's resample (the JAX package
 leaves it to XLA). Every launch count is read from a run that starts with
-all counts at 0, and each of phases 4-22 prints its wall time.
+all counts at 0, and each of phases 4-23 prints its wall time.
 """
 
 from __future__ import annotations
@@ -335,6 +354,12 @@ MESH_ATOL = {"data": 1e-5, "tensor": 2e-4, "context": 2e-4}
 # the host preprocess mesh at DEVICE_DRIFT
 FAMILY_MESH_RTOL = 1e-5
 I3D_MESH_ATOL = 2e-4
+# phase 23: features from the seeded weights read back from files against
+# the random-init run of the same weights under deterministic cuDNN: the
+# same tensors and algorithms, so 0 expected. One short input a family
+WEIGHTS_RTOL = 1e-6
+WEIGHTS_FLOW_FRAMES = 17  # PWC and RAFT: 16 pairs, two windows of 8
+WEIGHTS_WAV_SECONDS = 10.0
 # K2's shapes on phase 22's mesh runs, held and timed in phase 3: one
 # row's pairs of an I3D stack of 64 (256x384 grid) at data 2 and 4, and of
 # a standalone PWC window of 8 (256x320) at data 2 and 4
@@ -3783,6 +3808,38 @@ def run_parallel_path(root: str, device):
     return launches
 
 
+# phases 5-11's flags of each family but CLIP; phases 22 and 23 run on
+# their clips (``family_inputs``) and hold against their '<family>_out'
+FAMILY_FLAGS = {"resnet50": ("--batch_size", str(RESNET_BATCH)), "r21d_rgb": (),
+                "vggish": (), "pwc": ("--batch_size", str(PWC_BATCH)),
+                "raft": ("--batch_size", str(RAFT_BATCH)), "i3d": ("--flow_type", "pwc")}
+
+
+def family_inputs(root: str) -> dict:
+    """Phases 5-11's clips and wavs of each family but CLIP, made here with
+    the same seeds and sizes when a phase runs alone."""
+    from video_features_tpu_torch.utils.synth import synth_video, synth_wav
+
+    def video(name, n, seed, **size):
+        path = os.path.join(root, name)
+        return path if os.path.exists(path) else synth_video(path, n_frames=n, seed=seed, **size)
+
+    def wav(i):
+        path = os.path.join(root, f"audio{i}.wav")
+        return path if os.path.exists(path) else synth_wav(
+            path, seconds=VGGISH_SECONDS[i], sample_rate=VGGISH_RATE, channels=2, seed=i)
+
+    n_raft, w_raft, h_raft = RAFT_CLIP
+    return {
+        "resnet50": [video("resnet50.mp4", RESNET_CLIP_FRAMES, 7)],
+        "r21d_rgb": [video("r21d_rgb.mp4", R21D_CLIP_FRAMES, 7)],
+        "vggish": [wav(i) for i in range(len(VGGISH_SECONDS))],
+        "pwc": [video("pwc.mp4", PWC_CLIP_FRAMES, 5)],
+        "raft": [video("raft.mp4", n_raft, 6, width=w_raft, height=h_raft)],
+        "i3d": [video(f"i3d{i}.mp4", I3D_CLIP_FRAMES, i) for i in range(I3D_VIDEOS)],
+    }
+
+
 def run_mesh_path(root: str, device):
     """Phase 22: ``--sharding mesh`` for ResNet-50, R(2+1)D-18, VGGish,
     PWC, RAFT and I3D + PWC (module docstring). Returns each kernel's
@@ -3791,7 +3848,6 @@ def run_mesh_path(root: str, device):
     from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
     from video_features_tpu_torch.ops.flash_attention import flash_attention
     from video_features_tpu_torch.parallel.sharding import row_sizes
-    from video_features_tpu_torch.utils.synth import synth_video, synth_wav
 
     card = card_line()
     print(f"mesh: {card}; {torch.cuda.device_count()} visible CUDA device(s)")
@@ -3814,27 +3870,7 @@ def run_mesh_path(root: str, device):
 
     # each family's clips and its one-device run of phases 5-11 (the same
     # clips, seeds and flags), made here when this phase runs alone
-    def video(name, n, seed, **size):
-        path = os.path.join(root, name)
-        return path if os.path.exists(path) else synth_video(path, n_frames=n, seed=seed, **size)
-
-    def wav(i):
-        path = os.path.join(root, f"audio{i}.wav")
-        return path if os.path.exists(path) else synth_wav(
-            path, seconds=VGGISH_SECONDS[i], sample_rate=VGGISH_RATE, channels=2, seed=i)
-
-    n_raft, w_raft, h_raft = RAFT_CLIP
-    clips = {
-        "resnet50": [video("resnet50.mp4", RESNET_CLIP_FRAMES, 7)],
-        "r21d_rgb": [video("r21d_rgb.mp4", R21D_CLIP_FRAMES, 7)],
-        "vggish": [wav(i) for i in range(len(VGGISH_SECONDS))],
-        "pwc": [video("pwc.mp4", PWC_CLIP_FRAMES, 5)],
-        "raft": [video("raft.mp4", n_raft, 6, width=w_raft, height=h_raft)],
-        "i3d": [video(f"i3d{i}.mp4", I3D_CLIP_FRAMES, i) for i in range(I3D_VIDEOS)],
-    }
-    flags = {"resnet50": ("--batch_size", str(RESNET_BATCH)), "r21d_rgb": (),
-             "vggish": (), "pwc": ("--batch_size", str(PWC_BATCH)),
-             "raft": ("--batch_size", str(RAFT_BATCH)), "i3d": ("--flow_type", "pwc")}
+    clips, flags = family_inputs(root), FAMILY_FLAGS
     # R(2+1)D's phase ran one stack a forward: the mesh splits a batch of 4
     mesh_flags = dict(flags, r21d_rgb=("--batch_size", "4"))
     refs = {}
@@ -3945,6 +3981,274 @@ def run_mesh_path(root: str, device):
     return launches
 
 
+def write_orbax(tree, path: str) -> None:
+    """``tree`` (nested dicts of float32 arrays) as a directory in orbax's
+    ``StandardCheckpointer`` layout: each leaf a zarr array named by its
+    dotted keys in one ocdbt store, listed in ``_METADATA``. Written with
+    tensorstore, as a host without orbax can; only where tensorstore
+    imports."""
+    import tensorstore as ts
+
+    leaves, stack = [], [((), tree)]
+    while stack:
+        keys, node = stack.pop()
+        if isinstance(node, dict):
+            stack += [(keys + (k,), v) for k, v in node.items()]
+        else:
+            leaves.append((keys, np.ascontiguousarray(node, np.float32)))
+    os.makedirs(path)
+    ctx = ts.Context()
+    for keys, arr in leaves:
+        store = ts.open({"driver": "zarr", "kvstore": {
+            "driver": "ocdbt", "base": f"file://{os.path.abspath(path)}/", "path": ".".join(keys)},
+            "metadata": {"shape": list(arr.shape), "chunks": list(arr.shape) or [1],
+                         "dtype": "<f4", "compressor": None}},
+            create=True, context=ctx).result()
+        store.write(arr).result()
+    meta = {"tree_metadata": {str(keys): {
+        "key_metadata": [{"key": k, "key_type": 2} for k in keys],
+        "value_metadata": {"value_type": "np.ndarray", "skip_deserialize": False}}
+        for keys, _ in leaves}, "use_ocdbt": True, "use_zarr3": False}
+    with open(os.path.join(path, "_METADATA"), "w") as f:
+        json.dump(meta, f)
+
+
+@contextlib.contextmanager
+def timed_builds(cls):
+    """Record each outermost ``cls._build(device)`` while the block runs:
+    (ms from the call to a model on the device, the built state). A mesh
+    build calls ``_build`` again for its first device; that inner call is
+    part of the outer one."""
+    built, depth = [], [0]
+    original = cls._build
+
+    def build(self, device):
+        depth[0] += 1
+        t0 = time.perf_counter()
+        try:
+            state = original(self, device)
+        finally:
+            depth[0] -= 1
+        if depth[0] == 0:
+            torch.cuda.synchronize()
+            built.append(((time.perf_counter() - t0) * 1e3, state))
+        return state
+
+    with mock.patch.object(cls, "_build", build):
+        yield built
+
+
+def state_mismatches(state, seeded) -> list:
+    """The names whose tensors in a built model (or I3D's dict of models)
+    differ from the seeded state dict, bit for bit."""
+    if isinstance(state, dict):
+        return [f"{kind}:{n}" for kind, model in state.items()
+                for n in state_mismatches(model, seeded[kind])]
+    got = state.state_dict()
+    return [k for k, v in seeded.items() if not k.endswith("num_batches_tracked")
+            and not torch.equal(got[k].detach().cpu(), v)]
+
+
+def run_weights_path(root: str, device):
+    """Phase 23: ``--weights_path`` from files in every format (module
+    docstring). Returns each kernel's launches in the phase."""
+    from video_features_tpu_torch import cli
+    from video_features_tpu_torch.config import parse_args
+    from video_features_tpu_torch.convert_weights import converters
+    from video_features_tpu_torch.extract.registry import build_extractor
+    from video_features_tpu_torch.models.common.flax_msgpack import save_msgpack
+    from video_features_tpu_torch.models.i3d.extract_i3d import WEIGHT_FILES
+    from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
+    from video_features_tpu_torch.ops.flash_attention import flash_attention
+    from video_features_tpu_torch.utils.synth import synth_video, synth_wav
+
+    card = card_line()
+    print(f"weights: {card}")
+    try:
+        import tensorstore  # noqa: F401 - only whether it imports
+        orbax = True
+    except ImportError:
+        orbax = False
+    launches = {"flash_attention": 0, "local_correlation": 0}
+    idx = str(device.index or 0)
+    tmp, wdir = os.path.join(root, "tmp"), os.path.join(root, "weights")
+    os.makedirs(wdir, exist_ok=True)
+
+    def video(name, n, seed, **size):
+        path = os.path.join(root, name)
+        return [path if os.path.exists(path) else synth_video(path, n_frames=n, seed=seed, **size)]
+
+    wav = os.path.join(root, "weights.wav")
+    if not os.path.exists(wav):
+        synth_wav(wav, seconds=WEIGHTS_WAV_SECONDS, sample_rate=VGGISH_RATE, channels=2, seed=0)
+    _, w_raft, h_raft = RAFT_CLIP
+    pairs, windows = WEIGHTS_FLOW_FRAMES - 1, -(-(WEIGHTS_FLOW_FRAMES - 1) // PWC_BATCH)
+    # family: (CLI flags, its input, K1 and K2 a run)
+    families = {
+        "CLIP-ViT-B/32": (("--extract_method", f"uni_{FRAMES}", "--attn", "flash"),
+                          video("clip0.mp4", 60, 0), LAYERS, 0),
+        "resnet50": (FAMILY_FLAGS["resnet50"], video("weights_resnet50.mp4", RESNET_BATCH, 7),
+                     0, 0),
+        "r21d_rgb": ((), video("weights_r21d_rgb.mp4", 16, 7), 0, 0),
+        "vggish": ((), [wav], 0, 0),
+        "pwc": (FAMILY_FLAGS["pwc"], video("weights_pwc.mp4", WEIGHTS_FLOW_FRAMES, 5), 0,
+                len(CORR_LEVELS) * windows),
+        "raft": (FAMILY_FLAGS["raft"], video("weights_raft.mp4", WEIGHTS_FLOW_FRAMES, 6,
+                                             width=w_raft, height=h_raft), 0, 0),
+        "i3d": (FAMILY_FLAGS["i3d"], video("i3d65.mp4", STACK + 1, 9), 0, len(CORR_LEVELS)),
+    }
+    print(f"weights: one input a family (PWC and RAFT {pairs} pairs, I3D one stack of {STACK}, "
+          f"VGGish {WEIGHTS_WAV_SECONDS:g} s); cuDNN deterministic for the phase")
+
+    def run(out, ft, flags, paths, *extra):
+        reset_counts()
+        cli.main(["--feature_type", ft, *flags, "--on_extraction", "save_numpy", "--strict",
+                  "--output_path", os.path.join(root, out), "--tmp_path", tmp, *extra,
+                  "--video_paths", *paths])
+        torch.cuda.synchronize()
+        k1, k2 = flash_attention.launches, local_correlation_kernel.launches
+        launches["flash_attention"] += k1
+        launches["local_correlation"] += k2
+        return read_features(os.path.join(root, out)), k1, k2
+
+    def held(got, want, label):
+        """The largest difference over the largest magnitude, file by file."""
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"weights {label}: files {sorted(got)}, want {sorted(want)}")
+        errs = []
+        for name, feats in got.items():
+            if feats.shape != want[name].shape or not np.isfinite(feats).all():
+                raise AssertionError(f"weights {label}: {name} {feats.shape}, want "
+                                     f"{want[name].shape}, finite {np.isfinite(feats).all()}")
+            errs.append(float(np.abs(feats - want[name]).max() / np.abs(want[name]).max()))
+        return max(errs)
+
+    def host_state(state):
+        if isinstance(state, dict):
+            return {kind: host_state(m) for kind, m in state.items()}
+        return {k: v.detach().cpu().clone() for k, v in state.state_dict().items()}
+
+    t_phase = time.perf_counter()
+    table = []
+    deterministic = torch.backends.cudnn.deterministic
+    # PWC's transpose convolutions take a non-deterministic cuDNN algorithm:
+    # two runs of one set of weights differed by 4.862e-07 of PWC's largest
+    # flow, and 4.036e-05 of I3D's largest feature after the flow's uint8
+    # levels; with deterministic algorithms two runs agree bit for bit
+    torch.backends.cudnn.deterministic = True
+    try:
+        for ft, (flags, paths, k1_want, k2_want) in families.items():
+            tag = ft.replace("/", "-")
+            ex = build_extractor(parse_args(["--feature_type", ft, *flags, "--video_paths",
+                                             *paths]))
+            # the random-init run, and its seeded weights as they reached the card
+            with timed_builds(type(ex)) as built:
+                ref, k1, k2 = run(f"weights_{tag}_random", ft, flags, paths,
+                                  "--allow_random_init")
+            (init_ms, state), = built
+            if k1 != k1_want or k2 != k2_want:
+                raise AssertionError(f"weights {ft} random init: K1 {k1}, K2 {k2}")
+            seeded = host_state(state)
+            del state, built
+
+            t0 = time.perf_counter()
+            files = {}
+            if ft == "i3d":  # the reference names under one directory, as the JAX package's
+                files["pt"] = os.path.join(wdir, "i3d_pt")
+                os.makedirs(files["pt"], exist_ok=True)
+                for kind, sd in seeded.items():
+                    torch.save(sd, os.path.join(files["pt"], WEIGHT_FILES[kind]))
+                if orbax:
+                    files["orbax"] = os.path.join(wdir, "i3d_orbax")
+                    os.makedirs(files["orbax"], exist_ok=True)
+                    for kind, sd in seeded.items():
+                        write_orbax(converters("pwc" if kind == "pwc" else "i3d")[2](sd),
+                                    os.path.join(files["orbax"], WEIGHT_FILES[kind]))
+            else:
+                to_jax = converters(ft)[2]
+                files["pt"] = os.path.join(wdir, f"{tag}.pt")
+                torch.save({f"visual.{k}": v for k, v in seeded.items()} if ft.startswith("CLIP")
+                           else seeded, files["pt"])
+                files["msgpack"] = os.path.join(wdir, f"{tag}.msgpack")
+                save_msgpack(to_jax(seeded), files["msgpack"])
+                if orbax:
+                    files["orbax"] = os.path.join(wdir, f"{tag}_orbax")
+                    write_orbax(to_jax(seeded), files["orbax"])
+            write_s = time.perf_counter() - t0
+
+            row = {"family": ft, "random init": init_ms}
+            for fmt, path in files.items():
+                with timed_builds(type(ex)) as built:
+                    got, k1, k2 = run(f"weights_{tag}_{fmt}", ft, flags, paths,
+                                      "--weights_path", path)
+                (load_ms, state), = built
+                bad = state_mismatches(state, seeded)
+                del state, built
+                err = held(got, ref, f"{ft} from {fmt}")
+                print(f"weights {ft} from {fmt} ({path.replace(root, '<root>')}): {len(got)} "
+                      f"file(s) {[f.shape for f in got.values()]} against the random-init run "
+                      f"{err:.3e} of the largest (tol {WEIGHTS_RTOL:g}); weights on the card "
+                      f"{'equal to' if not bad else 'DIFFERENT from'} the seeded ones bit for "
+                      f"bit; load {load_ms:.1f} ms; K1 {k1} (want {k1_want}), K2 {k2} "
+                      f"(want {k2_want})")
+                if bad or not err <= WEIGHTS_RTOL or k1 != k1_want or k2 != k2_want:
+                    raise AssertionError(f"weights {ft} from {fmt}: err {err}, K1 {k1}, K2 {k2},"
+                                         f" differing tensors {bad[:5]}")
+                row[fmt] = load_ms
+            if ft == "i3d":
+                print("weights i3d from msgpack: not a route, in either package: I3D looks up "
+                      "only its reference file names under --weights_path")
+            table.append((row, write_s))
+
+        # CLIP's mesh, the card listed twice: from .msgpack against the
+        # random-init mesh run (one batch split, so the same kernels)
+        flags, paths = families["CLIP-ViT-B/32"][:2]
+        mesh = ("--sharding", "mesh", "--device_ids", idx, idx)
+        ref, k1, _ = run("weights_mesh_random", "CLIP-ViT-B/32", flags, paths,
+                         "--allow_random_init", *mesh)
+        for fmt in ("msgpack", "orbax") if orbax else ("msgpack",):
+            path = os.path.join(wdir, "CLIP-ViT-B-32" + (".msgpack" if fmt == "msgpack"
+                                                         else "_orbax"))
+            got, k1, k2 = run(f"weights_mesh_{fmt}", "CLIP-ViT-B/32", flags, paths,
+                              "--weights_path", path, *mesh)
+            err = held(got, ref, f"CLIP mesh from {fmt}")
+            print(f"weights CLIP-ViT-B/32 --sharding mesh --device_ids {idx} {idx} from {fmt}: "
+                  f"against the random-init mesh run {err:.3e} of the largest (tol "
+                  f"{WEIGHTS_RTOL:g}); K1 {k1} (want {LAYERS * 2}), K2 {k2}")
+            if not err <= WEIGHTS_RTOL or k1 != LAYERS * 2 or k2:
+                raise AssertionError(f"weights CLIP mesh from {fmt}: err {err}, K1 {k1}, K2 {k2}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    if not orbax:  # the refusal, through the extractor's build, naming the package
+        fake = os.path.join(wdir, "orbax_probe")
+        os.makedirs(fake, exist_ok=True)
+        with open(os.path.join(fake, "_METADATA"), "w") as f:
+            json.dump({"tree_metadata": {}}, f)
+        flags, paths = families["resnet50"][:2]
+        ex = build_extractor(parse_args(["--feature_type", "resnet50", *flags, "--weights_path",
+                                         fake, "--video_paths", *paths]))
+        try:
+            ex._build(device)
+        except RuntimeError as exc:
+            refusal = str(exc)
+        else:
+            raise AssertionError("an orbax directory without tensorstore was not refused")
+        if "tensorstore" not in refusal or fake not in refusal:
+            raise AssertionError(f"the orbax refusal names neither package nor path: {refusal}")
+        print(f"orbax: refused (no tensorstore): {refusal}")
+    print(f"weights, ms from --weights_path to a model on the card (random init beside it) "
+          f"[{card}]:")
+    absent = {"msgpack": "not a route", "orbax": "refused (no tensorstore)"}
+    for row, write_s in table:
+        cells = ", ".join(f"{fmt} {row[fmt]:.1f}" if fmt in row else f"{fmt} {absent[fmt]}"
+                          for fmt in ("pt", "msgpack", "orbax"))
+        print(f"  {row['family']}: {cells}; random init {row['random init']:.1f} (files "
+              f"written in {write_s:.1f} s)")
+    print(f"weights: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _preempt_events(out: str) -> list:
     """The daemon manifests' (event, feature type, beneficiary) rows of
     preemption, rollback and re-warm, in order."""
@@ -4003,6 +4307,7 @@ def main() -> int:
             ("native host path", lambda: run_native_path(root, device)),
             ("parallel", lambda: run_parallel_path(root, device)),
             ("mesh", lambda: run_mesh_path(root, device)),
+            ("converted weights", lambda: run_weights_path(root, device)),
         ]
         results = {}
         for name, phase in phases:
@@ -4013,7 +4318,7 @@ def main() -> int:
         # later phase that drives it
         later_names = ("async ingest", "device preprocess", "telemetry and preflight",
                        "bfloat16", "serve", "disk flow and output flags", "preemption",
-                       "native host path", "parallel", "mesh")
+                       "native host path", "parallel", "mesh", "converted weights")
         later = [results[n] for n in later_names]
         k1_launches = results["CLIP"] + sum(r["flash_attention"] for r in later)
         k2_launches = results["I3D + PWC"] + sum(r["local_correlation"] for r in later)

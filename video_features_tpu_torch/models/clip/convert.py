@@ -10,7 +10,12 @@ module uses OpenAI's ``visual.*`` names, so:
   state dict; split q/k/v projections are fused into ``in_proj``.
 - ``params_from_jax``: the JAX package's Flax param tree (numpy leaves),
   the inverse of its ``from_openai``. It carries one set of weights into
-  both packages for the parity tests.
+  both packages for the parity tests, and loads a converted ``.msgpack``
+  or orbax checkpoint;
+- ``params_to_jax``: the port's state dict -> that Flax tree, what the
+  JAX package's ``convert_state_dict`` gives for the same OpenAI
+  checkpoint. Layout only: Linear weights transpose to Dense kernels, the
+  conv weight to HWIO, and ``in_proj`` splits into q/k/v.
 """
 
 from __future__ import annotations
@@ -20,7 +25,12 @@ from typing import Dict
 import numpy as np
 import torch
 
-from video_features_tpu_torch.models.common.weights import check_all_consumed
+from video_features_tpu_torch.models.common.weights import (
+    check_all_consumed,
+    conv_kernel,
+    linear_kernel,
+    to_numpy,
+)
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -133,3 +143,42 @@ def params_from_jax(params) -> StateDict:
             out[f"{p}.{ln}.weight"] = _f32(blk[ln]["scale"])
             out[f"{p}.{ln}.bias"] = _f32(blk[ln]["bias"])
     return _tensors(out)
+
+
+def params_to_jax(sd: StateDict) -> Dict:
+    """The port's CLIP state dict -> the JAX package's param tree, key for
+    key and bit for bit what its ``from_openai`` makes of the same
+    weights under ``visual.*``."""
+    v = {k: to_numpy(t) for k, t in sd.items()}
+
+    def ln(name):
+        return {"scale": v[f"{name}.weight"], "bias": v[f"{name}.bias"]}
+
+    def dense(w, b):
+        return {"kernel": linear_kernel(w), "bias": b}
+
+    params = {
+        "class_embedding": v["class_embedding"],
+        "positional_embedding": v["positional_embedding"],
+        "proj": v["proj"],
+        "conv1": {"kernel": conv_kernel(v["conv1.weight"])},
+        "ln_pre": ln("ln_pre"),
+        "ln_post": ln("ln_post"),
+    }
+    layers = sum(1 for k in v if k.endswith(".attn.in_proj_weight"))
+    for i in range(layers):
+        p = f"transformer.resblocks.{i}"
+        in_w, in_b = v[f"{p}.attn.in_proj_weight"], v[f"{p}.attn.in_proj_bias"]
+        d = in_w.shape[1]
+        params[f"resblock_{i}"] = {
+            "ln_1": ln(f"{p}.ln_1"),
+            "ln_2": ln(f"{p}.ln_2"),
+            "attn": {
+                **{name: dense(in_w[j * d:(j + 1) * d], in_b[j * d:(j + 1) * d])
+                   for j, name in enumerate(("q_proj", "k_proj", "v_proj"))},
+                "out_proj": dense(v[f"{p}.attn.out_proj.weight"], v[f"{p}.attn.out_proj.bias"]),
+            },
+            "c_fc": dense(v[f"{p}.mlp.c_fc.weight"], v[f"{p}.mlp.c_fc.bias"]),
+            "c_proj": dense(v[f"{p}.mlp.c_proj.weight"], v[f"{p}.mlp.c_proj.bias"]),
+        }
+    return params

@@ -44,6 +44,7 @@ and the patch tokens shard inside attention (ring attention).
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import numpy as np
@@ -60,7 +61,7 @@ from video_features_tpu_torch.extract.ingest import (
 )
 from video_features_tpu_torch.io.paths import video_path_of
 from video_features_tpu_torch.io.video import extract_frames
-from video_features_tpu_torch.models.clip.convert import convert_state_dict
+from video_features_tpu_torch.models.clip.convert import convert_state_dict, params_from_jax
 from video_features_tpu_torch.models.clip.model import (
     CONFIGS,
     FP32_PARAMS,
@@ -71,7 +72,7 @@ from video_features_tpu_torch.models.clip.model import (
 from video_features_tpu_torch.models.common.weights import (
     cast_for_compute,
     compute_dtype,
-    load_state_dict,
+    load_params,
     random_init_fallback,
 )
 from video_features_tpu_torch.ops.attention import attention, blockwise_attention
@@ -119,14 +120,15 @@ class ExtractCLIP(BaseExtractor):
                                             context=self.config.mesh_context)
         model = VisionTransformer(self.model_cfg, core=CORES[self.config.attn])
         if self.config.weights_path:
-            sd = convert_state_dict(
-                load_state_dict(self.config.weights_path), self.model_cfg.layers
-            )
-            model.load_state_dict(sd)
+            model.load_state_dict(load_params(
+                self.config.weights_path,
+                functools.partial(convert_state_dict, layers=self.model_cfg.layers),
+                params_from_jax))
         else:
             random_init_fallback(
                 self.config, self.feature_type,
-                "an OpenAI CLIP / HF CLIP-vision state dict (.pt/.npz)",
+                "an OpenAI CLIP / HF CLIP-vision state dict (.pt/.npz), or its converted "
+                ".msgpack / orbax directory",
             )
             init_weights(model, seed=0)
         return cast_for_compute(model.to(device).eval(), self.dtype, exclude=FP32_PARAMS)

@@ -84,7 +84,7 @@ from video_features_tpu_torch.models.common.weights import (
     cast_for_compute,
     compute_dtype,
     load_checked,
-    load_state_dict,
+    load_params,
     random_init_fallback,
 )
 from video_features_tpu_torch.ops.preprocess import device_resize_frames, pil_resize
@@ -113,8 +113,9 @@ class NullPadder:
 class PairwiseFlowExtractor(BaseExtractor):
     """Subclasses set ``checkpoint`` (what ``--weights_path`` should
     hold) and ``_fp32_params`` (the parameters a bf16 model keeps fp32),
-    implement ``_model()`` (the module), ``_convert_state_dict(sd)`` and
-    ``_init_weights(model)``, and optionally ``_make_padder(shape)``."""
+    implement ``_model()`` (the module), ``_convert_state_dict(sd)``,
+    ``_params_from_jax(params)`` and ``_init_weights(model)``, and
+    optionally ``_make_padder(shape)``."""
 
     checkpoint = ""
     _fp32_params: tuple = ()
@@ -134,6 +135,10 @@ class PairwiseFlowExtractor(BaseExtractor):
         raise NotImplementedError
 
     @staticmethod
+    def _params_from_jax(params):
+        raise NotImplementedError
+
+    @staticmethod
     def _init_weights(model):
         raise NotImplementedError
 
@@ -147,7 +152,8 @@ class PairwiseFlowExtractor(BaseExtractor):
             return replicate(self._build, device)
         model = self._model()
         if self.config.weights_path:
-            sd = self._convert_state_dict(load_state_dict(self.config.weights_path))
+            sd = load_params(self.config.weights_path, self._convert_state_dict,
+                             self._params_from_jax)
             load_checked(model, sd, self.feature_type)
         else:
             random_init_fallback(self.config, self.feature_type, self.checkpoint)

@@ -9,7 +9,10 @@ module names are the reference's, so:
 - ``params_from_jax``: the JAX package's Flax param tree (numpy leaves),
   the inverse of its ``convert_state_dict``: conv kernels (kT, kH, kW, I,
   O) -> (O, I, kT, kH, kW), ``batch3d`` scale/bias/mean/var -> BatchNorm
-  weight/bias/running_mean/running_var.
+  weight/bias/running_mean/running_var;
+- ``params_to_jax``: the port's state dict -> that Flax tree, what the
+  JAX package's ``convert_state_dict`` gives for the same reference
+  checkpoint (layout only).
 """
 
 from __future__ import annotations
@@ -19,7 +22,12 @@ from typing import Dict
 import numpy as np
 import torch
 
-from video_features_tpu_torch.models.common.weights import check_all_consumed
+from video_features_tpu_torch.models.common.weights import (
+    bn_to_jax,
+    check_all_consumed,
+    conv_kernel,
+    to_numpy,
+)
 from video_features_tpu_torch.models.i3d.model import I3D
 
 StateDict = Dict[str, torch.Tensor]
@@ -79,3 +87,23 @@ def params_from_jax(params) -> StateDict:
             unit(f"{mixed}.{torch_name}", params[mixed][flax_name])
     unit("conv3d_0c_1x1", params["conv3d_0c_1x1"])
     return convert_state_dict(out)
+
+
+def params_to_jax(sd: StateDict) -> Dict:
+    """The port's I3D state dict (rgb or flow) -> the JAX package's param
+    tree."""
+    def unit(prefix, bias=False):
+        conv = {"kernel": conv_kernel(to_numpy(sd[f"{prefix}.conv3d.weight"]))}
+        if bias:
+            conv["bias"] = to_numpy(sd[f"{prefix}.conv3d.bias"])
+        out = {"conv3d": conv}
+        if f"{prefix}.batch3d.weight" in sd:
+            out["batch3d"] = bn_to_jax(sd, f"{prefix}.batch3d")
+        return out
+
+    params = {name: unit(name) for name in _STEM}
+    for mixed in _MIXED:
+        params[mixed] = {flax_name: unit(f"{mixed}.{torch_name}")
+                         for flax_name, torch_name in _BRANCHES.items()}
+    params["conv3d_0c_1x1"] = unit("conv3d_0c_1x1", bias=True)
+    return params

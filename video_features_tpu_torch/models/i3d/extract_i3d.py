@@ -23,8 +23,10 @@ time, the last group zero-padded to that size and its surplus rows cut:
   starts at column 60 of the padded flow, column 59 of the image.
 
 Weights: ``--weights_path`` is a directory holding any of ``i3d_rgb.pt``,
-``i3d_flow.pt``, ``raft-sintel.pth`` and ``pwc_net_sintel.pt``; a missing
-file is an error unless ``--allow_random_init``. Output: ``{rgb: (S,
+``i3d_flow.pt``, ``raft-sintel.pth`` and ``pwc_net_sintel.pt`` (each a
+reference state dict or, as in the JAX package, an orbax checkpoint
+directory under that name); a missing file is an error unless
+``--allow_random_init``. Output: ``{rgb: (S,
 1024), flow: (S, 1024), fps, timestamps_ms}``, saved as
 ``<stem>_rgb.npy`` and ``<stem>_flow.npy``. With ``--video_batch N`` the
 stacks of N same-resolution clips fill the ``--batch_size`` stack groups.
@@ -108,7 +110,7 @@ from video_features_tpu_torch.models.common.weights import (
     cast_for_compute,
     compute_dtype,
     load_checked,
-    load_state_dict,
+    load_params,
     random_init_fallback,
 )
 from video_features_tpu_torch.models.i3d import convert as i3d_convert
@@ -276,11 +278,11 @@ class ExtractI3D(BaseExtractor):
     def _model(self, kind: str) -> torch.nn.Module:
         """The stream's I3D or the flow net, with weights or seeded init."""
         if kind == "pwc":
-            model, convert, init = PWCNet(), pwc_convert.convert_state_dict, pwc_init
+            model, convert, init = PWCNet(), pwc_convert, pwc_init
         elif kind == "raft":
-            model, convert, init = RAFT(), raft_convert.convert_state_dict, raft_init
+            model, convert, init = RAFT(), raft_convert, raft_init
         else:
-            model, convert, init = I3D(IN_CHANNELS[kind]), i3d_convert.convert_state_dict, i3d_init
+            model, convert, init = I3D(IN_CHANNELS[kind]), i3d_convert, i3d_init
         path = self._weights_file(kind)
         if path is None:
             root = self.config.weights_path
@@ -289,7 +291,10 @@ class ExtractI3D(BaseExtractor):
             random_init_fallback(self.config, f"i3d[{kind}]", expected)
             init(model)
         else:
-            load_checked(model, convert(load_state_dict(path)), f"i3d[{kind}]")
+            # the JAX package's lookup: a file under its reference name, which
+            # may be an orbax directory (a .msgpack is not looked for)
+            load_checked(model, load_params(path, convert.convert_state_dict,
+                                            convert.params_from_jax), f"i3d[{kind}]")
         return set_conv3d_impl(model, self.conv_impl)
 
     def _build(self, device) -> Dict[str, torch.nn.Module]:

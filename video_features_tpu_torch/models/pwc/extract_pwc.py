@@ -10,13 +10,14 @@ its forward). Flow comes back at the frames' resolution as
 from __future__ import annotations
 
 from video_features_tpu_torch.models.common.flow_extract import PairwiseFlowExtractor
-from video_features_tpu_torch.models.pwc.convert import convert_state_dict
+from video_features_tpu_torch.models.pwc.convert import convert_state_dict, params_from_jax
 from video_features_tpu_torch.models.pwc.model import FP32_PARAMS, PWCNet, init_weights
 
 
 class ExtractPWC(PairwiseFlowExtractor):
     checkpoint = "the sniklaus PWC-Net state dict (pwc_net_sintel.pt)"
     _convert_state_dict = staticmethod(convert_state_dict)
+    _params_from_jax = staticmethod(params_from_jax)
     _init_weights = staticmethod(init_weights)
     _fp32_params = FP32_PARAMS
 

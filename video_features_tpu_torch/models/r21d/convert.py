@@ -11,7 +11,10 @@ module names are torchvision's ``r2plus1d_18``, so:
   -> (O, I, kT, kH, kW); ``stem_conv1``/``stem_bn1``/``stem_conv2``/
   ``stem_bn2`` -> ``stem.{0,1,3,4}``; a block's ``conv{k}``
   (``spatial``, ``bn_mid``, ``temporal``) -> ``conv{k}.0.{0,1,3}`` and
-  ``bn{k}`` -> ``conv{k}.1``; the fc kernel transposed.
+  ``bn{k}`` -> ``conv{k}.1``; the fc kernel transposed;
+- ``params_to_jax``: the port's state dict -> that Flax tree, what the
+  JAX package's ``convert_state_dict`` gives for the same torchvision
+  checkpoint (layout only).
 """
 
 from __future__ import annotations
@@ -21,7 +24,13 @@ from typing import Dict
 import numpy as np
 import torch
 
-from video_features_tpu_torch.models.common.weights import check_all_consumed
+from video_features_tpu_torch.models.common.weights import (
+    bn_to_jax,
+    check_all_consumed,
+    conv_kernel,
+    linear_kernel,
+    to_numpy,
+)
 from video_features_tpu_torch.models.r21d.model import R2Plus1D
 
 StateDict = Dict[str, torch.Tensor]
@@ -76,3 +85,36 @@ def params_from_jax(params) -> StateDict:
                     for part, idx in _CONV2PLUS1D.items():
                         unit(f"{prefix}.{sub}.0.{idx}", q[part])
     return convert_state_dict(out)
+
+
+def params_to_jax(sd: StateDict) -> Dict:
+    """The port's R(2+1)D state dict -> the JAX package's param tree."""
+    def conv(name):
+        return {"kernel": conv_kernel(to_numpy(sd[f"{name}.weight"]))}
+
+    def conv2plus1d(prefix):
+        return {"spatial": conv(f"{prefix}.0"), "bn_mid": bn_to_jax(sd, f"{prefix}.1"),
+                "temporal": conv(f"{prefix}.3")}
+
+    params = {
+        "stem_conv1": conv("stem.0"),
+        "stem_bn1": bn_to_jax(sd, "stem.1"),
+        "stem_conv2": conv("stem.3"),
+        "stem_bn2": bn_to_jax(sd, "stem.4"),
+        "fc": {"kernel": linear_kernel(to_numpy(sd["fc.weight"])),
+               "bias": to_numpy(sd["fc.bias"])},
+    }
+    stage = 1
+    while f"layer{stage}.0.conv1.0.0.weight" in sd:
+        b = 0
+        while f"layer{stage}.{b}.conv1.0.0.weight" in sd:
+            ref = f"layer{stage}.{b}"
+            blk = {"conv1": conv2plus1d(f"{ref}.conv1.0"), "bn1": bn_to_jax(sd, f"{ref}.conv1.1"),
+                   "conv2": conv2plus1d(f"{ref}.conv2.0"), "bn2": bn_to_jax(sd, f"{ref}.conv2.1")}
+            if f"{ref}.downsample.0.weight" in sd:
+                blk["downsample_conv"] = conv(f"{ref}.downsample.0")
+                blk["downsample_bn"] = bn_to_jax(sd, f"{ref}.downsample.1")
+            params[f"layer{stage}_{b}"] = blk
+            b += 1
+        stage += 1
+    return params

@@ -54,10 +54,10 @@ from video_features_tpu_torch.models.common.weights import (
     cast_for_compute,
     compute_dtype,
     load_checked,
-    load_state_dict,
+    load_params,
     random_init_fallback,
 )
-from video_features_tpu_torch.models.r21d.convert import convert_state_dict
+from video_features_tpu_torch.models.r21d.convert import convert_state_dict, params_from_jax
 from video_features_tpu_torch.models.r21d.model import (
     FP32_PARAMS,
     R21D_FEATURE_DIM,
@@ -110,11 +110,12 @@ class ExtractR21D(BaseExtractor):
             return replicate(self._build, device)
         model = R2Plus1D()
         if self.config.weights_path:
-            load_checked(model, convert_state_dict(load_state_dict(self.config.weights_path)),
-                         self.feature_type)
+            load_checked(model, load_params(self.config.weights_path, convert_state_dict,
+                                            params_from_jax), self.feature_type)
         else:
             random_init_fallback(self.config, self.feature_type,
-                                 "a torchvision r2plus1d_18 (Kinetics-400) state dict (.pt/.pth)")
+                                 "a torchvision r2plus1d_18 (Kinetics-400) state dict (.pt/.pth), "
+                                 "or its converted .msgpack / orbax directory")
             init_weights(model)
         set_conv3d_impl(model, self.conv_impl)
         return cast_for_compute(model.to(device).eval(), compute_dtype(self.config),

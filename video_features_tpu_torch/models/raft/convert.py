@@ -14,7 +14,10 @@ module names are princeton-vl's, so:
   ``layer1_0`` -> ``layer1.0``, ``norm3`` -> ``downsample.1``,
   ``mask_0``/``mask_2`` -> ``mask.0``/``mask.2``. The scan's
   ``update_block`` holds the one set of parameters all 20 iterations
-  share.
+  share;
+- ``params_to_jax``: the port's state dict -> that Flax tree, what the
+  JAX package's ``convert_state_dict`` gives for the same princeton-vl
+  checkpoint (layout only; the fnet has no norm parameters).
 """
 
 from __future__ import annotations
@@ -25,7 +28,12 @@ from typing import Dict
 import numpy as np
 import torch
 
-from video_features_tpu_torch.models.common.weights import check_all_consumed
+from video_features_tpu_torch.models.common.weights import (
+    bn_to_jax,
+    check_all_consumed,
+    conv_kernel,
+    to_numpy,
+)
 from video_features_tpu_torch.models.raft.model import RAFT
 
 StateDict = Dict[str, torch.Tensor]
@@ -87,3 +95,39 @@ def params_from_jax(params) -> StateDict:
     conv("update_block.mask.0", upd["mask_0"])
     conv("update_block.mask.2", upd["mask_2"])
     return convert_state_dict(out)
+
+
+def params_to_jax(sd: StateDict) -> Dict:
+    """The port's RAFT state dict -> the JAX package's param tree."""
+    def conv(name):
+        return {"kernel": conv_kernel(to_numpy(sd[f"{name}.weight"])),
+                "bias": to_numpy(sd[f"{name}.bias"])}
+
+    def encoder(enc, batch_norm):
+        params = {"conv1": conv(f"{enc}.conv1"), "conv2": conv(f"{enc}.conv2")}
+        if batch_norm:
+            params["norm1"] = bn_to_jax(sd, f"{enc}.norm1")
+        for layer in (1, 2, 3):
+            for b in (0, 1):
+                ref = f"{enc}.layer{layer}.{b}"
+                blk = {"conv1": conv(f"{ref}.conv1"), "conv2": conv(f"{ref}.conv2")}
+                if batch_norm:
+                    blk["norm1"] = bn_to_jax(sd, f"{ref}.norm1")
+                    blk["norm2"] = bn_to_jax(sd, f"{ref}.norm2")
+                if f"{ref}.downsample.0.weight" in sd:
+                    blk["downsample"] = conv(f"{ref}.downsample.0")
+                    if batch_norm:
+                        blk["norm3"] = bn_to_jax(sd, f"{ref}.downsample.1")
+                params[f"layer{layer}_{b}"] = blk
+        return params
+
+    update = {
+        "encoder": {name: conv(f"update_block.encoder.{name}")
+                    for name in ("convc1", "convc2", "convf1", "convf2", "conv")},
+        "gru": {name: conv(f"update_block.gru.{name}")
+                for name in ("convz1", "convr1", "convq1", "convz2", "convr2", "convq2")},
+        "flow_head": {name: conv(f"update_block.flow_head.{name}") for name in ("conv1", "conv2")},
+        "mask_0": conv("update_block.mask.0"),
+        "mask_2": conv("update_block.mask.2"),
+    }
+    return {"fnet": encoder("fnet", False), "cnet": encoder("cnet", True), "update_block": update}

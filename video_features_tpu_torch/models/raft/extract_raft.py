@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from video_features_tpu_torch.models.common.flow_extract import PairwiseFlowExtractor
-from video_features_tpu_torch.models.raft.convert import convert_state_dict
+from video_features_tpu_torch.models.raft.convert import convert_state_dict, params_from_jax
 from video_features_tpu_torch.models.raft.model import FP32_PARAMS, RAFT, init_weights, input_grid
 
 
@@ -60,6 +60,7 @@ class InputPadder:
 class ExtractRAFT(PairwiseFlowExtractor):
     checkpoint = "the princeton-vl RAFT state dict (raft-sintel.pth)"
     _convert_state_dict = staticmethod(convert_state_dict)
+    _params_from_jax = staticmethod(params_from_jax)
     _init_weights = staticmethod(init_weights)
     _fp32_params = FP32_PARAMS
 

@@ -9,7 +9,10 @@ port's module names are torchvision's, so:
 - ``params_from_jax``: the JAX package's Flax param tree (numpy leaves),
   the inverse of its ``convert_state_dict``: HWIO kernels -> OIHW,
   ``layer1_0`` -> ``layer1.0``, ``downsample_conv``/``downsample_bn`` ->
-  ``downsample.0``/``downsample.1``, the fc kernel transposed.
+  ``downsample.0``/``downsample.1``, the fc kernel transposed;
+- ``params_to_jax``: the port's state dict -> that Flax tree, what the
+  JAX package's ``convert_state_dict`` gives for the same torchvision
+  checkpoint (layout only).
 """
 
 from __future__ import annotations
@@ -19,7 +22,13 @@ from typing import Dict
 import numpy as np
 import torch
 
-from video_features_tpu_torch.models.common.weights import check_all_consumed
+from video_features_tpu_torch.models.common.weights import (
+    bn_to_jax,
+    check_all_consumed,
+    conv_kernel,
+    linear_kernel,
+    to_numpy,
+)
 from video_features_tpu_torch.models.resnet.model import ResNet
 
 StateDict = Dict[str, torch.Tensor]
@@ -66,3 +75,32 @@ def params_from_jax(params, arch: str) -> StateDict:
         else:
             unit(name, p)
     return convert_state_dict(out, arch)
+
+
+def params_to_jax(sd: StateDict) -> Dict:
+    """The port's ResNet state dict -> the JAX package's param tree; the
+    blocks and their convs are read off the state dict's keys, so one
+    function serves every ``arch``."""
+    params = {
+        "conv1": {"kernel": conv_kernel(to_numpy(sd["conv1.weight"]))},
+        "bn1": bn_to_jax(sd, "bn1"),
+        "fc": {"kernel": linear_kernel(to_numpy(sd["fc.weight"])),
+               "bias": to_numpy(sd["fc.bias"])},
+    }
+    stage = 1
+    while f"layer{stage}.0.conv1.weight" in sd:
+        b = 0
+        while f"layer{stage}.{b}.conv1.weight" in sd:
+            ref, blk, k = f"layer{stage}.{b}", {}, 1
+            while f"{ref}.conv{k}.weight" in sd:
+                blk[f"conv{k}"] = {"kernel": conv_kernel(to_numpy(sd[f"{ref}.conv{k}.weight"]))}
+                blk[f"bn{k}"] = bn_to_jax(sd, f"{ref}.bn{k}")
+                k += 1
+            if f"{ref}.downsample.0.weight" in sd:
+                blk["downsample_conv"] = {
+                    "kernel": conv_kernel(to_numpy(sd[f"{ref}.downsample.0.weight"]))}
+                blk["downsample_bn"] = bn_to_jax(sd, f"{ref}.downsample.1")
+            params[f"layer{stage}_{b}"] = blk
+            b += 1
+        stage += 1
+    return params

@@ -43,6 +43,7 @@ for resnet50 and deeper, fp32.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List
 
 import numpy as np
@@ -61,10 +62,10 @@ from video_features_tpu_torch.models.common.weights import (
     cast_for_compute,
     compute_dtype,
     load_checked,
-    load_state_dict,
+    load_params,
     random_init_fallback,
 )
-from video_features_tpu_torch.models.resnet.convert import convert_state_dict
+from video_features_tpu_torch.models.resnet.convert import convert_state_dict, params_from_jax
 from video_features_tpu_torch.models.resnet.model import FP32_PARAMS, ResNet, init_weights
 from video_features_tpu_torch.ops.preprocess import (
     IMAGENET_MEAN,
@@ -96,11 +97,14 @@ class ExtractResNet(BaseExtractor):
             return replicate(self._build, device)
         model = ResNet(self.feature_type)
         if self.config.weights_path:
-            sd = convert_state_dict(load_state_dict(self.config.weights_path), self.feature_type)
+            sd = load_params(self.config.weights_path,
+                             functools.partial(convert_state_dict, arch=self.feature_type),
+                             functools.partial(params_from_jax, arch=self.feature_type))
             load_checked(model, sd, self.feature_type)
         else:
             random_init_fallback(self.config, self.feature_type,
-                                 f"a torchvision {self.feature_type} state dict (.pt/.pth)")
+                                 f"a torchvision {self.feature_type} state dict (.pt/.pth), "
+                                 "or its converted .msgpack / orbax directory")
             init_weights(model)
         return cast_for_compute(model.to(device).eval(), self.dtype, exclude=FP32_PARAMS)
 

@@ -10,7 +10,10 @@ port's module names are torchvggish's, so:
   and ``pca_means`` (128,), for :func:`model.postprocess`;
 - ``params_from_jax``: the JAX package's Flax param tree (numpy leaves),
   the inverse of its ``convert_state_dict``: HWIO conv kernels -> OIHW,
-  Dense kernels transposed.
+  Dense kernels transposed;
+- ``params_to_jax``: the port's state dict -> that Flax tree, what the
+  JAX package's ``convert_state_dict`` gives for the same torchvggish
+  checkpoint (layout only).
 """
 
 from __future__ import annotations
@@ -20,7 +23,12 @@ from typing import Dict
 import numpy as np
 import torch
 
-from video_features_tpu_torch.models.common.weights import check_all_consumed
+from video_features_tpu_torch.models.common.weights import (
+    check_all_consumed,
+    conv_kernel,
+    linear_kernel,
+    to_numpy,
+)
 from video_features_tpu_torch.models.vggish.model import CONV_INDICES, EMBEDDING_INDICES
 
 StateDict = Dict[str, torch.Tensor]
@@ -62,3 +70,16 @@ def params_from_jax(params) -> StateDict:
         out[f"embeddings.{i}.weight"] = np.asarray(p["kernel"]).T
         out[f"embeddings.{i}.bias"] = np.asarray(p["bias"])
     return convert_state_dict(out)
+
+
+def params_to_jax(sd: StateDict) -> Dict:
+    """The port's VGGish state dict -> the JAX package's param tree."""
+    params = {}
+    for i in CONV_INDICES:
+        params[f"features_{i}"] = {"kernel": conv_kernel(to_numpy(sd[f"features.{i}.weight"])),
+                                   "bias": to_numpy(sd[f"features.{i}.bias"])}
+    for i in EMBEDDING_INDICES:
+        params[f"embeddings_{i}"] = {
+            "kernel": linear_kernel(to_numpy(sd[f"embeddings.{i}.weight"])),
+            "bias": to_numpy(sd[f"embeddings.{i}.bias"])}
+    return params

@@ -31,10 +31,10 @@ from video_features_tpu_torch.io.audio import load_audio_for_model
 from video_features_tpu_torch.io.paths import video_path_of
 from video_features_tpu_torch.models.common.weights import (
     load_checked,
-    load_state_dict,
+    load_params,
     random_init_fallback,
 )
-from video_features_tpu_torch.models.vggish.convert import convert_state_dict
+from video_features_tpu_torch.models.vggish.convert import convert_state_dict, params_from_jax
 from video_features_tpu_torch.models.vggish.mel import SAMPLE_RATE, waveform_to_examples
 from video_features_tpu_torch.models.vggish.model import VGGISH_EMBEDDING_DIM, VGGish, init_weights
 from video_features_tpu_torch.ops.window import bucket_size, pad_batch
@@ -54,11 +54,12 @@ class ExtractVGGish(BaseExtractor):
             return replicate(self._build, device)
         model = VGGish()
         if self.config.weights_path:
-            load_checked(model, convert_state_dict(load_state_dict(self.config.weights_path)),
-                         self.feature_type)
+            load_checked(model, load_params(self.config.weights_path, convert_state_dict,
+                                            params_from_jax), self.feature_type)
         else:
             random_init_fallback(self.config, self.feature_type,
-                                 "a torchvggish state dict (vggish-10086976.pth)")
+                                 "a torchvggish state dict (vggish-10086976.pth), or its "
+                                 "converted .msgpack / orbax directory")
             init_weights(model)
         return model.to(device).eval()
 
