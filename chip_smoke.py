@@ -100,7 +100,7 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     overlap report (printed), and K1's kernel 96 times in the
     ``--profile_dir`` trace; I3D + PWC on one 129-frame clip under
     ``--profile_dir`` with K2's kernel 10 times in its trace (both runs in
-    a fresh process: ``cli_in_fresh_process``);
+    turn in one fresh process: ``cli_in_fresh_process``);
     ``--telemetry off`` on 4 of the clips (no ``_telemetry/``, the same
     features); and the telemetry's bookkeeping a video (on minus off over
     2000 videos on this host) under 1% of CLIP's ms/video, cold and warm;
@@ -112,10 +112,12 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     family's relative L2 ceiling of them (``config.PARITY_CEILINGS``:
     "e2e", I3D's flow "e2e_flow", else "model"); K1 48 and K2 40 (PWC)
     and 10 (I3D + PWC) launches at both dtypes, equal in a
-    ``--profile_dir`` trace of the bf16 run made again in a fresh process
-    (``cli_in_fresh_process``), with K1 fed bf16 q/k/v and K2 fp32 inputs; warm videos/s at both dtypes and one bf16 forward's top
-    kernels, beside the card's name and power limit; and K1 in bf16 at
-    the CLIP path's shape against its plain version;
+    ``--profile_dir`` trace of the bf16 run made again in one fresh
+    process for the three traced families (``cli_in_fresh_process``),
+    with K1 fed bf16 q/k/v and K2 fp32 inputs; warm videos/s at both
+    dtypes and one bf16 forward's top kernels, beside the card's name and
+    power limit; and K1 in bf16 at the CLIP path's shape against its
+    plain version;
 17. the serve daemon (``video_features_tpu_torch/serve/``): the batch
     CLI twice on phase 12's 8 clips with ``--cache_dir`` (the repeat is 8
     ``cache_hit`` records, no K1 launch, byte-equal files); ``--feature_types
@@ -215,7 +217,7 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     --device_ids 0 0`` against ``--device_ids 0`` (features within 1e-6,
     96 K1 launches each, two workers named in the spans' threads and in
     ``summary.json``'s device lanes; warm videos/s of both, median and
-    range of 2 passes each over a window of 80 names of the 8 clips); (b) ``--sharding mesh --device_ids 0 0 --mesh_model 1`` (within
+    range of 2 passes each over a window of 40 names of the 8 clips); (b) ``--sharding mesh --device_ids 0 0 --mesh_model 1`` (within
     1e-5 of (a)'s one-worker run, the difference printed; 12 x 2 K1
     launches a forward at (8, 12, 50, 64)); (c) ``--mesh_model 2`` on the
     same two (within 2e-4; 12 x 2 K1 launches a forward at (16, 6, 50,
@@ -223,7 +225,7 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     (fused core, within 2e-4, K1 0 launches); (f) (a)-(c) on distinct
     cards where there are two (and a 2 x 2 mesh, tensor and context
     parallel, where there are four), else a line saying so. Phase 3
-    holds and times K1 at those two mesh shapes. One card shows the
+    holds and times K1 at those mesh shapes. One card shows the
     partitioning, the collectives' order and every shard's launch, but
     no copy between cards and no speed-up from them;
 22. ``--sharding mesh`` for every family but CLIP, through the CLI with
@@ -265,19 +267,46 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     tensorstore in orbax's layout); else an orbax directory is refused,
     naming ``tensorstore``, and the script prints ``orbax: refused (no
     tensorstore)``;
-24. a ``kernels`` JSON line (each kernel's launches on its main path, in
+24. ``--sharding mesh`` across launched processes
+    (``parallel/distributed.py``): ``python -m torch.distributed.run
+    --standalone --nproc_per_node 2`` of a small rank program (``RANK_CLI``:
+    deterministic cuDNN, the CLI, then its process's K1/K2 launches and
+    input shapes in a file a rank), in a session of its own killed whole
+    past ``MULTIPROCESS_TIMEOUT_S``: ``--feature_types CLIP-ViT-B/32 i3d``
+    (``uni_12 --attn flash``, ``--flow_type pwc``, a 64/64 stack) on
+    phase 5's 65-frame clip, one data row a rank, one shared
+    ``--output_path``. On this card both ranks share it over gloo (the
+    layout rule; NCCL runs no two ranks of one communicator on one card),
+    the backend each rank printed checked against the rule. Each file
+    0.000e+00 from the one-process mesh ``--device_ids 0 0`` of the same
+    grid (deterministic cuDNN on both sides; made in this process first,
+    alone on the card), each rank with at least
+    ``MULTIPROCESS_HEADROOM_GIB`` of the card beside what the other held
+    at most (a fuller card makes cuDNN pass over a plan whose workspace
+    does not fit; the phase
+    runs before phase 4 for that, while this process holds almost none
+    of the card); one
+    writer (the ``sink``
+    spans of one process id only, one a video a model); ``summary.json``
+    counting each video once, as the one-process run's does; K1 12 a
+    forward and K2 5 a stack in each rank, at shapes phase 3 holds. Where
+    there are two cards, the same over NCCL, a card a rank; where there
+    are four, CLIP at data 2 x ``--mesh_model 2`` over NCCL, two cards a
+    rank, against the one-process 2 x 2 mesh; else a line saying so;
+25. a ``kernels`` JSON line (each kernel's launches on its main path, in
     the fused runs, in the device preprocess runs, in the telemetry runs,
-    in the bf16 phase, in the served requests, in phases 18-23, its
+    in the bf16 phase, in the served requests, in phases 18-24, its
     records at the fused shapes and at the mesh shapes, and K1's bf16
     record at the CLIP path's shape), then the ``ok`` JSON line last.
 
-Every CLI run of phases 4-14, 16-18 and 20-23 passes ``--strict``, so a video that fails
+Every CLI run of phases 4-14, 16-18 and 20-24 passes ``--strict``, so a video that fails
 in isolation fails its phase (phase 15's first run leaves it out: two of
 its files must fail). Phases 7-11 launch no hand-written kernel:
 RAFT, ResNet, R(2+1)D and VGGish reach no ``pallas_call`` in the JAX
 package, nor does the device preprocess's resample (the JAX package
 leaves it to XLA). Every launch count is read from a run that starts with
-all counts at 0, and each of phases 4-23 prints its wall time.
+all counts at 0 (phase 24's ranks each start at 0), and each of phases
+4-24 prints its wall time.
 """
 
 from __future__ import annotations
@@ -289,6 +318,7 @@ import ctypes
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -336,11 +366,13 @@ ATTENTION_CASES = [
     ((16, 12, 65, 64), torch.float32, None),  # one row past a KV tile: two stages
     ((16, 12, 197, 128), torch.float32, None),  # d=128, the most shared memory
 ]
-# K1's shapes on phase 21's mesh runs, held and timed in phase 3: a
-# --mesh_model 2 shard's 6 heads of uni_12's 16 frames, and one of two
-# data shards' 8 frames
+# K1's shapes on phases 21's and 24's mesh runs, held and timed in phase
+# 3: a --mesh_model 2 shard's 6 heads of uni_12's 16 frames, one of two
+# data shards' 8 frames (a rank's in phase 24), and a cell of a 2 x 2
+# mesh (phases 21 and 24 on four cards)
 MESH_ATTENTION_SHAPES = {"N=16, H=6 (--mesh_model 2)": (16, 6, 50, 64),
-                         "N=8, H=12 (two data shards)": (8, 12, 50, 64)}
+                         "N=8, H=12 (two data shards)": (8, 12, 50, 64),
+                         "N=8, H=6 (2 x 2 mesh)": (8, 6, 50, 64)}
 # phase 21: against queue mode's one-worker features; a data-parallel
 # mesh does each frame's arithmetic as one device does, at another batch
 # size (the JAX package asks byte-equality there), tensor and context
@@ -360,6 +392,19 @@ I3D_MESH_ATOL = 2e-4
 WEIGHTS_RTOL = 1e-6
 WEIGHTS_FLOW_FRAMES = 17  # PWC and RAFT: 16 pairs, two windows of 8
 WEIGHTS_WAV_SECONDS = 10.0
+# phase 24: one torchrun launch of two processes over one global mesh, a
+# data row each, running CLIP uni_12 --attn flash and I3D + PWC (a 64/64
+# stack) in one --feature_types run on phase 5's 65-frame clip; the launch
+# waits at most MULTIPROCESS_TIMEOUT_S
+MULTIPROCESS_RANKS = 2
+MULTIPROCESS_CLIP = "i3d65.mp4"
+MULTIPROCESS_TIMEOUT_S = 600
+# the least of card 0 a rank may have had beside what the other ranks on
+# it held at most: with less, a cuDNN plan whose workspace does not fit is
+# passed over for the next, and the flow stream's rounding moves
+# (scripts/mesh_exactness_probe.py: a run with 12 GiB free moved 1.6e-8,
+# one with 16 did not), so the 0 gate would hold the card's fullness
+MULTIPROCESS_HEADROOM_GIB = 16.0
 # K2's shapes on phase 22's mesh runs, held and timed in phase 3: one
 # row's pairs of an I3D stack of 64 (256x384 grid) at data 2 and 4, and of
 # a standalone PWC window of 8 (256x320) at data 2 and 4
@@ -400,9 +445,9 @@ VGGISH_RTOL = 1e-3
 # effects, none of which exist in a fixed-shape fp32 forward
 CONTRACT_VIDEOS = 8
 # phase 21's warm queue passes: each of the 8 clips under this many names,
-# a window of 80 videos a pass, so one pass takes seconds, not ~0.4 s
-# (160 names and 3 passes until phase 22 needed the time)
-WARM_QUEUE_COPIES = 10
+# a window of 40 videos a pass, so one pass takes ~2 s, not ~0.4 s (160
+# names and 3 passes until phase 22, 80 until phase 24 needed the time)
+WARM_QUEUE_COPIES = 5
 WARM_QUEUE_PASSES = 2  # for each worker count, in turns
 # phase 17's ledger gates: CLIP-ViT-B/32 at 224 px is 4.41 GMACs (timm's
 # published figure) at 2 flops a multiply-add; a model's projected resident
@@ -764,32 +809,124 @@ import torch
 from video_features_tpu_torch import cli
 from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
 from video_features_tpu_torch.ops.flash_attention import flash_attention
-t0 = time.perf_counter()
-cli.main(json.loads(sys.argv[1]))
-torch.cuda.synchronize()
-print("FRESH_CLI " + json.dumps({"wall": time.perf_counter() - t0,
-                                 "flash_attention": flash_attention.launches,
-                                 "local_correlation": local_correlation_kernel.launches}))
+for argv in json.loads(sys.argv[1]):
+    flash_attention.launches = local_correlation_kernel.launches = 0
+    t0 = time.perf_counter()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    print("FRESH_CLI " + json.dumps({"wall": time.perf_counter() - t0,
+                                     "flash_attention": flash_attention.launches,
+                                     "local_correlation": local_correlation_kernel.launches}),
+          flush=True)
 """
 
 
-def cli_in_fresh_process(argv):
-    """(wall s of ``cli.main(argv)``, {kernel: launches}) from a new Python
-    process of this interpreter, environment and repo, which loads the
-    kernels this one built. Phases 15 and 16 take their ``--profile_dir``
-    traces this way: a ``torch.profiler`` trace loses kernel records as a
-    process ages, one more every ~15 s of work on the card
-    (``scripts/profiler_trace_loss.py``), and a fresh process's hold
-    every launch."""
-    done = subprocess.run([sys.executable, "-c", FRESH_CLI, json.dumps(argv)],
+def cli_in_fresh_process(argvs):
+    """[(wall s of ``cli.main(argv)``, {kernel: launches})] of each of
+    ``argvs``, run in turn in one new Python process of this interpreter,
+    environment and repo, which loads the kernels this one built. Phases
+    15 and 16 take their ``--profile_dir`` traces this way: a
+    ``torch.profiler`` trace loses kernel records as a process ages, one
+    more every ~15 s of work on the card
+    (``scripts/profiler_trace_loss.py``), and a fresh process's hold every
+    launch (phase 16's three short runs together are seconds of card work
+    in one process)."""
+    done = subprocess.run([sys.executable, "-c", FRESH_CLI, json.dumps(argvs)],
                           cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
                           text=True, timeout=900)
     marked = [line for line in done.stdout.splitlines() if line.startswith("FRESH_CLI ")]
-    if done.returncode or not marked:
+    if done.returncode or len(marked) != len(argvs):
         raise AssertionError(f"the CLI in a fresh process exited {done.returncode}: "
                              f"{done.stdout[-2000:]}{done.stderr[-4000:]}")
-    counts = json.loads(marked[-1][len("FRESH_CLI "):])
-    return counts.pop("wall"), counts
+    runs = []
+    for line in marked:
+        counts = json.loads(line[len("FRESH_CLI "):])
+        runs.append((counts.pop("wall"), counts))
+    return runs
+
+
+# phase 24's rank program (torchrun runs one a process): deterministic
+# cuDNN, as in the one-process run it is held to, the CLI, then this
+# process's wrapper counts and the K1/K2 input shapes (recorders around the
+# real wrappers, whose counts stay the only counts) into a file a rank
+RANK_CLI = """
+import json, os, sys
+import torch
+torch.backends.cudnn.deterministic = True
+from video_features_tpu_torch import cli
+from video_features_tpu_torch.models.clip import extract_clip
+from video_features_tpu_torch.models.pwc import model as pwc_model
+from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
+from video_features_tpu_torch.ops.flash_attention import flash_attention
+seen = {"K1": set(), "K2": set()}
+flash, corr = extract_clip.CORES["flash"], pwc_model.local_correlation
+
+def k1(q, k, v, **kw):
+    seen["K1"].add(tuple(q.shape))
+    return flash(q, k, v, **kw)
+
+def k2(f1, f2, *a, **kw):
+    seen["K2"].add(tuple(f1.shape))
+    return corr(f1, f2, *a, **kw)
+
+extract_clip.CORES["flash"], pwc_model.local_correlation = k1, k2
+cli.main(json.loads(sys.argv[1]))
+torch.cuda.synchronize()
+rank = int(os.environ["RANK"])
+with open(f"{sys.argv[2]}.rank{rank}.json", "w") as f:
+    json.dump({"rank": rank, "flash_attention": flash_attention.launches,
+               "local_correlation": local_correlation_kernel.launches,
+               "K1": sorted(seen["K1"]), "K2": sorted(seen["K2"]),
+               "peak_reserved": torch.cuda.max_memory_reserved()}, f)
+"""
+
+
+def launch_ranks(root: str, label: str, argv, visible=None):
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    MULTIPROCESS_RANKS`` of ``RANK_CLI`` with ``argv``, in a session of its
+    own that is killed whole if it outlives ``MULTIPROCESS_TIMEOUT_S``;
+    ``visible`` sets ``CUDA_VISIBLE_DEVICES``. Returns (wall s, each rank's
+    record, the log), and fails unless every rank exited 0."""
+    import signal
+
+    script = os.path.join(root, "rank_cli.py")
+    with open(script, "w") as f:
+        f.write(RANK_CLI)
+    prefix = os.path.join(root, f"{label}_counts")
+    log_path = os.path.join(root, f"{label}.log")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH")) if p))
+    if visible is not None:
+        env["CUDA_VISIBLE_DEVICES"] = visible
+    # the host's cores split between the ranks (torchrun would give each one)
+    env.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1) // MULTIPROCESS_RANKS)))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(MULTIPROCESS_RANKS), script, json.dumps(argv), prefix]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    try:
+        proc.wait(timeout=MULTIPROCESS_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    if proc.returncode:
+        raise AssertionError(f"multi-process {label}: torchrun exited {proc.returncode}:\n"
+                             f"{text[-6000:]}")
+    for line in text.splitlines():
+        if line.startswith(("distributed:", "run manifest:")):
+            print(f"multi-process {label}, a rank: {line}")
+    ranks = []
+    for r in range(MULTIPROCESS_RANKS):
+        with open(f"{prefix}.rank{r}.json") as f:
+            ranks.append(json.load(f))
+    return wall, ranks, text
 
 
 def warm_split(ex, clips, device):
@@ -1151,8 +1288,10 @@ def run_i3d_raft_path(root: str, device):
     print(f"I3D + RAFT path (--feature_type i3d --flow_type raft, cold CLI run, model build "
           f"included): {I3D_VIDEOS} videos in {wall:.3f} s, {I3D_VIDEOS / wall:.3f} videos/s")
 
+    # the warm extractor on the first clip only: its two stacks take ~2 s
+    # of RAFT a pass, so the second clip would add ~4 s and no shape
     ex = build_extractor(ExtractionConfig(feature_type="i3d", flow_type="raft",
-                                          video_paths=clips, allow_random_init=True),
+                                          video_paths=clips[:1], allow_random_init=True),
                          external_call=True)
     models = ex.warmup(device)
     frames, fps, stamps, _, path = ex.prepare(clips[0])
@@ -1165,12 +1304,11 @@ def run_i3d_raft_path(root: str, device):
                   f"at {tuple(cpu_steps[0].shape[2:4])}), the card vs the port on the CPU "
                   f"({cpu_s:.1f} s there)")
 
-    prep, fwd = warm_split(ex, clips, device)
+    prep, fwd = warm_split(ex, clips[:1], device)
     warm = prep + fwd
-    print(f"I3D + RAFT path (warm extractor): {I3D_VIDEOS / warm:.3f} videos/s, "
-          f"{warm / I3D_VIDEOS * 1e3:.2f} ms/video = host decode + resize "
-          f"{prep / I3D_VIDEOS * 1e3:.2f} ms + forward (H2D, RAFT, 2x I3D, D2H) "
-          f"{fwd / I3D_VIDEOS * 1e3:.2f} ms, {I3D_STACKS} stacks each")
+    print(f"I3D + RAFT path (warm extractor, one clip): {1 / warm:.3f} videos/s, "
+          f"{warm * 1e3:.2f} ms/video = host decode + resize {prep * 1e3:.2f} ms + forward "
+          f"(H2D, RAFT, 2x I3D, D2H) {fwd * 1e3:.2f} ms, {I3D_STACKS} stacks")
     one = (frames[: STACK + 1], fps, stamps[: STACK + 1], None, path)
     t0 = time.perf_counter()
     for _ in range(3):
@@ -1878,7 +2016,7 @@ def hold_fused_shapes(device):
 
 
 def hold_mesh_shapes(device):
-    """Phase 3, K1 at phase 21's mesh shapes (``MESH_ATTENTION_SHAPES``)
+    """Phase 3, K1 at the mesh shapes of phases 21 and 24 (``MESH_ATTENTION_SHAPES``)
     against its plain version, early, where the profiler keeps every
     launch. Returns the records by shape."""
     return {label: hold_flash_attention(device, shape, torch.float32, None, seed=500 + i)
@@ -2075,12 +2213,19 @@ def run_telemetry_path(root: str, device):
         return time.perf_counter() - t0, flash_attention.launches, read_features(
             os.path.join(root, out))
 
-    # 1. CLIP at the defaults, with two files the probe must reject, in a
-    # fresh process for a whole trace (cli_in_fresh_process)
+    # 1. CLIP at the defaults, with two files the probe must reject, and
+    # 2. I3D + PWC under --profile_dir, in turn in one fresh process for
+    # whole traces (cli_in_fresh_process)
     prof = os.path.join(root, "tele_clip_profile")
-    wall, fresh = cli_in_fresh_process([*clip_args, "--output_path",
-                                        os.path.join(root, "tele_clip"), "--profile_dir", prof,
-                                        "--video_paths", *clips, noise, empty])
+    clip129 = synth_video(os.path.join(root, "tele_i3d.mp4"), n_frames=I3D_CLIP_FRAMES, seed=0)
+    prof_i3d = os.path.join(root, "tele_i3d_profile")
+    (wall, fresh), (i3d_wall, fresh_i3d) = cli_in_fresh_process([
+        [*clip_args, "--output_path", os.path.join(root, "tele_clip"), "--profile_dir", prof,
+         "--video_paths", *clips, noise, empty],
+        ["--feature_type", "i3d", "--flow_type", "pwc", "--allow_random_init",
+         "--on_extraction", "save_numpy", "--strict", "--profile_dir", prof_i3d,
+         "--output_path", os.path.join(root, "tele_i3d"),
+         "--tmp_path", os.path.join(root, "tmp"), "--video_paths", clip129]])
     k1, on = fresh["flash_attention"], read_features(os.path.join(root, "tele_clip"))
     out = os.path.join(root, "tele_clip")
     with open(os.path.join(out, "_manifest", "summary.json")) as f:
@@ -2135,19 +2280,13 @@ def run_telemetry_path(root: str, device):
     if traced_k1 != CONTRACT_VIDEOS * LAYERS or k1 != CONTRACT_VIDEOS * LAYERS:
         raise AssertionError(f"K1 launches: trace {traced_k1}, wrapper {k1}")
 
-    # 2. I3D + PWC under --profile_dir
-    clip129 = synth_video(os.path.join(root, "tele_i3d.mp4"), n_frames=I3D_CLIP_FRAMES, seed=0)
-    prof_i3d = os.path.join(root, "tele_i3d_profile")
-    i3d_wall, fresh = cli_in_fresh_process(
-        ["--feature_type", "i3d", "--flow_type", "pwc", "--allow_random_init",
-         "--on_extraction", "save_numpy", "--strict", "--profile_dir", prof_i3d,
-         "--output_path", os.path.join(root, "tele_i3d"),
-         "--tmp_path", os.path.join(root, "tmp"), "--video_paths", clip129])
-    k2 = fresh["local_correlation"]
+    # 2. the I3D + PWC run's trace
+    k2 = fresh_i3d["local_correlation"]
     traced_k2 = trace_kernel_launches(prof_i3d, "local_correlation_kernel")
     want_k2 = I3D_STACKS * len(CORR_LEVELS)
     print(f"telemetry and preflight, I3D + PWC --profile_dir on one {I3D_CLIP_FRAMES}-frame clip "
-          f"(cold CLI run in a fresh process): {i3d_wall:.3f} s; local_correlation_kernel in "
+          f"(CLI run in the fresh process after CLIP's, model build and profiler included): "
+          f"{i3d_wall:.3f} s; local_correlation_kernel in "
           f"the trace {traced_k2} "
           f"launches (wrapper count {k2}, expected {want_k2})")
     if traced_k2 != want_k2 or k2 != want_k2:
@@ -2271,6 +2410,7 @@ def run_bf16_path(root: str, device):
 
     card = card_line()
     launches = {"flash_attention": 0, "local_correlation": 0}
+    traced_runs = []  # (label, kernel, --profile_dir, this process's launches, argv)
     for label, args, clips, want_k1, want_k2, traced in bf16_families(root):
         tag = label.replace(" ", "").replace("+", "_").replace("(", "").replace(")", "")
         feats, inputs = {}, {}
@@ -2290,23 +2430,12 @@ def run_bf16_path(root: str, device):
                                      f"launches, expected {want_k1}, {want_k2}")
             feats[dtype], inputs[dtype] = read_features(out), (seen["K1"], seen["K2"])
             if dtype == "bfloat16" and traced:
-                # the same run again under --profile_dir, in a fresh process
-                # for a whole trace (cli_in_fresh_process)
+                # the same run again under --profile_dir, after the loop in
+                # one fresh process for whole traces (cli_in_fresh_process)
                 prof = out + "_profile"
-                _, fresh = cli_in_fresh_process([*argv, "--output_path", out + "_traced",
-                                                 "--profile_dir", prof, "--video_paths", *clips])
-                for name, n in fresh.items():
-                    launches[name] += n
-                wrapper = fresh["flash_attention"] + fresh["local_correlation"]
-                names = trace_kernel_names(prof, traced)
-                kinds = sorted({"bfloat16" if "bfloat16" in n else "float32" for n in names})
-                print(f"bfloat16 {label}: {traced} in the --dtype bfloat16 --profile_dir trace "
-                      f"of a fresh process {len(names)} launches (that process's wrapper count "
-                      f"{wrapper}), their types {kinds}")
-                if not len(names) == wrapper == k1 + k2:
-                    raise AssertionError(f"bfloat16 {label}: the trace holds {len(names)} "
-                                         f"{traced} launches, the wrapper {wrapper} there and "
-                                         f"{k1 + k2} here")
+                traced_runs.append((label, traced, prof, k1 + k2, [
+                    *argv, "--output_path", out + "_traced", "--profile_dir", prof,
+                    "--video_paths", *clips]))
         k1_in, k2_in = inputs["bfloat16"]
         if (want_k1 and k1_in != {"bfloat16"}) or (want_k2 and k2_in != {"float32"}):
             raise AssertionError(f"bfloat16 {label}: K1 got {sorted(k1_in)}, K2 got "
@@ -2352,6 +2481,20 @@ def run_bf16_path(root: str, device):
         print_top_kernels(device_kernels(lambda: ex.forward(model, payload)), one_ms,
                           f"bfloat16 {label}, one --dtype bfloat16 forward on the device "
                           f"({card})", mark=mark, expect=expect)
+
+    fresh_runs = cli_in_fresh_process([argv for *_, argv in traced_runs])
+    for (label, traced, prof, here, _), (_, fresh) in zip(traced_runs, fresh_runs):
+        for name, n in fresh.items():
+            launches[name] += n
+        wrapper = fresh["flash_attention"] + fresh["local_correlation"]
+        names = trace_kernel_names(prof, traced)
+        kinds = sorted({"bfloat16" if "bfloat16" in n else "float32" for n in names})
+        print(f"bfloat16 {label}: {traced} in the --dtype bfloat16 --profile_dir trace of a "
+              f"fresh process ({len(traced_runs)} traced runs in turn) {len(names)} launches "
+              f"(that run's wrapper count {wrapper}), their types {kinds}")
+        if not len(names) == wrapper == here:
+            raise AssertionError(f"bfloat16 {label}: the trace holds {len(names)} {traced} "
+                                 f"launches, the wrapper {wrapper} there and {here} here")
 
     # K1 in bf16 at the CLIP path's shape (N=16, H=12, L=50, d=64); the
     # kernels line takes phase 3's record of it, as late in a long process
@@ -3981,6 +4124,154 @@ def run_mesh_path(root: str, device):
     return launches
 
 
+def run_multiprocess_path(root: str, device):
+    """Phase 24: ``--sharding mesh`` across launched processes (module
+    docstring). Returns each kernel's launches in the phase: the ranks'
+    sums and those of the one-process runs they are held to."""
+    from video_features_tpu_torch import cli
+    from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
+    from video_features_tpu_torch.ops.flash_attention import flash_attention
+    from video_features_tpu_torch.parallel.distributed import backend_for
+    from video_features_tpu_torch.utils.synth import synth_video
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    count = torch.cuda.device_count()
+    print(f"multi-process: {card}; {count} visible CUDA device(s)")
+    launches = {"flash_attention": 0, "local_correlation": 0}
+    # phase 5's 65-frame clip, made here when this phase runs alone
+    clips = [os.path.join(root, MULTIPROCESS_CLIP)]
+    if not os.path.exists(clips[0]):
+        synth_video(clips[0], n_frames=STACK + 1, seed=9)
+    tmp = os.path.join(root, "tmp")
+    k1_held = set(MESH_ATTENTION_SHAPES.values())
+    k2_held = {(n, c, h, w) for n, hp, wp in MESH_CORRELATION_CASES.values()
+               for _, c, h, w in pwc_levels(hp, wp)}
+
+    def flags(models):
+        return ["--feature_types", *models, "--extract_method", f"uni_{FRAMES}", "--attn",
+                "flash", "--flow_type", "pwc", "--allow_random_init", "--on_extraction",
+                "save_numpy", "--strict", "--sharding", "mesh", "--tmp_path", tmp]
+
+    def summary_of(out):
+        with open(os.path.join(out, "_manifest", "summary.json")) as f:
+            return json.load(f)
+
+    def one_process(label, models, ids, *extra):
+        """The one-process mesh of a grid, deterministic cuDNN as in the ranks."""
+        out = os.path.join(root, f"multi_one_{label}")
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            reset_counts()
+            cli.main([*flags(models), *extra, "--device_ids", *ids, "--output_path", out,
+                      "--video_paths", *clips])
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        launches["flash_attention"] += flash_attention.launches
+        launches["local_correlation"] += local_correlation_kernel.launches
+        # the ranks run next, beside this process: free its cached blocks
+        gc.collect()
+        torch.cuda.empty_cache()
+        return read_features(out), summary_of(out)
+
+    def ranks_run(label, models, extra, visible, cards, one, cells):
+        """One launch of the two ranks over ``extra`` (their device flags),
+        each seeing ``cards`` cards (``visible``), against the one-process
+        run ``one``; ``cells`` is a rank's mesh cells (one data row)."""
+        out = os.path.join(root, f"multi_{label}")
+        shutil.rmtree(out, ignore_errors=True)
+        free = torch.cuda.mem_get_info(device)[0] / 2**30
+        wall, ranks, log = launch_ranks(root, label, [*flags(models), *extra, "--output_path",
+                                                      out, "--video_paths", *clips], visible)
+        want_backend = backend_for(False, MULTIPROCESS_RANKS, cards)
+        backends = sorted({line.split("backend ")[1].split(",")[0]
+                           for line in log.splitlines() if line.startswith("distributed:")})
+        got, (want, one_summary) = read_features(out), one
+        names = sorted(want)
+        errs = {n: float(np.abs(got[n] - want[n]).max()) for n in names if n in got}
+        err = max(errs.values(), default=float("inf"))
+        print(f"multi-process {label}: max_abs_err by file "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+        # one writer: the sink spans of one process only (spans-<pid>-*.jsonl,
+        # a file a model), one a video a model
+        sinks = {}
+        for path in glob.glob(os.path.join(out, "_telemetry", "spans-*.jsonl")):
+            with open(path) as f:
+                n = sum(1 for line in f if line.strip() and json.loads(line)["stage"] == "sink")
+            if n:
+                pid = os.path.basename(path).split("-")[1]
+                sinks[pid] = sinks.get(pid, 0) + n
+        summary = summary_of(out)
+        k1 = sum(r["flash_attention"] for r in ranks)
+        k2 = sum(r["local_correlation"] for r in ranks)
+        k1_shapes = {tuple(sh) for r in ranks for sh in r["K1"]}
+        k2_shapes = {tuple(sh) for r in ranks for sh in r["K2"]}
+        # the least of card 0 a rank had: what was free at the launch less
+        # the other ranks' peaks where they share it
+        peaks = [r["peak_reserved"] / 2**30 for r in ranks]
+        room = free - (sum(peaks) - min(peaks) if cards == 1 else 0.0)
+        # a uni_12 forward a video, 12 blocks a cell; 5 levels a stack a row
+        k1_want = LAYERS * cells * len(clips) if "CLIP-ViT-B/32" in models else 0
+        k2_want = len(CORR_LEVELS) if "i3d" in models else 0  # one stack
+        print(f"multi-process {label}: {' '.join(models)} on {MULTIPROCESS_RANKS} ranks "
+              f"({' '.join(extra)} each), backend {backends} (the layout rule: "
+              f"{want_backend} for {MULTIPROCESS_RANKS} processes over {cards} card(s)); "
+              f"{len(got)} files; features against the one-process mesh max_abs_err {err:.3e} "
+              f"(want 0); sink spans by process id {sinks}; summary.json {summary['done']}/"
+              f"{summary['total']} done (one process {one_summary['done']}/"
+              f"{one_summary['total']}); K1 by rank {[r['flash_attention'] for r in ranks]} "
+              f"(want {k1_want} each) at {sorted(k1_shapes)}; K2 by rank "
+              f"{[r['local_correlation'] for r in ranks]} (want {k2_want} each) at N="
+              f"{sorted({sh[0] for sh in k2_shapes})}; card 0 {free:.2f} GiB free at the "
+              f"launch, the ranks' peak reserved {[round(p, 2) for p in peaks]} GiB, so a rank "
+              f"had at least {room:.2f} GiB (want >= {MULTIPROCESS_HEADROOM_GIB}); torchrun "
+              f"wall {wall:.1f} s [{card}]")
+        if room < MULTIPROCESS_HEADROOM_GIB:
+            raise AssertionError(f"multi-process {label}: a rank had {room:.2f} GiB of the card, "
+                                 f"under {MULTIPROCESS_HEADROOM_GIB}: too full a card for an "
+                                 "exact comparison")
+        if backends != [want_backend]:
+            raise AssertionError(f"multi-process {label}: backend {backends}, the layout rule "
+                                 f"gives {want_backend}")
+        if sorted(got) != names or err != 0.0:
+            raise AssertionError(f"multi-process {label}: files {sorted(got)} vs {names}, "
+                                 f"err {err}")
+        if len(sinks) != 1 or sum(sinks.values()) != len(models) * len(clips):
+            raise AssertionError(f"multi-process {label}: sink spans {sinks}, want one process "
+                                 f"with {len(models) * len(clips)}")
+        if (summary["done"], summary["total"], summary["failed"]) != (
+                one_summary["done"], one_summary["total"], 0):
+            raise AssertionError(f"multi-process {label}: summary.json {summary}")
+        if any((r["flash_attention"], r["local_correlation"]) != (k1_want, k2_want)
+               for r in ranks):
+            raise AssertionError(f"multi-process {label}: K1 and K2 by rank {ranks}")
+        if not (k1_shapes <= k1_held and k2_shapes <= k2_held):
+            raise AssertionError(f"multi-process {label}: K1 at {k1_shapes - k1_held} or K2 at "
+                                 f"{k2_shapes - k2_held}, not held in phase 3")
+        launches["flash_attention"] += k1
+        launches["local_correlation"] += k2
+
+    both = ["CLIP-ViT-B/32", "i3d"]
+    idx = str(device.index or 0)
+    one = one_process("both", both, [idx, idx])
+    # both ranks on one card: gloo (NCCL runs no two ranks of one
+    # communicator on one card)
+    ranks_run("gloo", both, ["--device_ids", "0"], "0" if count > 1 else None, 1, one, 1)
+    if count > 1:  # a card a rank: NCCL
+        ranks_run("nccl", both, ["--device_ids", "0"], "0,1", 2, one, 1)
+    if count >= 4:  # two cards a rank: CLIP data x tensor, the model axis in each rank
+        tp = one_process("tp", ["CLIP-ViT-B/32"], [idx] * 4, "--mesh_model", "2")
+        ranks_run("nccl_tp", ["CLIP-ViT-B/32"], ["--device_ids", "0", "1", "--mesh_model", "2"],
+                  "0,1,2,3", 4, tp, 2)
+    if count == 1:
+        print("multi-process: one CUDA device on this host, so no NCCL run (two ranks on "
+              "distinct cards) was possible")
+    print(f"multi-process: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def write_orbax(tree, path: str) -> None:
     """``tree`` (nested dicts of float32 arrays) as a directory in orbax's
     ``StandardCheckpointer`` layout: each leaf a zarr array named by its
@@ -4284,7 +4575,11 @@ def main() -> int:
     mesh_correlation = hold_mesh_correlation(device)
     measure_resample(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        # phase 24 first, while this process holds almost none of the
+        # card: later phases leave tens of GiB in the caching allocator,
+        # pinned by small live tensors, which its 0 gate cannot afford
         phases = [
+            ("multi-process mesh", lambda: run_multiprocess_path(root, device)),
             ("CLIP", lambda: run_main_path(root)),
             ("I3D + PWC", lambda: run_i3d_path(root, device)),
             ("PWC", lambda: run_pwc_path(root)),
@@ -4313,12 +4608,17 @@ def main() -> int:
         for name, phase in phases:
             t0 = time.perf_counter()
             results[name] = phase()
-            print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+            free, total = torch.cuda.mem_get_info(device)
+            print(f"phase {name}: {time.perf_counter() - t0:.1f} s; then this process holds "
+                  f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB allocated, "
+                  f"{torch.cuda.memory_reserved(device) / 2**30:.2f} GiB reserved; the card "
+                  f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
         # each kernel's launches: its main path's run, then those of every
         # later phase that drives it
         later_names = ("async ingest", "device preprocess", "telemetry and preflight",
                        "bfloat16", "serve", "disk flow and output flags", "preemption",
-                       "native host path", "parallel", "mesh", "converted weights")
+                       "native host path", "parallel", "mesh", "converted weights",
+                       "multi-process mesh")
         later = [results[n] for n in later_names]
         k1_launches = results["CLIP"] + sum(r["flash_attention"] for r in later)
         k2_launches = results["I3D + PWC"] + sum(r["local_correlation"] for r in later)

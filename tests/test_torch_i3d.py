@@ -162,9 +162,10 @@ def test_extract_i3d_two_stream_matches_jax(sample_video, tmp_path):
     np.testing.assert_allclose(ours["synth_flow.npy"], ref["flow"], atol=flow_tol, rtol=0)
 
     # the same run in process: fps and timestamps as the JAX package gives them
+    # (the sampling's, so the rgb stream alone)
     cfg = ExtractionConfig(feature_type="i3d", video_paths=[sample_video], cpu=True,
                            weights_path=str(weights), extraction_fps=5.0, stack_size=10,
-                           step_size=10)
+                           step_size=10, streams=["rgb"])
     (res,) = ExtractI3D(cfg, external_call=True)()
     assert float(res["fps"]) == float(ref["fps"]) == 25.0
     np.testing.assert_allclose(res["timestamps_ms"], ref["timestamps_ms"])

@@ -95,8 +95,8 @@ def test_resolve_devices_without_cuda_and_mesh_under_a_launcher(two_cards, monke
     monkeypatch.setenv("WORLD_SIZE", "2")
     # queue: rank 0 (no RANK set) of two drives its own card only
     assert resolve_devices(ExtractionConfig()) == [torch.device("cuda", 0)]
-    with pytest.raises(ValueError, match="WORLD_SIZE"):
-        resolve_devices(ExtractionConfig(sharding="mesh"))
+    # mesh: the same share, this process's rows of the global mesh
+    assert resolve_devices(ExtractionConfig(sharding="mesh")) == [torch.device("cuda", 0)]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device is visible; pass --cpu"):
         resolve_devices(ExtractionConfig(device_ids=[0]))
@@ -509,8 +509,8 @@ def test_sharded_clip_data_parallel_is_the_unsharded_math(tiny_weights):
     _, net, x, ref = tiny_weights
     sharded = port_model.ShardedVisionTransformer(net, sharding.make_mesh(_cpus(4)))
     with torch.inference_mode():
-        out = sharded(sharded.place(x[:7])).numpy()  # 7 rows padded to 8
-    assert out.shape == (8, TINY["embed_dim"])
+        out = sharded(sharded.place(x[:7])).numpy()  # 7 rows over 4: 2, 2, 2, 1
+    assert out.shape == (7, TINY["embed_dim"])
     np.testing.assert_allclose(out[:7], ref[:7], atol=ATOL)
 
 

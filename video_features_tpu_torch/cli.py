@@ -16,6 +16,12 @@ record under ``<output_path>/_manifest/`` is merged into
 outcome printed; with ``--strict`` a failed video, an empty-feature
 warning or a worker death exits nonzero.
 
+Under a launcher (``torchrun``: ``WORLD_SIZE`` > 1) ``--sharding mesh``
+joins one ``torch.distributed`` group for the whole run
+(``parallel/distributed.py``): every process walks the same videos over
+one global mesh and only rank 0 writes; queue mode makes no group, each
+process running its strided share of the videos.
+
 ``serve [warmup] ...`` starts the long-lived daemon
 (``serve/daemon.py::serve_main``) on the same device rules; its exit
 code is 1 after a sticky device error stopped it.
@@ -27,6 +33,7 @@ import sys
 
 from video_features_tpu_torch.config import parse_batch_args
 from video_features_tpu_torch.extract.plan import run_multi
+from video_features_tpu_torch.parallel import distributed
 from video_features_tpu_torch.parallel.devices import resolve_devices
 from video_features_tpu_torch.runtime.faults import finalize_run, format_summary, strict_failures
 
@@ -41,6 +48,27 @@ def main(argv=None):
 
         return serve_main(argv[1:])
     cfg, feature_types = parse_batch_args(argv)
+    # a launched mesh joins its process group before any device work, and
+    # leaves it when the whole --feature_types loop is over
+    joined = distributed.initialize(cfg)
+    try:
+        summary = _run(cfg, feature_types)
+    finally:
+        if joined:
+            distributed.shutdown()
+    if cfg.strict and summary is not None:
+        problems = strict_failures(summary)
+        if problems:
+            raise SystemExit(
+                f"--strict: run completed with {len(problems)} problem(s):\n  "
+                + "\n  ".join(problems)
+            )
+
+
+def _run(cfg, feature_types):
+    """The batch run: every feature type over the videos, then the
+    manifest merged into ``summary.json`` (returned, None without a
+    manifest)."""
     resolve_devices(cfg)  # raises before any work: no CUDA, or an id out of range
     if cfg.on_extraction in ("save_numpy", "save_pickle"):
         print(f"Saving features to {cfg.output_path}")
@@ -50,6 +78,8 @@ def main(argv=None):
     built = []
     try:
         run_multi(cfg, feature_types, built=built)
+        # every process's records are written before any of them merges
+        distributed.barrier()
     finally:
         # the merge happens even when the run raised, so a crashed run
         # still leaves a record of what completed; one <output>/_manifest
@@ -58,10 +88,4 @@ def main(argv=None):
             summary = finalize_run(cfg.output_path)
             if summary is not None:
                 print(format_summary(summary))
-    if cfg.strict and summary is not None:
-        problems = strict_failures(summary)
-        if problems:
-            raise SystemExit(
-                f"--strict: run completed with {len(problems)} problem(s):\n  "
-                + "\n  ".join(problems)
-            )
+    return summary

@@ -20,6 +20,10 @@ The run contract (``runtime/faults.py``):
   video's failure plus one ``worker_death`` event, and stops the loop:
   the videos not yet attempted get no record, so ``--resume`` runs them
   (in queue mode the other workers take them: ``parallel/scheduler.py``);
+- in a mesh across launched processes every outcome is collective
+  (``_run_lockstep``): the processes agree on each video's prepare and
+  sink, and retry, fail or go on together; a failure inside the sharded
+  forward, where the others may wait in a collective, stops the run;
 - ``--resume`` skips a video whose output files all exist, or that an
   earlier run recorded as a permanent failure (unless ``--retry_failed``);
 - with ``--preflight on`` (the default) each video is probed before its
@@ -105,6 +109,7 @@ from video_features_tpu_torch.io.video import (
     set_decode_timeout,
     set_resource_caps,
 )
+from video_features_tpu_torch.parallel import distributed
 from video_features_tpu_torch.runtime import faults
 from video_features_tpu_torch.runtime import telemetry as telemetry_mod
 from video_features_tpu_torch.runtime.faults import NULL_MANIFEST, LoopStopped, RunManifest
@@ -115,6 +120,14 @@ from video_features_tpu_torch.telemetry.ledger import (
     instrument_state,
 )
 from video_features_tpu_torch.utils.profiling import device_trace
+
+
+# --resume's answers, by the index a mesh's processes broadcast
+_SKIP_REASONS = (None, "prior permanent failure (pass --retry_failed to re-attempt)",
+                 "outputs exist")
+# a process's outcome of one step of a lockstep video, by the code the
+# processes gather (``BaseExtractor._agree``): the worst decides
+_OK, _RETRY, _FAIL, _STOP = range(4)
 
 
 def device_of(state) -> torch.device:
@@ -192,8 +205,12 @@ class BaseExtractor:
         # the content-addressed feature cache (extract/cache.py): save runs only
         self._feature_cache: Optional[FeatureCache] = None
         self._cache_digest: Optional[str] = None
+        # a mesh across launched processes opts out, as the JAX package's
+        # meshes do: a per-host store probe would diverge like a per-host
+        # --resume probe, and every skip there must be collective
         if (self.config.cache_dir and not external_call
-                and self.config.on_extraction in ("save_numpy", "save_pickle")):
+                and self.config.on_extraction in ("save_numpy", "save_pickle")
+                and not self._lockstep()):
             self._feature_cache = FeatureCache(self.config.cache_dir,
                                                hash_mode=self.config.cache_hash)
             self._cache_digest = config_digest(self.config)
@@ -425,7 +442,7 @@ class BaseExtractor:
                         instrument_state(
                             state, self.ledger, model=self.feature_type,
                             sharding=self.config.sharding,
-                            device=device.devices[0, 0] if is_mesh(device) else device,
+                            device=device.first if is_mesh(device) else device,
                         )
                     self._device_state[device] = state
         return state
@@ -455,7 +472,9 @@ class BaseExtractor:
         stop: Optional[LoopStopped] = None
         try:
             with device_trace(self.config.profile_dir):
-                if len(indices) > 1 and int(self.config.decode_workers or 0) >= 1:
+                if self._lockstep():
+                    self._run_lockstep(indices, device, wid, state, results)
+                elif len(indices) > 1 and int(self.config.decode_workers or 0) >= 1:
                     self._run_pipelined(indices, device, wid, state, results)
                 else:
                     self._run_serial(indices, device, wid, state, results)
@@ -538,6 +557,69 @@ class BaseExtractor:
                 self._on_failure(entry, "extract", attempt, requeue=requeue, device=device)
                 continue
             self._on_success(entry, attempt)
+
+    def _run_lockstep(self, indices, device, wid: str, state, results) -> None:
+        """The loop of a mesh across launched processes (``_lockstep``):
+        ``_run_serial``'s, with each outcome taken together. Every process
+        runs every video's collectives in the same order, so none may
+        retry, skip or fail a video alone. After the prepare, and again
+        after the forward and the sink (which process 0 alone runs), every
+        process gives its outcome to one gather (``_agree``), and all take
+        the same decision: go on, retry the video together at the back of
+        the same queue, or record it failed and go on. A failure inside
+        the forward cannot be agreed on, as the other processes may be
+        waiting in one of its collectives: it stops the run
+        (``_stop_on_sticky``), and theirs then fail. No decode threads and
+        no ``--video_batch`` groups here: each video is one step of all
+        the processes."""
+        queue: deque = deque((pos, idx, 1, 0.0) for pos, idx in enumerate(indices))
+        while queue:
+            pos, idx, attempt, not_before = queue.popleft()
+            entry = self.path_list[idx]
+            if attempt == 1:
+                reason = self._resume_skip_reason(entry)
+                if reason is not None:
+                    self._skip(entry, reason)
+                    continue
+            wait = not_before - time.monotonic()
+            if wait > 0:
+                time.sleep(wait)
+
+            def requeue(delay, pos=pos, idx=idx, attempt=attempt):
+                queue.append((pos, idx, attempt + 1, time.monotonic() + delay))
+
+            self._mark_start(entry)
+            with self.telemetry.span("extract", video=self._video_key(entry),
+                                     attempt=attempt, worker=wid):
+                payload = err = None
+                try:
+                    if attempt == 1:
+                        self._preflight_entry(entry)
+                    payload = self.prepare(entry)
+                except KeyboardInterrupt:
+                    raise
+                except Exception as e:  # noqa: BLE001 - agreed on below
+                    err = e
+                self._drain_decode_warnings(entry)
+                if not self._agree(entry, "prepare", attempt, err, requeue, device):
+                    continue
+                try:
+                    feats_dict = self.extract_prepared(state, payload)
+                except KeyboardInterrupt:
+                    raise
+                except Exception:  # noqa: BLE001 - the others may wait in a collective
+                    self._stop_on_sticky([(entry, attempt)], "dispatch", device)
+                finally:
+                    self._drain_decode_warnings(entry)
+            err = None
+            try:
+                self._sink_or_collect(feats_dict, entry, results, pos)
+            except KeyboardInterrupt:
+                raise
+            except Exception as e:  # noqa: BLE001 - agreed on below
+                err = e
+            if self._agree(entry, "sink", attempt, err, requeue, device):
+                self._on_success(entry, attempt)
 
     def _run_pipelined(self, indices, device, wid: str, state, results) -> None:
         """The JAX package's ``_run_pipelined`` (module docstring), with its
@@ -804,9 +886,15 @@ class BaseExtractor:
     # --- outcomes -----------------------------------------------------------
     def _sink_or_collect(self, feats_dict, entry, results, order: int) -> None:
         """``order`` is the video's position in the caller's indices:
-        external_call results are returned sorted by it."""
+        external_call results are returned sorted by it. In a mesh across
+        launched processes only process 0 writes: every process runs the
+        same loop over the same videos, the features are on all of them
+        (``sharding.gather_rows``), and one writer is enough. Queue mode's
+        processes ran disjoint videos, so each writes its own."""
         if self.external_call:
             results.append((order, feats_dict))
+            return
+        if self._lockstep() and distributed.process_index() != 0:
             return
         with self.telemetry.span("sink", video=self._video_key(entry)):
             warnings = action_on_extraction(
@@ -938,6 +1026,37 @@ class BaseExtractor:
         traceback.print_exc()
         print("Continuing...")
 
+    def _agree(self, entry, stage: str, attempt: int, exc: Optional[BaseException],
+               requeue, device) -> bool:
+        """One step of a lockstep video (``_run_lockstep``) on every
+        process: each gives its outcome, ``exc`` or None, to one gather,
+        and True comes back when none failed. Otherwise every process
+        takes the worst outcome's decision through the failure policy,
+        with its own exception or a ``faults.PeerFailure`` that names the
+        processes that failed: a retry together (``requeue``) while every
+        failure is retryable and attempts are left, else a failed record;
+        a sticky error anywhere stops every process."""
+        code = _OK
+        if exc is not None:
+            code = (_STOP if faults.is_sticky(exc) else
+                    _RETRY if faults.is_retryable(faults.classify_error(exc)) else _FAIL)
+        codes = distributed.all_gather_int(code)
+        worst = max(codes)
+        if worst == _OK:
+            return True
+        if exc is None:
+            failed = [rank for rank, c in enumerate(codes) if c != _OK]
+            exc = faults.PeerFailure(f"{stage} failed on process(es) {failed} of the mesh",
+                                     "transient" if worst == _RETRY else "permanent")
+        try:
+            raise exc
+        except Exception:  # noqa: BLE001 - the policy reads it off sys.exc_info
+            if worst == _STOP:
+                self._stop_on_sticky([(entry, attempt)], stage, device)
+            self._on_failure(entry, stage, attempt,
+                             requeue=requeue if worst == _RETRY else None, device=device)
+        return False
+
     def _stop_on_sticky(self, members, stage: str, device=None) -> None:
         """At a sticky device error, called from its ``except`` block:
         record each of the failing dispatch's ``(entry, attempt)`` members
@@ -991,14 +1110,34 @@ class BaseExtractor:
 
     def _resume_skip_reason(self, entry) -> Optional[str]:
         """Why ``--resume`` skips this video, or None to process it: its
-        outputs exist, or an earlier run recorded a permanent failure."""
+        outputs exist, or an earlier run recorded a permanent failure.
+
+        A mesh across launched processes takes process 0's answer
+        (``distributed.broadcast_one_to_all``), as the JAX package's
+        ``_already_done`` does: only process 0 writes (``_sink_or_collect``),
+        so a probe of the other hosts' files diverges, and one process
+        skipping a video the others compute would leave every sharded
+        collective of it waiting. The broadcast is itself a collective,
+        safe because in mesh mode every process asks for every video in
+        the same order. It covers the prior-failure check too, which the
+        JAX package leaves local: another host's manifest may lack
+        process 0's failure record. Queue mode must not broadcast: its
+        processes run disjoint videos, and the local probe is right."""
         if not self.config.resume or self.external_call:
             return None
+        reason = None
         if self._video_key(entry) in self._prior_failed:
-            return "prior permanent failure (pass --retry_failed to re-attempt)"
-        if self._already_done(entry):
-            return "outputs exist"
-        return None
+            reason = _SKIP_REASONS[1]
+        elif self._already_done(entry):
+            reason = _SKIP_REASONS[2]
+        if self._lockstep():
+            reason = _SKIP_REASONS[distributed.broadcast_one_to_all(_SKIP_REASONS.index(reason))]
+        return reason
+
+    def _lockstep(self) -> bool:
+        """A mesh across launched processes: every process runs every
+        video's collectives, in the same order."""
+        return self.config.sharding == "mesh" and distributed.multihost()
 
     def _skip(self, entry, reason: str) -> None:
         print(f"Skipping {video_path_of(entry)}: {reason} (--resume)")

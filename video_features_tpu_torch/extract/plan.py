@@ -211,7 +211,10 @@ def run_multi(config, feature_types, external_call: bool = False, device=None,
     device instead). Returns {feature_type: extractor-call result} for
     ``external_call`` (the in-process API, on ``device`` or the config's
     first device), else {feature_type: extractor} after each save run
-    completes. ``built``, when given, is a list each extractor is
+    completes. In a launched mesh the caller holds the process group
+    around the whole loop (``cli.main``), so every model's collectives
+    run in one group, in the same order on every process. ``built``,
+    when given, is a list each extractor is
     appended to as soon as it is built, so the caller sees every model
     that started even when a later one raises (the CLI merges the run
     manifest from it)."""

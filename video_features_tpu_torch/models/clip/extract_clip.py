@@ -34,12 +34,15 @@ round it there anyway), which halves its transfer; the device
 preprocess returns bf16. Features are fp32.
 
 ``--sharding mesh`` (``parallel/``): the state is a
-``ShardedVisionTransformer`` over the mesh. The padded frame batch
-splits over the ``data`` rows (``--preprocess device``: the uint8 frames
-split, the taps replicated on each row), each block runs Megatron-sharded
-over ``--mesh_model``, and the rows gather onto the first device before
-the copy to the host. Under ``--mesh_context`` the batch is replicated
-and the patch tokens shard inside attention (ring attention).
+``ShardedVisionTransformer`` over the mesh. The bucketed frame batch
+splits over the ``data`` rows in uneven blocks (``sharding.split_rows``,
+a row without images sitting out; ``--preprocess device``: the uint8
+frames split so, the taps replicated on each row), each block runs
+Megatron-sharded over ``--mesh_model``, and the rows gather onto the
+first device before the copy to the host (``sharding.gather_rows``; in a
+mesh across launched processes onto every process). Under
+``--mesh_context`` the batch is replicated and the patch tokens shard
+inside attention (ring attention).
 """
 
 from __future__ import annotations
@@ -110,12 +113,12 @@ class ExtractCLIP(BaseExtractor):
         self._native_decided()  # an unavailable --host_preprocess native fails here
 
     def _build(self, device):
-        """The tower on ``device``; on a mesh, built on its first device and
-        sharded over the mesh (``ShardedVisionTransformer``)."""
+        """The tower on ``device``; on a mesh, built on this process's first
+        device and sharded over its cells (``ShardedVisionTransformer``)."""
         from video_features_tpu_torch.parallel.sharding import is_mesh
 
         if is_mesh(device):
-            model = self._build(device.devices[0, 0])
+            model = self._build(device.first)
             return ShardedVisionTransformer(model, device, core=CORES[self.config.attn],
                                             context=self.config.mesh_context)
         model = VisionTransformer(self.model_cfg, core=CORES[self.config.attn])
@@ -210,15 +213,15 @@ class ExtractCLIP(BaseExtractor):
 
     def _place_sharded(self, model: ShardedVisionTransformer, padded):
         """A host batch onto the mesh's data rows (``model.place``); under
-        ``--preprocess device`` the uint8 frames padded and split over the
-        rows, the taps replicated on each (``sharding.place_raw_payload``),
-        and each row resized on its own device."""
-        from video_features_tpu_torch.parallel.sharding import place_raw_payload
+        ``--preprocess device`` the uint8 frames split over the rows, the
+        taps replicated on each (``sharding.place_raw_payload``), and each
+        row resized on its own device."""
+        from video_features_tpu_torch.parallel.sharding import Rows, place_raw_payload
 
         if not isinstance(padded, tuple):
             return model.place(padded)
         rows = place_raw_payload(padded, model.mesh, place_taps=self._device_taps)
-        return [self._images_of_raw(x, taps) for x, taps in rows]
+        return Rows([self._images_of_raw(x, taps) for x, taps in rows.parts], rows.sizes)
 
     def fetch_dispatched(self, handle) -> Dict[str, np.ndarray]:
         out, fps, timestamps_ms, keep = handle

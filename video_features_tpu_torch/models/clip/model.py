@@ -204,15 +204,22 @@ class ShardedVisionTransformer(nn.Module):
 
     The attention core of a cell:
 
-    - data parallel (the default): ``core`` on the cell's (N/d, H/m, L,
+    - data parallel (the default): ``core`` on the cell's (N_i, H/m, L,
       hd) q/k/v: the fused core, or K1 under ``--attn flash``; the batch
-      splits over ``data`` (``place`` pads and splits it) and the rows
-      are gathered onto the first device at the end;
+      splits over ``data`` in uneven blocks (``place``:
+      ``sharding.split_rows``; a row without images sits out) and the
+      rows are gathered onto the first device at the end
+      (``sharding.gather_rows``);
     - ``context`` (``--mesh_context``): the batch is replicated on every
       data row and each model shard runs a ring over its data devices
       (``parallel/ring_attention.py::context_parallel_attention``), the
       tokens sharded inside attention only; the first row's output is
       returned.
+
+    In a mesh across launched processes a process holds and runs only
+    its own data rows (``Mesh.local_rows``): the gather of the rows and
+    the ring cross the processes, every process gets the whole output,
+    and the model axis stays inside each process.
     """
 
     def __init__(self, model: VisionTransformer, mesh, core: Optional[AttnCore] = None,
@@ -221,16 +228,17 @@ class ShardedVisionTransformer(nn.Module):
         from video_features_tpu_torch.parallel.sharding import clip_vit_shard_state
 
         cfg = model.cfg
-        data, m = mesh.shape["data"], mesh.shape["model"]
+        m = mesh.shape["model"]
         if cfg.width % m:
             raise ValueError(f"--mesh_model {m} does not divide the CLIP width {cfg.width}")
         if context and cfg.heads % m:
             raise ValueError(f"head axis {cfg.heads} not divisible by mesh axis 'model' ({m})")
         self.cfg, self.mesh, self.context = cfg, mesh, context
         self.core = core or fused_attention
+        grid = mesh.devices[mesh.local_rows]  # this process's rows
         # the first cell's replica comes first: the module's device is its
         # device, where the output lands
-        distinct = list(dict.fromkeys(mesh.devices.flat))
+        distinct = list(dict.fromkeys(grid.flat))
         self.replicas = nn.ModuleList(_replica(model, dev) for dev in distinct)
         self._replicas = dict(zip(distinct, self.replicas))
         state = model.state_dict()
@@ -243,67 +251,75 @@ class ShardedVisionTransformer(nn.Module):
         shards: Dict[tuple, nn.ModuleList] = {}
         for j in range(m):
             cut = clip_vit_shard_state(state, m, j)
-            for dev in dict.fromkeys(mesh.devices[:, j]):
+            for dev in dict.fromkeys(grid[:, j]):
                 shards[dev, j] = nn.ModuleList(
                     _Shard({k: cut[f"transformer.resblocks.{b}.{name}"].to(dev, copy=True)
                             for k, name in names}) for b in range(cfg.layers))
         self.shards = nn.ModuleList(shards.values())
-        self._shards = [[shards[mesh.devices[i, j], j] for j in range(m)] for i in range(data)]
+        # data row -> its cells' shards (this process's rows)
+        self._shards = {i: [shards[mesh.devices[i, j], j] for j in range(m)]
+                        for i in mesh.local_rows}
         # cell j's columns of the width, and the heads they touch
         hd, cols = cfg.width // cfg.heads, cfg.width // m
         self._spans = [(j * cols // hd, -(-(j + 1) * cols // hd)) for j in range(m)]
         self._aligned = cfg.heads % m == 0
 
-    def place(self, x) -> List[torch.Tensor]:
-        """A host batch onto the data rows: padded and split, or under
-        ``context`` replicated (``parallel.sharding.place_batch``)."""
-        from video_features_tpu_torch.parallel.sharding import pad_batch_for, place_batch
+    def place(self, x):
+        """A host batch onto the data rows: split in uneven blocks
+        (``sharding.split_rows``), or under ``context`` replicated
+        (``sharding.place_batch``). Returns ``sharding.Rows``: this
+        process's parts and every row's size, what ``forward`` takes."""
+        from video_features_tpu_torch.parallel.sharding import place_batch, split_rows
 
         if self.context:
-            return place_batch(x, self.mesh, spec=None)
-        return place_batch(pad_batch_for(self.mesh, x), self.mesh)
+            return place_batch(x, self.mesh)
+        return split_rows(x, self.mesh)
 
-    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
-        """Per-data-row images (``place``) -> the (rows, embed_dim) fp32
-        embedding on the first cell's device."""
-        from video_features_tpu_torch.parallel.sharding import gather
+    def forward(self, placed) -> torch.Tensor:
+        """``place``'s ``(parts, sizes)`` -> the (rows, embed_dim) fp32
+        embedding on this process's first device, every data row's rows
+        in order (on every process of the mesh)."""
+        from video_features_tpu_torch.parallel.sharding import gather_rows
 
+        xs, sizes = placed
+        rows = self.mesh.running(sizes)[:len(xs)]
         dev = self.mesh.devices
         grid = [[self._replicas[dev[i, j]].embed(x.to(dev[i, j], non_blocking=True))
-                 for j in range(dev.shape[1])] for i, x in enumerate(xs)]
+                 for j in range(dev.shape[1])] for i, x in zip(rows, xs)]
         for b in range(self.cfg.layers):
-            grid = self._attention(b, grid)
-            grid = self._mlp(b, grid)
-        outs = [self._replicas[dev[i, 0]].head(row[0]) for i, row in enumerate(grid)]
-        return outs[0] if self.context else gather(outs, dev[0, 0])
+            grid = self._attention(b, rows, grid)
+            grid = self._mlp(b, rows, grid)
+        outs = [self._replicas[dev[i, 0]].head(row[0]) for i, row in zip(rows, grid)]
+        if self.context:
+            return outs[0]
+        return gather_rows(outs, self.mesh.first, sizes, self.mesh)
 
     def _norms(self, i: int, j: int, b: int) -> nn.ModuleList:
         """Block ``b``'s ``ln_1``, ``ln_2`` on cell ``(i, j)``'s device."""
         return self._replicas[self.mesh.devices[i, j]].norms[b]
 
-    def _reduce(self, b: int, grid, partials, bias: str):
+    def _reduce(self, b: int, rows, grid, partials, bias: str):
         """x + (the sum over ``model`` of the partials + the bias, once)."""
         from video_features_tpu_torch.parallel.sharding import all_reduce_sum
 
-        if len(partials[0]) == 1:  # the bias went into the matmul
+        if self.mesh.shape["model"] == 1:  # the bias went into the matmul
             return [[x + p for x, p in zip(xr, pr)] for xr, pr in zip(grid, partials)]
         out = []
-        for i, (xr, pr) in enumerate(zip(grid, partials)):
+        for i, xr, pr in zip(rows, grid, partials):
             sums = all_reduce_sum(pr)
             out.append([x + (s + self._shards[i][j][b][bias])
                         for j, (x, s) in enumerate(zip(xr, sums))])
         return out
 
-    def _attention(self, b: int, grid):
+    def _attention(self, b: int, rows, grid):
         from video_features_tpu_torch.parallel.ring_attention import context_parallel_attention
         from video_features_tpu_torch.parallel.sharding import all_gather
 
-        data, m = len(grid), len(grid[0])
+        m = self.mesh.shape["model"]
         hd = self.cfg.width // self.cfg.heads
-        N, L, _ = grid[0][0].shape
         qkv = [[F.linear(self._norms(i, j, b)[0](x), self._shards[i][j][b]["in_w"],
-                         self._shards[i][j][b]["in_b"]).reshape(N, L, 3, -1)
-                for j, x in enumerate(row)] for i, row in enumerate(grid)]
+                         self._shards[i][j][b]["in_b"]).reshape(*x.shape[:2], 3, -1)
+                for j, x in enumerate(row)] for i, row in zip(rows, grid)]
         if not self._aligned:  # a head spans shards: every cell sees all of q, k, v
             qkv = [all_gather(row, dim=3) for row in qkv]
 
@@ -312,42 +328,42 @@ class ShardedVisionTransformer(nn.Module):
             if not self._aligned:
                 t = t[..., h0 * hd:h1 * hd]
             # one copy gives contiguous (N, H, L, hd) heads for the core
-            t = t.reshape(N, L, 3, h1 - h0, hd).permute(2, 0, 3, 1, 4)
+            t = t.reshape(*t.shape[:3], h1 - h0, hd).permute(2, 0, 3, 1, 4)
             return t.contiguous().unbind(0)
 
         qkv = [[heads(t, j) for j, t in enumerate(row)] for row in qkv]
         if self.context:
-            cols = [context_parallel_attention(*([qkv[i][j][s] for i in range(data)]
-                                                 for s in range(3)))
+            cols = [context_parallel_attention(*([q[j][s] for q in qkv] for s in range(3)),
+                                               mesh=self.mesh)
                     for j in range(m)]
-            outs = [[cols[j][i] for j in range(m)] for i in range(data)]
+            outs = [[cols[j][k] for j in range(m)] for k in range(len(rows))]
         else:
             outs = [[self.core(*t) for t in row] for row in qkv]
         cols = self.cfg.width // m
         partials = []
-        for i, row in enumerate(outs):
+        for i, row in zip(rows, outs):
             pr = []
             for j, o in enumerate(row):
-                o = o.transpose(1, 2).reshape(N, L, -1)
+                o = o.transpose(1, 2).reshape(o.shape[0], o.shape[2], -1)
                 if not self._aligned:  # this cell's columns of its heads
                     c0 = j * cols - self._spans[j][0] * hd
                     o = o[..., c0:c0 + cols]
                 s = self._shards[i][j][b]
                 pr.append(F.linear(o, s["out_w"], s["out_b"] if m == 1 else None))
             partials.append(pr)
-        return self._reduce(b, grid, partials, "out_b")
+        return self._reduce(b, rows, grid, partials, "out_b")
 
-    def _mlp(self, b: int, grid):
-        m = len(grid[0])
+    def _mlp(self, b: int, rows, grid):
+        m = self.mesh.shape["model"]
         partials = []
-        for i, row in enumerate(grid):
+        for i, row in zip(rows, grid):
             pr = []
             for j, x in enumerate(row):
                 s = self._shards[i][j][b]
                 f = _GELU(F.linear(self._norms(i, j, b)[1](x), s["fc_w"], s["fc_b"]))
                 pr.append(F.linear(f, s["proj_w"], s["proj_b"] if m == 1 else None))
             partials.append(pr)
-        return self._reduce(b, grid, partials, "proj_b")
+        return self._reduce(b, rows, grid, partials, "proj_b")
 
 
 def init_weights(model: VisionTransformer, seed: int = 0) -> VisionTransformer:

@@ -47,7 +47,9 @@ frame axis. The flow net is replicated on the mesh's data rows
 (``parallel/sharding.py::replicate``); a window's B+1 frames go through
 ``halo_split``, so row ``r`` runs the unchanged model on its ``b_r + 1``
 frames and returns its ``b_r`` pairs (PWC's cost volumes at ``N = b_r``
-on each row), and the pairs gather onto the first device in order. Under
+on each row), and the pairs gather onto the first device in order (in a
+mesh across launched processes, each process runs its own rows and
+every row's pairs gather onto every process). Under
 ``--preprocess device`` the raw window splits so and the taps are
 replicated on each row. With ``--video_batch`` the fused windows split
 over the rows whole (data parallel), so no pair couples two videos; a
@@ -293,7 +295,8 @@ class PairwiseFlowExtractor(BaseExtractor):
         host, surplus pairs cut; ``taps`` (host) resize a uint8 window on
         the device first. On a mesh the window's frames split over the
         data rows with their halo frame (``halo_split``), each row's pairs
-        come from its own copy of the net, and they gather in order."""
+        come from its own copy of the net, and they gather in order (onto
+        every process of a mesh across launched processes)."""
         with torch.inference_mode():
             mesh = isinstance(model, Replicas)
             if mesh:
@@ -303,7 +306,8 @@ class PairwiseFlowExtractor(BaseExtractor):
             if taps is not None:
                 parts = [device_resize_frames(x, *self._device_taps(taps, x.device))
                          for x in parts]
-            flow = gather_rows(model(parts), model.device, sizes) if mesh else model(parts[0])
+            flow = (gather_rows(model(parts), model.device, sizes, model.mesh) if mesh
+                    else model(parts[0]))
             return HostCopy(padder.unpad(flow)[:n_pairs].permute(0, 3, 1, 2))
 
     def _stream(self, model: torch.nn.Module, entry, source=None) -> Dict[str, np.ndarray]:

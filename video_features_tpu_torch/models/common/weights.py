@@ -65,10 +65,8 @@ def load_orbax(path: str) -> Dict[str, Any]:
     the checkpoint, since a ``.msgpack`` of the same tree needs no extra
     package.
 
-    The whole tree is read on this host. That is enough while every mesh
-    is one process: CLIP's mesh cuts its shards from the host tree and the
-    other families replicate it. A multi-process mesh would restore each
-    shard on its own process instead."""
+    The whole tree is read on every host, a copy per process: enough for
+    every mesh, one process or several (``load_params``)."""
     path = os.path.abspath(path)
     try:
         import tensorstore as ts
@@ -124,7 +122,17 @@ def load_params(path: str, convert: Callable, from_jax: Callable):
     ``.msgpack`` holds the JAX package's converted Flax tree (a
     ``{"params": ...}`` wrapper stripped), which ``from_jax`` turns into
     the port's state dict; anything else is a reference-layout state dict
-    for ``convert``."""
+    for ``convert``.
+
+    Each process reads the whole checkpoint into host memory, also in a
+    mesh across launched processes, where the JAX package restores each
+    orbax shard onto its own process (its CLIP extractor's
+    ``load_orbax`` with a mesh). The port needs no shard-by-shard
+    restore: its model axis stays inside a process, so a process runs
+    every model shard of its own data rows (CLIP cuts them from this
+    host copy, ``sharding.clip_vit_shard_state``) and the other families
+    replicate whole weights on every row. A host copy per process is
+    what each process needs either way."""
     if is_orbax_checkpoint(path):
         return from_jax(_host_leaves(load_orbax(path)))
     if path.endswith(".msgpack"):

@@ -89,7 +89,7 @@ from __future__ import annotations
 import functools
 import os
 import pathlib
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import cv2
 import numpy as np
@@ -145,6 +145,7 @@ from video_features_tpu_torch.parallel.sharding import (
     is_mesh,
     replicate,
     split_rows,
+    stand_ins,
 )
 from video_features_tpu_torch.utils.labels import show_predictions_on_dataset
 
@@ -526,36 +527,41 @@ class ExtractI3D(BaseExtractor):
                                 self.flow_type)
 
     def _stream_blocks(self, models, stream: str, stack: np.ndarray, flow_imgs,
-                       geom) -> List[torch.Tensor]:
+                       geom) -> Tuple[List[torch.Tensor], List[int]]:
         """One stack's input to ``stream``'s I3D as (1, T_r, 224, 224, C)
-        time blocks on the mesh's data rows (module docstring): ``stack``
-        is the host window (raw uint8 on its bucket under ``--preprocess
-        device``), ``flow_imgs`` the window's disk flow or None."""
+        time blocks on this process's data rows (module docstring), and
+        every row's block size: ``stack`` is the host window (raw uint8 on
+        its bucket under ``--preprocess device``), ``flow_imgs`` the
+        window's disk flow or None."""
         mesh = models[stream].mesh
         if stream == "rgb":
-            parts, _ = split_rows(stack[:-1], mesh, TIME_BLOCK)
+            parts, sizes = split_rows(stack[:-1], mesh, TIME_BLOCK)
             if geom is None:
-                return [rgb_chain(p[None]) for p in parts]
+                return [rgb_chain(p[None]) for p in parts], sizes
             return [scale_to_1_1(device_resize_frames(
-                p[None], *self._device_taps(geom["rgb"], p.device))) for p in parts]
+                p[None], *self._device_taps(geom["rgb"], p.device))) for p in parts], sizes
         if flow_imgs is not None:
-            parts, _ = split_rows(flow_imgs, mesh, TIME_BLOCK)
-            return [disk_flow_chain(p[None]) for p in parts]
+            parts, sizes = split_rows(flow_imgs, mesh, TIME_BLOCK)
+            return [disk_flow_chain(p[None]) for p in parts], sizes
         # the pairs of row r are the rgb split's block r
-        parts, _ = halo_split(stack, mesh, TIME_BLOCK)
+        parts, sizes = halo_split(stack, mesh, TIME_BLOCK)
         if geom is None:
             flows = models[self.flow_type]([self._flow_input(p[None]) for p in parts])
-            return [flow_chain(f) for f in flows]
+            return [flow_chain(f) for f in flows], sizes
         flows = models[self.flow_type]([device_resize_frames(
             p[None], *self._device_taps(geom["flow"], p.device)) for p in parts])
-        return [flow_chain(f, geom["crop"]) for f in flows]
+        return [flow_chain(f, geom["crop"]) for f in flows], sizes
 
     def _dispatch_stacks_sharded(self, models: Dict[str, Replicas],
                                  stacks) -> List[Dict[str, tuple]]:
         """The mesh's dispatch: one stack at a time, each stream's time
         blocks (``_stream_blocks``) through ``I3D.forward_sharded`` over the
         stream's replicas, the (1, 1024) features and logits landing on the
-        first device."""
+        first device. On a mesh across launched processes the blocks and
+        replicas of the other processes' rows stand in on the ``meta``
+        device (``sharding.stand_ins``: a (1, T_r, 224, 224, C) block of
+        the row's size, ``Replicas.row_modules``), and the features land
+        on every process."""
         geom = self._geometry(stacks)
         outs = []
         with torch.inference_mode():
@@ -567,8 +573,12 @@ class ExtractI3D(BaseExtractor):
                 feats = {}
                 for stream in self.streams:
                     i3d = models[stream]
-                    blocks = self._stream_blocks(models, stream, stack, fl, geom)
-                    f, logits = i3d.rows[0].forward_sharded(blocks, i3d.rows)
+                    blocks, sizes = self._stream_blocks(models, stream, stack, fl, geom)
+                    channels = 3 if stream == "rgb" else 2
+                    blocks = stand_ins(blocks, i3d.mesh, sizes, lambda t, c=channels: (
+                        1, t, CENTRAL_CROP_SIZE, CENTRAL_CROP_SIZE, c))
+                    f, logits = i3d.copies[0].forward_sharded(blocks, i3d.row_modules(sizes),
+                                                              i3d.mesh)
                     feats[stream] = (HostCopy(f), HostCopy(logits) if self.config.show_pred
                                      else None)
                 outs.append(feats)

@@ -32,7 +32,10 @@ from its neighbours' frames (``parallel/sharding.py::temporal_halo``,
 zeros at the global ends) instead of ``F.pad``; the time mean is a sum
 over the blocks divided by the global count. Counterpart of the JAX
 package's I3D under a time axis sharded over 'data', where GSPMD inserts
-the halos.
+the halos. On a mesh across launched processes the list is global, each
+other process's block standing in as a ``meta`` tensor run through a
+``meta`` copy of the network (shapes only): the halos and the blocks'
+sums come from the processes that hold them.
 
 ``channel_div`` divides every channel count (1024 / ``channel_div``
 features); it exists for small test networks and is 1 everywhere else.
@@ -183,8 +186,8 @@ class I3D(nn.Module):
         return feats, logits
 
     def forward_sharded(self, parts: Sequence[torch.Tensor],
-                        replicas: Optional[Sequence["I3D"]] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        replicas: Optional[Sequence["I3D"]] = None,
+                        mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """``forward`` over one clip's time blocks: ``parts[r]`` is (B,
         T_r, H, W, C) on ``replicas[r]``'s device (default: this module
         for every part), contiguous in time, every block but the last a
@@ -199,8 +202,17 @@ class I3D(nn.Module):
         end. A clip too short for ``forward`` fails here as there.
         Returns (features (B, 1024), logits (B, 400)) on the first block's
         device: each block's sums over time and space, added in block
-        order, over the global count."""
-        from video_features_tpu_torch.parallel.sharding import gather, temporal_halo
+        order, over the global count.
+
+        On a ``mesh`` of several processes ``parts`` and ``replicas`` are
+        global (``sharding.stand_ins``): another process's block is a
+        ``meta`` tensor and its replica a ``meta`` copy, so every process
+        walks the same list of blocks, joins every halo exchange with its
+        own blocks' edges (none when its blocks sit out or drop out), and
+        counts every block; the blocks' sums are gathered from their
+        processes and added in block order, the result on this process's
+        first device."""
+        from video_features_tpu_torch.parallel.sharding import gather_blocks, temporal_halo
 
         mods = list(replicas or [self] * len(parts))[:len(parts)]
         xs = [x.permute(0, 4, 1, 2, 3).contiguous().to(m.conv3d_1a_7x7.conv3d.weight.dtype)
@@ -208,39 +220,39 @@ class I3D(nn.Module):
         for name, _ in self.named_children():
             if name == "conv3d_0c_1x1":
                 break
-            xs = _run_sharded([getattr(m, name) for m in mods], xs)
+            xs = _run_sharded([getattr(m, name) for m in mods], xs, mesh)
             mods = mods[:len(xs)]
-        xs = temporal_halo([x.float() for x in xs], 0, 1, ends=False)
+        xs = temporal_halo([x.float() for x in xs], 0, 1, ends=False, mesh=mesh)
         xs = [F.avg_pool3d(x, (2, 7, 7), stride=1) for i, x in enumerate(xs)
               if x.shape[2] > 1 or i == 0]
         mods = mods[:len(xs)]
         count = sum(x.shape[2] * x.shape[3] * x.shape[4] for x in xs)
-        dev = xs[0].device
-        feats = gather([x.sum(dim=(2, 3, 4))[None] for x in xs], dev).sum(0) / count
-        logits = gather([m.conv3d_0c_1x1(x).sum(dim=(2, 3, 4))[None]
-                         for m, x in zip(mods, xs)], dev).sum(0) / count
-        return feats, logits
+        sums = [(x.sum(dim=(2, 3, 4))[None], m.conv3d_0c_1x1(x).sum(dim=(2, 3, 4))[None])
+                for m, x in zip(mods, xs)]
+        feats, logits = gather_blocks(sums, xs[0].device if mesh is None else mesh.first, mesh)
+        return feats.sum(0) / count, logits.sum(0) / count
 
 
-def _run_sharded(layers: Sequence[nn.Module], xs: List[torch.Tensor]) -> List[torch.Tensor]:
+def _run_sharded(layers: Sequence[nn.Module], xs: List[torch.Tensor],
+                 mesh=None) -> List[torch.Tensor]:
     """One layer of ``I3D.forward_sharded``: ``layers[r]`` is the layer on
     block ``r``'s replica. A ``Mixed`` block runs each branch so, then
     concatenates per block; an op with time pads takes them as halos and
     runs with only its spatial pads."""
     layer = layers[0]
     if isinstance(layer, Mixed):
-        branches = [_run_sharded([getattr(m, b) for m in layers], xs)
+        branches = [_run_sharded([getattr(m, b) for m in layers], xs, mesh)
                     for b in ("branch_0", "branch_1", "branch_2", "branch_3")]
         return [torch.cat(per_block, dim=1) for per_block in zip(*branches)]
     if isinstance(layer, nn.Sequential):
         for i in range(len(layer)):
-            xs = _run_sharded([m[i] for m in layers], xs)
+            xs = _run_sharded([m[i] for m in layers], xs, mesh)
         return xs
     from video_features_tpu_torch.parallel.sharding import temporal_halo
 
     lo, hi = layer.time_pads
     if lo or hi:
-        xs = temporal_halo(xs, lo, hi)
+        xs = temporal_halo(xs, lo, hi, mesh=mesh)
     # only the last block can be left without outputs, and then it drops
     # (a first block keeps its op, which then fails as ``forward`` does)
     xs = [x for i, x in enumerate(xs) if layer.time_out(x.shape[2]) > 0 or i == 0]

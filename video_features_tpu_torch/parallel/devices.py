@@ -48,11 +48,11 @@ def resolve_devices(cfg=None, *, cpu: Optional[bool] = None,
                     device_ids: Optional[Sequence[int]] = None) -> List[torch.device]:
     """The devices a run drives, in the order of ``device_ids`` (every
     visible CUDA device when there are none). Under a launcher (several
-    processes, ``WORLD_SIZE`` > 1) queue mode drives this process's own
-    share of the host's devices (``local_share``), and ``device_ids``
-    index into that share, as the JAX package's index its local devices.
-    A mesh is one process over one host's devices, so mesh mode under a
-    launcher is refused."""
+    processes, ``WORLD_SIZE`` > 1) each process drives its own share of
+    the host's devices (``local_share``), and ``device_ids`` index into
+    that share, as the JAX package's index its local devices: queue
+    mode's workers, or under ``--sharding mesh`` this process's data rows
+    of the global mesh (``parallel/distributed.py``)."""
     if cfg is not None:
         cpu = cfg.cpu if cpu is None else cpu
         device_ids = cfg.device_ids if device_ids is None else device_ids
@@ -60,12 +60,6 @@ def resolve_devices(cfg=None, *, cpu: Optional[bool] = None,
         return [torch.device("cpu")]
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is visible; pass --cpu to run on the CPU")
-    sharding = getattr(cfg, "sharding", "queue") if cfg is not None else "queue"
-    if sharding == "mesh" and world_size() > 1:
-        raise ValueError(
-            f"--sharding mesh is one process over this host's devices; a mesh "
-            f"across {world_size()} launched processes (WORLD_SIZE) is not supported"
-        )
     devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     if world_size() > 1:
         devices = local_share(devices)

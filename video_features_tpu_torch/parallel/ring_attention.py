@@ -14,7 +14,10 @@ Layout: (N, H, L, d) tensors. Right padding of L (to a multiple of the
 ring's size) is masked through ``kv_len``, the global count of valid
 tokens; the padded query rows compute values the caller slices off.
 
-- ``ring_attention``: the per-shard collective, over lists of shards;
+- ``ring_attention``: the per-shard collective, over lists of shards
+  (on a mesh across launched processes, this process's shards of a ring
+  over every data row: the hops between processes are paired sends and
+  receives, ``sharding.ring_permute``);
 - ``context_parallel_attention``: what the sharded CLIP forward runs
   under ``--mesh_context``: one head shard's q/k/v, replicated on the
   ring's devices, in; L padded (CLIP's 50 tokens) and sharded, the ring,
@@ -41,7 +44,7 @@ from video_features_tpu_torch.ops.attention import (
     init_carry,
     online_softmax_step,
 )
-from video_features_tpu_torch.parallel.sharding import Mesh, all_gather, ring_permute
+from video_features_tpu_torch.parallel.sharding import Mesh, all_gather_data, ring_permute
 
 
 def ring_attention(
@@ -50,6 +53,7 @@ def ring_attention(
     vs: Sequence[torch.Tensor],
     kv_len: Optional[int] = None,
     block_size: Optional[int] = None,
+    mesh: Optional[Mesh] = None,
 ) -> List[torch.Tensor]:
     """Shard ``i`` of the ring is ``qs[i]``/``ks[i]``/``vs[i]``, (N, H,
     L_local, d) on the ring's ``i``-th device; returns the output shards.
@@ -57,16 +61,19 @@ def ring_attention(
     ``(i - t) mod n``, its tokens at global offset ``src * L_local`` and
     masked from ``kv_len`` on; then every K/V shard moves one device on.
     ``block_size`` chunks each arriving shard through
-    ``accumulate_blockwise``."""
-    n = len(qs)
+    ``accumulate_blockwise``. On a ``mesh`` the ring is the mesh's ``n``
+    data rows and the shards given are this process's rows of it
+    (``Mesh.local_rows``)."""
+    n = mesh.shape["data"] if mesh is not None else len(qs)
+    rows = mesh.local_rows if mesh is not None else range(n)
     devices = [q.device for q in qs]
     l_local = ks[0].shape[2]
     scale = qs[0].shape[-1] ** -0.5
     carries = [init_carry(q) for q in qs]
     k_cur, v_cur = list(ks), list(vs)
     for hop in range(n):
-        for i in range(n):
-            src = (i - hop) % n
+        for i, row in enumerate(rows):
+            src = (row - hop) % n
             if block_size is not None:
                 carries[i] = accumulate_blockwise(
                     qs[i], k_cur[i], v_cur[i], carries[i], scale, block_size,
@@ -81,8 +88,8 @@ def ring_attention(
                 qs[i], k_cur[i], v_cur[i], *carries[i], scale, kv_mask=mask
             )
         if hop < n - 1:  # the JAX scan's last hop only restores the placement
-            k_cur = ring_permute(k_cur, devices)
-            v_cur = ring_permute(v_cur, devices)
+            k_cur = ring_permute(k_cur, devices, mesh)
+            v_cur = ring_permute(v_cur, devices, mesh)
     return [_finalize(*c, q.dtype) for c, q in zip(carries, qs)]
 
 
@@ -92,6 +99,7 @@ def context_parallel_attention(
     vs: Sequence[torch.Tensor],
     kv_len: Optional[int] = None,
     block_size: Optional[int] = None,
+    mesh: Optional[Mesh] = None,
 ) -> List[torch.Tensor]:
     """One head shard's attention under ``--mesh_context``: ``qs[i]`` etc.
     are the same (N, H, L, d) q/k/v replicated on the ring's ``i``-th
@@ -100,8 +108,10 @@ def context_parallel_attention(
     ``kv_len`` on), the ring runs, and the output shards are gathered
     back along L on every device (the all-gather GSPMD inserts before the
     row-parallel output projection). Returns the (N, H, L, d) output on
-    each device."""
-    n = len(qs)
+    each device. On a ``mesh`` the ring is every data row of the mesh and
+    the devices given are this process's rows of it (``ring_attention``)."""
+    n = mesh.shape["data"] if mesh is not None else len(qs)
+    rows = mesh.local_rows if mesh is not None else range(n)
     L = qs[0].shape[2]
     to = -(-L // n) * n
     step = to // n
@@ -109,10 +119,11 @@ def context_parallel_attention(
         kv_len = L
 
     def local(ts):
-        return [_pad_tokens(t, to)[:, :, i * step:(i + 1) * step] for i, t in enumerate(ts)]
+        return [_pad_tokens(t, to)[:, :, i * step:(i + 1) * step] for i, t in zip(rows, ts)]
 
-    ring = ring_attention(local(qs), local(ks), local(vs), kv_len=kv_len, block_size=block_size)
-    return [o[:, :, :L] for o in all_gather(ring, dim=2)]
+    ring = ring_attention(local(qs), local(ks), local(vs), kv_len=kv_len, block_size=block_size,
+                          mesh=mesh)
+    return [o[:, :, :L] for o in all_gather_data(ring, 2, mesh)]
 
 
 def _per_head_shard(q, k, v, mesh: Mesh, axis_name: str, head_axis: Optional[str],

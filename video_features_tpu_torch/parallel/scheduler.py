@@ -17,7 +17,9 @@ device. Threads, not processes: decode and CUDA launches release the GIL.
 ``mesh_feature_extraction`` (``--sharding mesh``): one sharded forward
 over a (data, model) grid of every selected device
 (``parallel/sharding.py``), driven by this thread as the extractor's
-"device".
+"device". Under a launcher every process runs it over one global grid
+(``parallel/distributed.py``): each walks the whole path list in the
+same order, drives its own data rows, and only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -42,7 +44,12 @@ def mesh_feature_extraction(extractor, devices: Optional[Sequence] = None) -> No
     sets the model axis; the frame batch splits over ``data``). Refused,
     with the JAX package's messages, for an extractor that does not
     declare mesh support, tensor parallelism (``--mesh_model > 1``) or
-    context parallelism (``--mesh_context``)."""
+    context parallelism (``--mesh_context``).
+
+    In a launched process group ``devices`` are this process's and the
+    mesh is global (``sharding.make_mesh``); a sticky error, a failed
+    collective among them, then raises out of the run: the other
+    processes cannot go on without this one."""
     from video_features_tpu_torch.parallel.sharding import make_mesh
 
     if devices is None:
@@ -68,7 +75,8 @@ def mesh_feature_extraction(extractor, devices: Optional[Sequence] = None) -> No
             f"{type(extractor).__name__} does not declare support "
             "(mesh_context_capable)"
         )
-    extractor(device=make_mesh(devices, model=model_axis))
+    mesh = make_mesh(devices, model=model_axis)
+    extractor(device=mesh, raise_stop=mesh.multiprocess)
 
 
 def _on_device(device):

@@ -135,18 +135,31 @@ class InjectedSinkKill(RuntimeError):
     stage = "sink"
 
 
+class PeerFailure(RuntimeError):
+    """In a mesh across launched processes, another process failed this
+    video's step (its own record says why): every process takes the
+    decision of the worst ``error_class`` among them
+    (``extract/base.py::_agree``)."""
+
+    def __init__(self, message: str, error_class: str) -> None:
+        super().__init__(message)
+        self.error_class = error_class
+
+
 # --- classification ---------------------------------------------------------
 
 _OOM_MARKERS = ("RESOURCE_EXHAUSTED", "out of memory", "Out of memory", "OOM")
 # a CUDA error other than an allocation failure is sticky in the process
-# (every later launch fails the same way), and a kernel that does not
-# build or load does not build on retry either
+# (every later launch fails the same way), a kernel that does not build
+# or load does not build on retry either, and after a failed collective
+# the processes of a mesh are out of step for good
 _STICKY_MARKERS = (
     "CUDA error",
     "illegal memory access",
     "device-side assert",
     "nvcc",
     "kernel library",
+    "collective failed",
 )
 
 
@@ -157,6 +170,8 @@ def classify_error(exc: BaseException) -> str:
     allocation failure, sticky CUDA error) win over the broad OSError
     check (CorruptVideoError IS an OSError, but bad bytes never become
     good bytes)."""
+    if isinstance(exc, PeerFailure):
+        return exc.error_class
     if isinstance(exc, (CorruptVideoError, AudioDecodeError, ResourceCapExceeded)):
         return "permanent"
     if isinstance(exc, DecodeTimeout):
