@@ -254,19 +254,18 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     short input (phase 4's first clip, 16 frames, a 10 s wav, 17 frames,
     one 64-frame stack) under deterministic cuDNN: a random-init run, whose
     seeded weights, read back from the card, are saved as a ``.pt`` in the
-    reference layout and, through ``params_to_jax`` and ``save_msgpack``,
-    as the JAX package's ``.msgpack`` (I3D: a directory of its reference
-    names, the only form either package looks up for it). Each file
-    through the CLI: the weights on the card equal to the seeded ones bit
-    for bit, the features within 1e-6 of the largest magnitude of the
-    random-init run (0 expected), K1 12 a CLIP run, K2 10 a PWC run and 5
-    an I3D run, and the ms from ``--weights_path`` to a model on the card,
-    per family and format. CLIP ``--sharding mesh`` with the card listed
-    twice from the ``.msgpack`` against the random-init mesh run. Where ``tensorstore``
-    imports, each family also from an orbax directory (written here with
-    tensorstore in orbax's layout); else an orbax directory is refused,
-    naming ``tensorstore``, and the script prints ``orbax: refused (no
-    tensorstore)``;
+    reference layout and, through one ``params_to_jax`` tree, as the JAX
+    package's ``.msgpack`` (``save_msgpack``) and orbax directory
+    (``save_orbax``, the port's own OCDBT and zarr writer); I3D's are
+    directories of its reference names, the only form either package
+    looks up for it. Each file through the CLI: the weights on the card
+    equal to the seeded ones bit for bit, the features within 1e-6 of the
+    largest magnitude of the random-init run (0 expected), K1 12 a CLIP
+    run, K2 10 a PWC run and 5 an I3D run, and the ms from
+    ``--weights_path`` to a model on the card, per family and format,
+    beside the host's read of the converted file alone. CLIP ``--sharding
+    mesh`` with the card listed twice from the ``.msgpack`` and the orbax
+    directory against the random-init mesh run;
 24. ``--sharding mesh`` across launched processes
     (``parallel/distributed.py``): ``python -m torch.distributed.run
     --standalone --nproc_per_node 2`` of a small rank program (``RANK_CLI``:
@@ -4272,38 +4271,6 @@ def run_multiprocess_path(root: str, device):
     return launches
 
 
-def write_orbax(tree, path: str) -> None:
-    """``tree`` (nested dicts of float32 arrays) as a directory in orbax's
-    ``StandardCheckpointer`` layout: each leaf a zarr array named by its
-    dotted keys in one ocdbt store, listed in ``_METADATA``. Written with
-    tensorstore, as a host without orbax can; only where tensorstore
-    imports."""
-    import tensorstore as ts
-
-    leaves, stack = [], [((), tree)]
-    while stack:
-        keys, node = stack.pop()
-        if isinstance(node, dict):
-            stack += [(keys + (k,), v) for k, v in node.items()]
-        else:
-            leaves.append((keys, np.ascontiguousarray(node, np.float32)))
-    os.makedirs(path)
-    ctx = ts.Context()
-    for keys, arr in leaves:
-        store = ts.open({"driver": "zarr", "kvstore": {
-            "driver": "ocdbt", "base": f"file://{os.path.abspath(path)}/", "path": ".".join(keys)},
-            "metadata": {"shape": list(arr.shape), "chunks": list(arr.shape) or [1],
-                         "dtype": "<f4", "compressor": None}},
-            create=True, context=ctx).result()
-        store.write(arr).result()
-    meta = {"tree_metadata": {str(keys): {
-        "key_metadata": [{"key": k, "key_type": 2} for k in keys],
-        "value_metadata": {"value_type": "np.ndarray", "skip_deserialize": False}}
-        for keys, _ in leaves}, "use_ocdbt": True, "use_zarr3": False}
-    with open(os.path.join(path, "_METADATA"), "w") as f:
-        json.dump(meta, f)
-
-
 @contextlib.contextmanager
 def timed_builds(cls):
     """Record each outermost ``cls._build(device)`` while the block runs:
@@ -4347,7 +4314,8 @@ def run_weights_path(root: str, device):
     from video_features_tpu_torch.config import parse_args
     from video_features_tpu_torch.convert_weights import converters
     from video_features_tpu_torch.extract.registry import build_extractor
-    from video_features_tpu_torch.models.common.flax_msgpack import save_msgpack
+    from video_features_tpu_torch.models.common.flax_msgpack import load_msgpack, save_msgpack
+    from video_features_tpu_torch.models.common.orbax import load_orbax, save_orbax
     from video_features_tpu_torch.models.i3d.extract_i3d import WEIGHT_FILES
     from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
     from video_features_tpu_torch.ops.flash_attention import flash_attention
@@ -4355,11 +4323,6 @@ def run_weights_path(root: str, device):
 
     card = card_line()
     print(f"weights: {card}")
-    try:
-        import tensorstore  # noqa: F401 - only whether it imports
-        orbax = True
-    except ImportError:
-        orbax = False
     launches = {"flash_attention": 0, "local_correlation": 0}
     idx = str(device.index or 0)
     tmp, wdir = os.path.join(root, "tmp"), os.path.join(root, "weights")
@@ -4447,24 +4410,22 @@ def run_weights_path(root: str, device):
             if ft == "i3d":  # the reference names under one directory, as the JAX package's
                 files["pt"] = os.path.join(wdir, "i3d_pt")
                 os.makedirs(files["pt"], exist_ok=True)
+                files["orbax"] = os.path.join(wdir, "i3d_orbax")
+                os.makedirs(files["orbax"], exist_ok=True)
                 for kind, sd in seeded.items():
                     torch.save(sd, os.path.join(files["pt"], WEIGHT_FILES[kind]))
-                if orbax:
-                    files["orbax"] = os.path.join(wdir, "i3d_orbax")
-                    os.makedirs(files["orbax"], exist_ok=True)
-                    for kind, sd in seeded.items():
-                        write_orbax(converters("pwc" if kind == "pwc" else "i3d")[2](sd),
-                                    os.path.join(files["orbax"], WEIGHT_FILES[kind]))
+                    save_orbax(converters("pwc" if kind == "pwc" else "i3d")[2](sd),
+                               os.path.join(files["orbax"], WEIGHT_FILES[kind]))
             else:
-                to_jax = converters(ft)[2]
                 files["pt"] = os.path.join(wdir, f"{tag}.pt")
                 torch.save({f"visual.{k}": v for k, v in seeded.items()} if ft.startswith("CLIP")
                            else seeded, files["pt"])
+                tree = converters(ft)[2](seeded)
                 files["msgpack"] = os.path.join(wdir, f"{tag}.msgpack")
-                save_msgpack(to_jax(seeded), files["msgpack"])
-                if orbax:
-                    files["orbax"] = os.path.join(wdir, f"{tag}_orbax")
-                    write_orbax(to_jax(seeded), files["orbax"])
+                save_msgpack(tree, files["msgpack"])
+                files["orbax"] = os.path.join(wdir, f"{tag}_orbax")
+                save_orbax(tree, files["orbax"])
+                del tree
             write_s = time.perf_counter() - t0
 
             row = {"family": ft, "random init": init_ms}
@@ -4486,6 +4447,15 @@ def run_weights_path(root: str, device):
                     raise AssertionError(f"weights {ft} from {fmt}: err {err}, K1 {k1}, K2 {k2},"
                                          f" differing tensors {bad[:5]}")
                 row[fmt] = load_ms
+            # the host's read of each converted file alone, the rest of the
+            # load being params_from_jax and the model's build on the card
+            for fmt, read in (("msgpack", load_msgpack), ("orbax", load_orbax)):
+                if fmt in files:
+                    t0 = time.perf_counter()
+                    for sub in ([os.path.join(files[fmt], WEIGHT_FILES[k]) for k in seeded]
+                                if ft == "i3d" else [files[fmt]]):
+                        read(sub)
+                    row[f"{fmt} read"] = (time.perf_counter() - t0) * 1e3
             if ft == "i3d":
                 print("weights i3d from msgpack: not a route, in either package: I3D looks up "
                       "only its reference file names under --weights_path")
@@ -4497,7 +4467,7 @@ def run_weights_path(root: str, device):
         mesh = ("--sharding", "mesh", "--device_ids", idx, idx)
         ref, k1, _ = run("weights_mesh_random", "CLIP-ViT-B/32", flags, paths,
                          "--allow_random_init", *mesh)
-        for fmt in ("msgpack", "orbax") if orbax else ("msgpack",):
+        for fmt in ("msgpack", "orbax"):
             path = os.path.join(wdir, "CLIP-ViT-B-32" + (".msgpack" if fmt == "msgpack"
                                                          else "_orbax"))
             got, k1, k2 = run(f"weights_mesh_{fmt}", "CLIP-ViT-B/32", flags, paths,
@@ -4511,29 +4481,13 @@ def run_weights_path(root: str, device):
     finally:
         torch.backends.cudnn.deterministic = deterministic
 
-    if not orbax:  # the refusal, through the extractor's build, naming the package
-        fake = os.path.join(wdir, "orbax_probe")
-        os.makedirs(fake, exist_ok=True)
-        with open(os.path.join(fake, "_METADATA"), "w") as f:
-            json.dump({"tree_metadata": {}}, f)
-        flags, paths = families["resnet50"][:2]
-        ex = build_extractor(parse_args(["--feature_type", "resnet50", *flags, "--weights_path",
-                                         fake, "--video_paths", *paths]))
-        try:
-            ex._build(device)
-        except RuntimeError as exc:
-            refusal = str(exc)
-        else:
-            raise AssertionError("an orbax directory without tensorstore was not refused")
-        if "tensorstore" not in refusal or fake not in refusal:
-            raise AssertionError(f"the orbax refusal names neither package nor path: {refusal}")
-        print(f"orbax: refused (no tensorstore): {refusal}")
-    print(f"weights, ms from --weights_path to a model on the card (random init beside it) "
-          f"[{card}]:")
-    absent = {"msgpack": "not a route", "orbax": "refused (no tensorstore)"}
+    print(f"weights, ms from --weights_path to a model on the card (the host's read of the "
+          f"file alone in brackets; random init beside it) [{card}]:")
     for row, write_s in table:
-        cells = ", ".join(f"{fmt} {row[fmt]:.1f}" if fmt in row else f"{fmt} {absent[fmt]}"
-                          for fmt in ("pt", "msgpack", "orbax"))
+        cells = ", ".join(
+            (f"{fmt} {row[fmt]:.1f}" + (f" (read {row[fmt + ' read']:.1f})"
+                                        if fmt + " read" in row else ""))
+            if fmt in row else f"{fmt} not a route" for fmt in ("pt", "msgpack", "orbax"))
         print(f"  {row['family']}: {cells}; random init {row['random init']:.1f} (files "
               f"written in {write_s:.1f} s)")
     print(f"weights: phase wall {time.perf_counter() - t_phase:.1f} s")

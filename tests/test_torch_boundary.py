@@ -123,21 +123,27 @@ def test_serve_cache_and_exposition_are_scanned(module):
 
 
 def test_every_module_imports_without_jax(tmp_path):
-    """Every port module imports with JAX, Flax, msgpack, orbax and
-    tensorstore hidden, and a ``.msgpack`` still loads: the port reads
-    Flax's format with its own codec."""
+    """Every port module imports with JAX, Flax, msgpack, orbax,
+    tensorstore and zstandard hidden, and a ``.msgpack`` and an orbax
+    directory still load: the port reads Flax's format and orbax's with
+    its own codecs."""
     code = (
         "import sys, importlib\n"
         "for name in ('jax', 'jaxlib', 'flax', 'video_features_tpu', 'msgpack', 'orbax',\n"
-        "             'orbax.checkpoint', 'tensorstore'):\n"
+        "             'orbax.checkpoint', 'tensorstore', 'zstandard'):\n"
         "    sys.modules[name] = None\n"
         f"for mod in {_modules()!r} + ['chip_smoke']:\n"
         "    importlib.import_module(mod)\n"
         "import numpy as np\n"
         "from video_features_tpu_torch.models.common.flax_msgpack import save_msgpack\n"
+        "from video_features_tpu_torch.models.common.orbax import save_orbax\n"
         "from video_features_tpu_torch.models.common.weights import load_params\n"
         f"path = {str(tmp_path / 'w.msgpack')!r}\n"
         "save_msgpack({'params': {'dense': {'kernel': np.eye(3, dtype=np.float32)}}}, path)\n"
+        "tree = load_params(path, None, lambda t: t)\n"
+        "assert np.array_equal(tree['dense']['kernel'], np.eye(3)), tree\n"
+        f"path = {str(tmp_path / 'w_orbax')!r}\n"
+        "save_orbax({'dense': {'kernel': np.eye(3, dtype=np.float32)}}, path)\n"
         "tree = load_params(path, None, lambda t: t)\n"
         "assert np.array_equal(tree['dense']['kernel'], np.eye(3)), tree\n"
         "print('ok')\n"

@@ -12,9 +12,9 @@
   layout, so the tolerance is 0), and the port's ``load_params`` of that
   tree, written by Flax, gives back the seeded state dict bit for bit;
 - orbax directories written by the JAX package's ``save_orbax``, read by
-  the port through ``tensorstore``: CLIP, ResNet, and I3D's directory of
-  reference names holding an orbax ``i3d_rgb.pt`` beside a ``.pt``
-  ``i3d_flow.pt``;
+  the port's own codec (``tests/test_torch_orbax.py`` holds it to orbax
+  and tensorstore): CLIP, ResNet, and I3D's directory of reference names
+  holding an orbax ``i3d_rgb.pt`` beside a ``.pt`` ``i3d_flow.pt``;
 - the tiny CLIP tower through ``ExtractCLIP`` from ``.msgpack`` and orbax
   against the ``.pt`` run (tolerance 0: the same weights, the same
   graph), and on a mesh of two CPU rows from orbax against the one-device
@@ -22,7 +22,10 @@
 - ``python -m video_features_tpu_torch.convert_weights`` against
   ``scripts/convert_weights.py`` on ResNet-18: the same bytes, and the
   same tree through the JAX package's ``load_params``;
-- the refusals: orbax without ``tensorstore``, and an orbax ``dst``.
+- an orbax directory read with ``tensorstore``, ``orbax`` and
+  ``zstandard`` hidden, and the converter's refusals of a ``dst`` before
+  it reads ``src``: an existing orbax ``dst`` (its format inferred or
+  given) and a file-like suffix without ``--format``.
 """
 
 import functools
@@ -335,22 +338,28 @@ def test_converter_cli_writes_what_the_jax_script_writes(monkeypatch, tmp_path, 
 # --- the refusals -------------------------------------------------------------------
 
 def test_orbax_without_tensorstore_is_refused_by_name(monkeypatch, clip_files):
-    monkeypatch.setitem(sys.modules, "tensorstore", None)
-    with pytest.raises(RuntimeError, match="needs the tensorstore package") as err:
-        load_params(clip_files["orbax"], _fail_convert, clip_convert.params_from_jax)
-    assert clip_files["orbax"] in str(err.value) and ".msgpack" in str(err.value)
+    """No refusal: with ``tensorstore``, ``orbax`` and ``zstandard`` hidden,
+    the orbax directory loads the ``.pt``'s weights bit for bit."""
+    for name in ("tensorstore", "orbax", "orbax.checkpoint", "zstandard"):
+        monkeypatch.setitem(sys.modules, name, None)
+    want = load_params(clip_files["pt"], functools.partial(clip_convert.convert_state_dict,
+                                                           layers=TINY["layers"]),
+                       clip_convert.params_from_jax)
+    _equal_state(load_params(clip_files["orbax"], _fail_convert, clip_convert.params_from_jax),
+                 want)
 
 
 @pytest.mark.parametrize("dst,extra,message", [
-    ("weights_dir", [], "would be an orbax checkpoint directory"),
-    ("weights.msgpack", ["--format", "orbax"], "would be an orbax checkpoint directory"),
+    ("weights_dir", [], "orbax dst already exists"),
+    ("weights.ckpt", ["--format", "orbax"], "orbax dst already exists"),
     ("weights.msgpak", [], "has a file-like suffix but isn't .msgpack"),
 ], ids=["inferred-orbax", "format-orbax", "suffix-typo"])
 def test_converter_cli_refuses_dst_before_loading(tmp_path, dst, extra, message):
     missing = tmp_path / "never_read.pth"  # dst is checked first: src is never opened
-    with pytest.raises(SystemExit, match=message) as err:
+    if "exists" in message:  # an existing dst: a directory, or a file under --format
+        (tmp_path / dst).mkdir() if not extra else (tmp_path / dst).write_bytes(b"kept")
+    before = sorted(tmp_path.iterdir())
+    with pytest.raises(SystemExit, match=message):
         convert_weights.main(["--feature_type", "resnet18", *extra, str(missing),
                               str(tmp_path / dst)])
-    if "orbax" in message:
-        assert "scripts/convert_weights.py" in str(err.value)
-    assert not list(tmp_path.iterdir())
+    assert sorted(tmp_path.iterdir()) == before

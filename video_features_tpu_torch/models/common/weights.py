@@ -5,20 +5,22 @@ come from local files only, in the formats the JAX package's
 ``load_params`` takes: ``.pt``/``.pth`` torch pickles (loaded with
 ``weights_only``) or ``.npz`` archives in the reference's layout, and the
 JAX package's converted Flax trees, a ``.msgpack`` file (read by
-``flax_msgpack``, no extra package) or an orbax checkpoint directory
-(read through ``tensorstore``, imported only there). ``compute_dtype``
-and ``cast_for_compute`` give a built model the parameters of its
-``--dtype bfloat16`` graph; converters stay fp32 in and fp32 out.
+``flax_msgpack``) or an orbax checkpoint directory (read by ``orbax``,
+the port's own OCDBT and zarr codec); neither needs an extra package.
+``compute_dtype`` and ``cast_for_compute`` give a built model the
+parameters of its ``--dtype bfloat16`` graph; converters stay fp32 in
+and fp32 out.
 """
 
 from __future__ import annotations
 
-import json
 import os
-from typing import Any, Callable, Dict, Sequence
+from typing import Callable, Dict, Sequence
 
 import numpy as np
 import torch
+
+from video_features_tpu_torch.models.common.orbax import is_orbax_checkpoint, load_orbax
 
 
 def load_state_dict(path: str) -> Dict[str, np.ndarray]:
@@ -44,75 +46,14 @@ def load_state_dict(path: str) -> Dict[str, np.ndarray]:
     }
 
 
-def is_orbax_checkpoint(path: str) -> bool:
-    """An orbax checkpoint directory, told from a plain weights directory
-    (I3D's directory of reference-named files) by its marker file."""
-    return os.path.isdir(path) and (
-        os.path.exists(os.path.join(path, "_CHECKPOINT_METADATA"))
-        or os.path.exists(os.path.join(path, "_METADATA"))
-    )
-
-
-def load_orbax(path: str) -> Dict[str, Any]:
-    """An orbax ``StandardCheckpointer`` directory -> its nested dict of
-    numpy arrays.
-
-    ``_METADATA``'s ``tree_metadata`` lists each leaf's keys; the leaf is
-    a zarr array named by the dotted keys in the directory's ocdbt
-    key-value store (orbax's defaults; a checkpoint written with
-    ``use_ocdbt`` off or ``use_zarr3`` on is refused). ``tensorstore``
-    reads them, imported here and nowhere else; without it this refuses
-    the checkpoint, since a ``.msgpack`` of the same tree needs no extra
-    package.
-
-    The whole tree is read on every host, a copy per process: enough for
-    every mesh, one process or several (``load_params``)."""
-    path = os.path.abspath(path)
-    try:
-        import tensorstore as ts
-    except ImportError:
-        raise RuntimeError(
-            f"{path} is an orbax checkpoint directory, and reading one needs the "
-            "tensorstore package, which is not installed here. Convert the weights to a "
-            ".msgpack file instead (python -m video_features_tpu_torch.convert_weights), "
-            "which needs no extra package."
-        ) from None
-    with open(os.path.join(path, "_METADATA")) as f:
-        meta = json.load(f)
-    if not meta.get("use_ocdbt", True) or meta.get("use_zarr3"):
-        raise ValueError(f"{path}: an orbax layout this reader does not take (use_ocdbt "
-                         f"{meta.get('use_ocdbt')}, use_zarr3 {meta.get('use_zarr3')})")
-    ctx = ts.Context()
-    opened = {}
-    for entry in meta["tree_metadata"].values():
-        keys = [k["key"] for k in entry["key_metadata"]]
-        kinds = {k.get("key_type") for k in entry["key_metadata"]}
-        value = entry.get("value_metadata", {}).get("value_type")
-        if kinds - {2} or value not in ("np.ndarray", "jax.Array"):
-            raise ValueError(f"{path}: leaf {'.'.join(map(str, keys))} is not an array "
-                             f"under dict keys ({value}, key types {sorted(kinds)})")
-        kvstore = {"driver": "ocdbt", "base": f"file://{path}/", "path": ".".join(keys)}
-        opened[tuple(keys)] = ts.open({"driver": "zarr", "kvstore": kvstore},
-                                      open=True, read=True, context=ctx)
-    tree: Dict[str, Any] = {}
-    for keys, store in opened.items():
-        node = tree
-        for k in keys[:-1]:
-            node = node.setdefault(k, {})
-        node[keys[-1]] = np.asarray(store.result().read().result())
-    return tree
-
-
 def _host_leaves(tree):
     """A converted tree with every leaf a numpy array: ``bfloat16`` leaves
-    (torch tensors from ``flax_msgpack``, or tensorstore's own numpy type)
-    widened to float32, which holds each of them exactly."""
+    (torch tensors from ``flax_msgpack`` and ``orbax``) widened to float32,
+    which holds each of them exactly."""
     if isinstance(tree, dict):
         return {k: _host_leaves(v) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
         return tree.float().numpy()
-    if getattr(getattr(tree, "dtype", None), "name", "") == "bfloat16":
-        return np.asarray(tree, np.float32)
     return tree
 
 
