@@ -292,7 +292,19 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     there are two cards, the same over NCCL, a card a rank; where there
     are four, CLIP at data 2 x ``--mesh_model 2`` over NCCL, two cards a
     rank, against the one-process 2 x 2 mesh; else a line saying so;
-25. a ``kernels`` JSON line (each kernel's launches on its main path, in
+25. graftcheck on the card host, and a witness for its host-sync lint
+    (``run_lint_path``, last): ``python -m video_features_tpu_torch.analysis``
+    over the tree as shipped must exit 0 (its time printed); then one warm
+    CLIP group (``--video_batch 4``, phase 4's clips, ``--attn flash``)
+    and one warm I3D + PWC stack (phase 5's 65-frame clip) run again
+    under ``torch.cuda.set_sync_debug_mode("warn")``, and each reported
+    synchronization's innermost frame in the port is judged by the lint
+    (``analysis/hostsync.py::sync_site_verdict``): the phase fails on a
+    sync in a hot module's function that GC10x neither allowlists
+    (fetch/drain/sink) nor waives. A deliberate sync (the waived, cached
+    upload of ``ops/preprocess.py::_channel_stats``, called uncached)
+    shows the witness sees one;
+26. a ``kernels`` JSON line (each kernel's launches on its main path, in
     the fused runs, in the device preprocess runs, in the telemetry runs,
     in the bf16 phase, in the served requests, in phases 18-24, its
     records at the fused shapes and at the mesh shapes, and K1's bf16
@@ -305,7 +317,7 @@ RAFT, ResNet, R(2+1)D and VGGish reach no ``pallas_call`` in the JAX
 package, nor does the device preprocess's resample (the JAX package
 leaves it to XLA). Every launch count is read from a run that starts with
 all counts at 0 (phase 24's ranks each start at 0), and each of phases
-4-24 prints its wall time.
+4-25 prints its wall time.
 """
 
 from __future__ import annotations
@@ -4494,6 +4506,132 @@ def run_weights_path(root: str, device):
     return launches
 
 
+def sync_witness(fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")`` and
+    return ``{(path, line, function): count}`` of the innermost frame in
+    the port of every synchronization it reported (a sync with no port
+    frame is keyed ``None``)."""
+    import traceback
+    import warnings
+
+    sites: dict = {}
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            return  # e.g. the mode's own "prototype feature" notice
+        port = [f for f in traceback.extract_stack()[:-1]
+                if f"{os.sep}video_features_tpu_torch{os.sep}" in f.filename]
+        key = (port[-1].filename, port[-1].lineno, port[-1].name) if port else None
+        sites[key] = sites.get(key, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+def run_lint_path(root: str, device):
+    """Phase 25; returns K1's and K2's launches in its runs."""
+    t_phase = time.perf_counter()
+    # the sweep (one host core, ~10 s) runs beside the witness below
+    sweep = subprocess.Popen([sys.executable, "-m", "video_features_tpu_torch.analysis"],
+                             cwd=os.path.dirname(os.path.abspath(__file__)),
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        launches = _witness_paths(root, device)
+        out, err = sweep.communicate(timeout=300)
+    finally:
+        if sweep.poll() is None:
+            sweep.kill()
+            sweep.wait()
+    sweep_s = time.perf_counter() - t_phase
+    last = (out.strip().splitlines() or ["(no output)"])[-1]
+    print(f"graftcheck over video_features_tpu_torch/ on the card host: exit "
+          f"{sweep.returncode}, done {sweep_s:.1f} s into the phase, {os.cpu_count()} "
+          f"cores: {last}")
+    if sweep.returncode != 0:
+        raise AssertionError(f"graftcheck exit {sweep.returncode}:\n{out[-4000:]}"
+                             f"{err[-2000:]}")
+    print(f"lint: phase wall {time.perf_counter() - t_phase:.1f} s [{card_line()}]")
+    return launches
+
+
+def _witness_paths(root: str, device):
+    """Phase 25's witness: a warm CLIP group and a warm I3D + PWC stack
+    under the sync debug mode, each sync judged by the lint; then a
+    deliberate one. Returns K1's and K2's launches."""
+    from video_features_tpu_torch.analysis.hostsync import sync_site_verdict
+    from video_features_tpu_torch.config import ExtractionConfig
+    from video_features_tpu_torch.extract.registry import build_extractor
+    from video_features_tpu_torch.ops import preprocess
+    from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
+    from video_features_tpu_torch.ops.flash_attention import flash_attention
+
+    clips = synth_clips(root)
+    clip65 = os.path.join(root, "i3d65.mp4")  # phase 5's
+    clip_ex = build_extractor(ExtractionConfig(
+        feature_type="CLIP-ViT-B/32", video_paths=clips, extract_method=f"uni_{FRAMES}",
+        attn="flash", allow_random_init=True, video_batch=N_VIDEOS, decode_workers=2),
+        external_call=True)
+    i3d_ex = build_extractor(ExtractionConfig(
+        feature_type="i3d", flow_type="pwc", video_paths=[clip65], allow_random_init=True),
+        external_call=True)
+    # the group's 4 videos fuse into one forward: K1 once a layer
+    runs = [("a warm CLIP group", clip_ex, LAYERS, 0),
+            ("a warm I3D + PWC stack", i3d_ex, 0, len(CORR_LEVELS))]
+    reset_counts()
+    verdicts = {}
+    for label, ex, k1_want, k2_want in runs:
+        ex(device=device)  # warm: models, cuDNN plans, taps, allocator
+        k1, k2 = flash_attention.launches, local_correlation_kernel.launches
+        t0 = time.perf_counter()
+        sites = sync_witness(lambda ex=ex: ex(device=device))
+        wall = time.perf_counter() - t0
+        k1, k2 = flash_attention.launches - k1, local_correlation_kernel.launches - k2
+        if (k1, k2) != (k1_want, k2_want):
+            raise AssertionError(f"{label}: K1 {k1} (want {k1_want}), K2 {k2} "
+                                 f"(want {k2_want})")
+        judged = {key: (n, "outside the port" if key is None
+                        else sync_site_verdict(key[0], key[1]))
+                  for key, n in sites.items()}
+        verdicts[label] = judged
+        print(f"sync witness, {label} under set_sync_debug_mode('warn'): {wall:.2f} s, "
+              f"K1 {k1}, K2 {k2}, {sum(sites.values())} synchronization(s) reported"
+              + "".join(f"\n  {n} x {_site(key)}: {verdict}"
+                        for key, (n, verdict) in sorted(judged.items(), key=str)))
+    bad = [(label, key) for label, judged in verdicts.items()
+           for key, (_, verdict) in judged.items() if verdict == "unaccounted"]
+    if bad:
+        raise AssertionError(f"syncs in hot functions GC10x neither allowlists nor "
+                             f"waives: {bad}")
+
+    # the witness's own check: a waived upload, called past its cache
+    sites = sync_witness(lambda: preprocess._channel_stats.__wrapped__(
+        (0.5,), (0.25,), device))
+    judged = {key: sync_site_verdict(key[0], key[1]) for key in sites if key}
+    print(f"sync witness, ops/preprocess.py::_channel_stats uncached: "
+          + ", ".join(f"{n} x {_site(key)}: {judged.get(key, 'outside the port')}"
+                      for key, n in sorted(sites.items(), key=str)))
+    if not judged or set(judged.values()) != {"waived"}:
+        raise AssertionError(f"the witness saw no waived sync in _channel_stats: {sites}")
+    return {"flash_attention": flash_attention.launches,
+            "local_correlation": local_correlation_kernel.launches}
+
+
+def _site(key) -> str:
+    if key is None:
+        return "no frame of the port"
+    path, line, name = key
+    return f"{os.path.relpath(path, os.path.dirname(os.path.abspath(__file__)))}:{line} {name}"
+
+
 def _preempt_events(out: str) -> list:
     """The daemon manifests' (event, feature type, beneficiary) rows of
     preemption, rollback and re-warm, in order."""
@@ -4557,6 +4695,7 @@ def main() -> int:
             ("parallel", lambda: run_parallel_path(root, device)),
             ("mesh", lambda: run_mesh_path(root, device)),
             ("converted weights", lambda: run_weights_path(root, device)),
+            ("lint", lambda: run_lint_path(root, device)),
         ]
         results = {}
         for name, phase in phases:
@@ -4572,7 +4711,7 @@ def main() -> int:
         later_names = ("async ingest", "device preprocess", "telemetry and preflight",
                        "bfloat16", "serve", "disk flow and output flags", "preemption",
                        "native host path", "parallel", "mesh", "converted weights",
-                       "multi-process mesh")
+                       "multi-process mesh", "lint")
         later = [results[n] for n in later_names]
         k1_launches = results["CLIP"] + sum(r["flash_attention"] for r in later)
         k2_launches = results["I3D + PWC"] + sum(r["local_correlation"] for r in later)

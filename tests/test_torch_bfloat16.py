@@ -8,9 +8,11 @@ existing converters; the JAX side runs as its own tests run it
 (``cast_floats_for_compute`` plus the model's ``dtype=jnp.bfloat16``,
 Pallas K1 in interpret mode under ``--attn flash``).
 
-Drift is relative L2 in float64 (``analysis/parity.py::rel_drift``).
-Tolerances, each read from the JAX package's committed
-``analysis/parity_budget.json`` (``max_rel_drift``), none looser:
+Drift is relative L2 in float64 (``analysis/parity.py::rel_drift``, the
+port's copy). Tolerances, each read from ``config.PARITY_CEILINGS``
+through the port's ``analysis/parity.py::max_rel_drift`` (the JAX
+package's committed ``analysis/parity_budget.json``, held equal to it
+below), none looser:
 
 - each family's forward at small or full width (CLIP 2 layers x 64 wide
   with each of the three attention cores, ResNet-18 at 64x64, R(2+1)D-18
@@ -54,7 +56,7 @@ import jax
 import jax.numpy as jnp
 
 from video_features_tpu import config as jax_config
-from video_features_tpu.analysis.parity import load_parity_budget, max_rel_drift, rel_drift
+from video_features_tpu.analysis.parity import load_parity_budget
 from video_features_tpu.config import ExtractionConfig as JaxConfig
 from video_features_tpu.models.clip import convert as jax_clip_convert
 from video_features_tpu.models.clip import model as jax_clip
@@ -74,6 +76,7 @@ from video_features_tpu.ops import preprocess as jax_pre
 from video_features_tpu.ops.attention import blockwise_attention as jax_blockwise
 from video_features_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
 from video_features_tpu_torch import cli
+from video_features_tpu_torch.analysis.parity import max_rel_drift, rel_drift
 from video_features_tpu_torch import config as port_config
 from video_features_tpu_torch.config import ExtractionConfig, sanity_check
 from video_features_tpu_torch.extract.registry import build_extractor

@@ -412,24 +412,38 @@ def test_disabled_mode_and_module_hooks():
     off.close()
 
 
+# spans each recording thread writes: enough that the flushes below land
+# while all four still record, bounded so the test's cost does not grow
+# with how long a loaded host takes to flush
+SPANS_PER_THREAD = 5000
+
+
 def test_flush_concurrent_with_recording(tmp_path):
     tele = tm.Telemetry(output_root=str(tmp_path), enabled=True)
     stop = threading.Event()
+    flushed_while_recording = []
 
     def record():
-        while not stop.is_set():
+        for _ in range(SPANS_PER_THREAD):
+            if stop.is_set():
+                break
             with tele.span("sink", video="v"):
                 pass
 
     threads = [threading.Thread(target=record) for _ in range(4)]
     for t in threads:
         t.start()
-    for _ in range(20):
+    flushes = 0
+    while flushes < 20 or any(t.is_alive() for t in threads):
+        alive = any(t.is_alive() for t in threads)
         tele.flush()
+        flushes += 1
+        flushed_while_recording.append(alive)
     stop.set()
     for t in threads:
         t.join(timeout=10)
     assert not any(t.is_alive() for t in threads)
+    assert any(flushed_while_recording)
     assert len(tele.spans()) == tele.timer.counts["sink"] > 0
     tele.close()
 

@@ -338,6 +338,7 @@ def sanity_check(cfg: ExtractionConfig) -> ExtractionConfig:
         ("video_dir", cfg.video_dir),
         ("flow_dir", cfg.flow_dir),
         ("weights_path", cfg.weights_path),
+        ("profile_dir", cfg.profile_dir),
     ):
         if val is not None and not str(val).strip():
             raise ValueError(f"--{flag} must be a non-empty path")

@@ -158,7 +158,6 @@ class BaseExtractor:
         # taps, kept so their ids stay theirs; the placed taps)
         self._taps: Dict[tuple, tuple] = {}
         self._taps_lock = threading.Lock()
-        self._native_lock = threading.Lock()
         # queue mode's workers share this extractor: warmup builds each
         # device's state once, under this lock
         self._build_lock = threading.Lock()
@@ -353,18 +352,19 @@ class BaseExtractor:
         prints that the library is unavailable and goes on with PIL, this
         raises, naming the build error: a quiet switch would hide which
         chain ran."""
-        self._use_native = (self.config.host_preprocess == "native"
-                            and not self._device_preprocess_enabled())
-        if not self._use_native:
-            return
-        from video_features_tpu_torch import native
+        use = (self.config.host_preprocess == "native"
+               and not self._device_preprocess_enabled())
+        if use:
+            from video_features_tpu_torch import native
 
-        if not native.available():
-            raise RuntimeError(
-                "--host_preprocess native requested but the preprocess library "
-                f"is unavailable: {native.build_error()}"
-            )
-        self._native_threads = max(native.cpu_budget() // self._queue_workers(), 1)
+            if not native.available():
+                raise RuntimeError(
+                    "--host_preprocess native requested but the preprocess library "
+                    f"is unavailable: {native.build_error()}"
+                )
+            self._native_threads = max(native.cpu_budget() // self._queue_workers(), 1)
+        # set last: a reader that sees the decision sees its thread count
+        self._use_native = use
 
     def _queue_workers(self) -> int:
         """The device workers of this run, which share the host's cores:
@@ -379,12 +379,15 @@ class BaseExtractor:
         return max(torch.cuda.device_count(), 1)
 
     def _native_decided(self) -> bool:
-        """The one-shot chain decision; the lock keeps it one-shot under
-        concurrent decode workers. The extractors with a PIL chain call it
-        in ``__init__``, so an unavailable library fails the setup."""
-        with self._native_lock:
-            if self._use_native is None:
-                self._decide_native()
+        """The chain decision, made once. The extractors with a PIL chain
+        call it in ``__init__``, so an unavailable library fails the setup
+        and a decode worker finds it made. No lock is held around it: the
+        library's build (a ``g++`` run of up to 300 s) is one-shot under
+        ``native``'s own lock, so two callers that race here both wait for
+        that one build and decide alike, and ``_decide_native`` publishes
+        the answer last."""
+        if self._use_native is None:
+            self._decide_native()
         return bool(self._use_native)
 
     # the host taps are lru_cached per source resolution (ops/resize.py), so

@@ -160,7 +160,11 @@ class HostCopy:
 
     def numpy(self) -> np.ndarray:
         if self._event is not None:
-            self._event.synchronize()  # an asynchronous kernel error surfaces here
+            # graftcheck: host-sync — the fetch boundary's one wait: the
+            # loop calls numpy() in fetch_*/drain_* (allowlisted), after
+            # the next group is dispatched; an asynchronous kernel error
+            # surfaces here
+            self._event.synchronize()
         return self._host.numpy()
 
 

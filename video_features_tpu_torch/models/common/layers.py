@@ -50,6 +50,15 @@ class InstanceNorm2d(_Fp32Stats, nn.InstanceNorm2d):
     pass
 
 
+def device_vector(values, like: torch.Tensor) -> torch.Tensor:
+    """A (len(values),) tensor of Python floats in ``like``'s dtype on its
+    device, filled there. ``torch.tensor(values, device=...)`` copies from
+    pageable memory, and PyTorch waits for the device's queue to drain
+    before it returns (GC104): inside a forward that is a stall per call.
+    Each value is rounded to the dtype as ``torch.tensor`` rounds it."""
+    return torch.stack([like.new_full((), float(v)) for v in values])
+
+
 def conv3d_impl() -> str:
     """The process-wide default lowering of :class:`Conv3dCompat`:
     ``VFT_CONV3D_IMPL`` (``direct`` or ``decomposed``), else ``direct``."""

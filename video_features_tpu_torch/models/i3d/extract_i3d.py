@@ -349,6 +349,9 @@ class ExtractI3D(BaseExtractor):
         mspf = 1000.0 / fps
         return [got[i] for i in kept], fps, [i * mspf for i in kept]
 
+    # graftcheck: fp32-island — host PIL-parity decode (--preprocess host):
+    # pil_resize wants float pixels; the production path is --preprocess
+    # device, which ships uint8 and resizes on the card (4x fewer bytes)
     def _decode(self, path: str, grid=None):
         """(min-side-256 float32 frames, fps, timestamps_ms); under
         ``--preprocess device`` the raw uint8 frames, resized on the
@@ -377,6 +380,9 @@ class ExtractI3D(BaseExtractor):
                 raise ValueError(f"flow pair mismatch: {x.name} vs {y.name}")
         return list(zip(xs, ys))
 
+    # graftcheck: fp32-island — precomputed-flow ingest: grayscale JPEGs
+    # already encode clamped flow, decoded float here for the [-20, 20]
+    # un-mapping; this input mode never takes the uint8 wire
     def _read_flow_images(self, flow_dir: str, pairs=None) -> np.ndarray:
         """Every flow JPEG pair decoded ONCE -> (N, H, W, 2) float32 (the
         windows overlap when step < stack; decoding per window would read

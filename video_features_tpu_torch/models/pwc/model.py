@@ -36,6 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from video_features_tpu_torch.models.common.layers import device_vector
 from video_features_tpu_torch.ops.correlation import local_correlation
 from video_features_tpu_torch.ops.resize import resize_bilinear
 
@@ -68,8 +69,7 @@ def backward_warp(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     gx = torch.linspace(-1.0, 1.0, W, dtype=flow.dtype, device=flow.device)
     gy = torch.linspace(-1.0, 1.0, H, dtype=flow.dtype, device=flow.device)
     base = torch.stack(torch.meshgrid(gx, gy, indexing="xy"), dim=-1)  # (H, W, 2)
-    norm = torch.tensor([(W - 1.0) / 2.0, (H - 1.0) / 2.0], dtype=flow.dtype,
-                        device=flow.device)
+    norm = device_vector([(W - 1.0) / 2.0, (H - 1.0) / 2.0], flow)
     grid = base + flow.permute(0, 2, 3, 1) / norm
     inp = torch.cat([feat, feat.new_ones((N, 1, H, W))], dim=1)
     out = F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
@@ -193,7 +193,7 @@ class PWCNet(nn.Module):
             )
         flow, feat = prev
         flow = resize_bilinear(flow + self.moduleRefiner(feat), (H, W))
-        scale = torch.tensor([W / Wp, H / Hp], dtype=flow.dtype, device=flow.device)
+        scale = device_vector([W / Wp, H / Hp], flow)
         flow = 20.0 * flow.permute(0, 2, 3, 1) * scale
         flow = flow.reshape(B, T - 1, H, W, 2)
         return flow if batched else flow[0]

@@ -49,7 +49,11 @@ from video_features_tpu_torch.io.video import (
     probe,
     stream_frames,
 )
-from video_features_tpu_torch.models.common.layers import explicit_conv3d_impl, set_conv3d_impl
+from video_features_tpu_torch.models.common.layers import (
+    device_vector,
+    explicit_conv3d_impl,
+    set_conv3d_impl,
+)
 from video_features_tpu_torch.models.common.weights import (
     cast_for_compute,
     compute_dtype,
@@ -80,8 +84,8 @@ def kinetics_preprocess(frames: torch.Tensor) -> torch.Tensor:
     -> Resize(128, 171) -> Normalize -> CenterCrop(112)."""
     x = frames.float().div(255.0).movedim(-1, -3)  # (..., 3, H, W)
     x = resize_bilinear(x, PRE_CENTRAL_CROP_SIZE, align_corners=False)
-    mean = torch.tensor(KINETICS_MEAN, dtype=x.dtype, device=x.device).reshape(3, 1, 1)
-    std = torch.tensor(KINETICS_STD, dtype=x.dtype, device=x.device).reshape(3, 1, 1)
+    mean = device_vector(KINETICS_MEAN, x).reshape(3, 1, 1)
+    std = device_vector(KINETICS_STD, x).reshape(3, 1, 1)
     x = (x - mean) / std
     h, w = PRE_CENTRAL_CROP_SIZE
     top = int(round((h - CENTRAL_CROP_SIZE) / 2.0))
@@ -154,6 +158,9 @@ class ExtractR21D(BaseExtractor):
             return model.run(stacks, prepare=self._prepare)
         return model(self._prepare(place_batch(stacks, device_of(model))))
 
+    # graftcheck: fp32-island — the documented --uint8_transfer off escape
+    # hatch: it trades the 4x wire bytes for a transport with a slow uint8
+    # copy path, so the host cast here is the feature, not a leak
     def _maybe_widen(self, stacks: np.ndarray) -> np.ndarray:
         """``--uint8_transfer off``: the stacks cast to fp32 on the host, for
         a transport whose uint8 copies are slow; ``kinetics_preprocess``

@@ -40,7 +40,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from video_features_tpu_torch.models.common.layers import BatchNorm2d, InstanceNorm2d
+from video_features_tpu_torch.models.common.layers import (
+    BatchNorm2d,
+    InstanceNorm2d,
+    device_vector,
+)
 
 CORR_LEVELS = 4
 CORR_RADIUS = 4
@@ -213,8 +217,7 @@ def lookup_corr(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
         h, w = corr.shape[-2:]
         pts = centre / 2 ** lvl + delta  # (B, 2r+1, 2r+1, (x, y)) in pixels
         # align_corners=True maps -1 and 1 to the first and last pixel centres
-        scale = torch.tensor([2.0 / (w - 1), 2.0 / (h - 1)], dtype=pts.dtype,
-                             device=pts.device)
+        scale = device_vector([2.0 / (w - 1), 2.0 / (h - 1)], pts)
         grid = pts * scale - 1.0
         # grid[b, i, j] = (x_i, y_j) -> out[b, 0, i, j]
         win = F.grid_sample(corr, grid, mode="bilinear", padding_mode="zeros",

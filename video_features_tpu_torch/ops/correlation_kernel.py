@@ -148,6 +148,7 @@ def _forward_fn():
     return fn
 
 
+# graftcheck: cuda-kernel
 def local_correlation_kernel(
     f1: torch.Tensor, f2: torch.Tensor, max_displacement: int = MAX_DISPLACEMENT
 ) -> torch.Tensor:

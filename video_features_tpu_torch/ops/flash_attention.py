@@ -57,6 +57,7 @@ def _forward_fn():
     return fn
 
 
+# graftcheck: cuda-kernel
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,

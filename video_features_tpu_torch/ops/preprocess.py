@@ -69,6 +69,10 @@ def pil_center_crop(img: np.ndarray, crop: int) -> np.ndarray:
     return img[top : top + crop, left : left + crop]
 
 
+# graftcheck: fp32-island — torchvision ToTensor parity reference: the
+# production wire ships uint8 and casts on the device (--preprocess device
+# and the dispatch's cast after the H2D); this host float path pins the
+# reference chain the device graph is held to.
 def to_float_chw(img: np.ndarray) -> np.ndarray:
     """HWC uint8 -> CHW float32 in [0, 1] (torchvision ToTensor)."""
     return np.transpose(img, (2, 0, 1)).astype(np.float32) / 255.0
@@ -200,6 +204,8 @@ def _channel_stats(mean: tuple, std: tuple, device: torch.device):
     """(C, 1, 1) fp32 mean and std on ``device``, made once: a tensor built
     from a list copies from pageable memory, which would hold the host
     until the device's queue drains."""
+    # graftcheck: host-sync — lru_cached per (mean, std, device): the one
+    # blocking upload happens at a device's first dispatch, not per video
     return tuple(torch.tensor(v, dtype=torch.float32, device=device).reshape(-1, 1, 1)
                  for v in (mean, std))
 

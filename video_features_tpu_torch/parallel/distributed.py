@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import threading
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -56,6 +57,7 @@ from video_features_tpu_torch.parallel.devices import world_size
 TIMEOUT = datetime.timedelta(minutes=10)
 
 _group: Dict[str, torch.device] = {}  # the joined group's wire device
+_group_lock = threading.Lock()  # initialize/shutdown against a loop's reads
 
 
 class CollectiveError(RuntimeError):
@@ -89,7 +91,8 @@ def initialize(cfg) -> bool:
         torch.cuda.set_device(device)
         kw["device_id"] = device  # eager: a failed NCCL set-up fails here
     dist.init_process_group(backend, init_method="env://", timeout=TIMEOUT, **kw)
-    _group["device"] = device if backend == "nccl" else torch.device("cpu")
+    with _group_lock:
+        _group["device"] = device if backend == "nccl" else torch.device("cpu")
     print(f"distributed: rank {dist.get_rank()} of {dist.get_world_size()}, backend "
           f"{backend}, {local} process(es) on this host over {cards} visible card(s)")
     return True
@@ -99,7 +102,8 @@ def shutdown() -> None:
     """Leave the process group ``initialize`` joined."""
     if dist.is_initialized():
         dist.destroy_process_group()
-    _group.clear()
+    with _group_lock:
+        _group.clear()
 
 
 def multihost() -> bool:

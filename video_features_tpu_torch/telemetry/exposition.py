@@ -68,6 +68,10 @@ _PLAIN_COUNTERS = {
         "Videos fully extracted and committed by the sink (resume-safe "
         "completions, not attempts)."
     ),
+    # graftcheck: GC701 — no producer on purpose: eager PyTorch compiles
+    # nothing, and the exposition keeps the JAX package's schema so one
+    # dashboard reads both packages (runtime/telemetry.py leaves the
+    # recompile watch out, as STAGES keeps "compile")
     "compiles": (
         "XLA compilations observed by RecompileWatch — growth after "
         "warmup means a shape leaked past bucketing."
