@@ -12,8 +12,11 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
    never called by the port) and the least time the card could take,
    with that bound's share of the kernel's time (K1 also at L=65, one
    row past a KV tile, and at d=128); then K1 and K2 at the fused shapes
-   of phase 13 (K1 at N=64, K2 at N=16 and N=128), each with a profiler
-   window of its own while the profiler still keeps every launch, and the
+   of phase 13 (K1 at N=64, K2 at N=16 and N=128) and K1 at the mesh
+   shard shapes of phases 21, 24 and 26 in fp32 and in bf16 (N=16 H=6,
+   N=8 H=12, N=8 H=6; bf16 at ``KERNEL_ATOL[torch.bfloat16]``), each with
+   a profiler window of its own while the profiler still keeps every
+   launch, and the
    banded resample of ``--preprocess device`` (plain torch ops) at the
    main paths' shapes: its time, device time, launches and bytes bound;
 4. the CLIP path through the port's CLI: CLIP-ViT-B/32 at full width
@@ -274,7 +277,12 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     past ``MULTIPROCESS_TIMEOUT_S``: ``--feature_types CLIP-ViT-B/32 i3d``
     (``uni_12 --attn flash``, ``--flow_type pwc``, a 64/64 stack) on
     phase 5's 65-frame clip, one data row a rank, one shared
-    ``--output_path``. On this card both ranks share it over gloo (the
+    ``--output_path``, at ``--dtype float32`` and then, in the same ranks
+    of the same launch, at ``--dtype bfloat16`` (a second pass of
+    ``RANK_CLI``, its process group on a fresh store), each pass against
+    the one-process mesh of its dtype and the bf16 files also against the
+    fp32 ones (fp32 at the fp32 shapes, within the families' ceilings),
+    K1 fed bf16 and K2 fp32 in the bf16 pass. On this card both ranks share it over gloo (the
     layout rule; NCCL runs no two ranks of one communicator on one card),
     the backend each rank printed checked against the rule. Each file
     0.000e+00 from the one-process mesh ``--device_ids 0 0`` of the same
@@ -291,7 +299,8 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     forward and K2 5 a stack in each rank, at shapes phase 3 holds. Where
     there are two cards, the same over NCCL, a card a rank; where there
     are four, CLIP at data 2 x ``--mesh_model 2`` over NCCL, two cards a
-    rank, against the one-process 2 x 2 mesh; else a line saying so;
+    rank, against the one-process 2 x 2 mesh, in both passes; else a line
+    saying so;
 25. graftcheck on the card host, and a witness for its host-sync lint
     (``run_lint_path``, last): ``python -m video_features_tpu_torch.analysis``
     over the tree as shipped must exit 0 (its time printed); then one warm
@@ -304,25 +313,48 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
     (fetch/drain/sink) nor waives. A deliberate sync (the waived, cached
     upload of ``ops/preprocess.py::_channel_stats``, called uncached)
     shows the witness sees one;
-26. a ``kernels`` JSON line (each kernel's launches on its main path, in
+26. ``--dtype bfloat16`` on the mesh (``run_bf16_mesh_path``, after phase
+    22), the card listed twice (distinct cards where there are two), each
+    case through the CLI with phase 16's flags and clips and held against
+    phase 16's one-device bf16 and fp32 runs (made here if absent): CLIP
+    (``uni_12``) at data 2 and ``--mesh_model 2`` with ``--attn flash``
+    (K1 bf16 at N=8 H=12 and N=16 H=6, 12 x 2 cells a forward) and at
+    data 2 ``--mesh_context`` with ``--attn fused`` (ring attention, K1
+    0); ResNet-50, R(2+1)D-18 (``--batch_size 4``), PWC, RAFT and I3D +
+    PWC at data 2 (K2 fp32, 5 a row a window or stack, at N=4 and N=32).
+    Gates: each data-parallel mesh within relative L2 a tenth of its
+    family's "model" ceiling of the one-device bf16 run (the flows also
+    printed against their largest magnitude), RAFT (20 iterations on
+    random weights: chaotic) within its "e2e" ceiling, and ResNet-50's,
+    PWC's and RAFT's also within phase 22's fp32 mesh tolerances of a
+    one-device bf16 run at the row's ``--batch_size`` (the same shapes as
+    a row's forwards; deterministic cuDNN on both); CLIP's tensor- and
+    context-parallel meshes within its "e2e" ceiling of the one-device
+    bf16 run; every mesh's files fp32 at the fp32 shapes and within the
+    family's ceiling of the fp32 run; K1 and K2's launches, shapes and
+    dtypes. Where there are four cards, also CLIP 2 x 2 (data x
+    ``--mesh_model 2``) on cards 0-3 (K1 at N=8 H=6);
+27. a ``kernels`` JSON line (each kernel's launches on its main path, in
     the fused runs, in the device preprocess runs, in the telemetry runs,
-    in the bf16 phase, in the served requests, in phases 18-24, its
-    records at the fused shapes and at the mesh shapes, and K1's bf16
-    record at the CLIP path's shape), then the ``ok`` JSON line last.
+    in the bf16 phase, in the served requests, in phases 18-26, its
+    records at the fused shapes and at the mesh shapes in fp32 and bf16,
+    and K1's bf16 record at the CLIP path's shape), then the ``ok`` JSON
+    line last.
 
-Every CLI run of phases 4-14, 16-18 and 20-24 passes ``--strict``, so a video that fails
+Every CLI run of phases 4-14, 16-18, 20-24 and 26 passes ``--strict``, so a video that fails
 in isolation fails its phase (phase 15's first run leaves it out: two of
 its files must fail). Phases 7-11 launch no hand-written kernel:
 RAFT, ResNet, R(2+1)D and VGGish reach no ``pallas_call`` in the JAX
 package, nor does the device preprocess's resample (the JAX package
 leaves it to XLA). Every launch count is read from a run that starts with
-all counts at 0 (phase 24's ranks each start at 0), and each of phases
-4-25 prints its wall time.
+all counts at 0 (phase 24's ranks each start each pass at 0), and each
+of phases 4-26 prints its wall time.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import glob
 import ctypes
@@ -377,10 +409,11 @@ ATTENTION_CASES = [
     ((16, 12, 65, 64), torch.float32, None),  # one row past a KV tile: two stages
     ((16, 12, 197, 128), torch.float32, None),  # d=128, the most shared memory
 ]
-# K1's shapes on phases 21's and 24's mesh runs, held and timed in phase
-# 3: a --mesh_model 2 shard's 6 heads of uni_12's 16 frames, one of two
-# data shards' 8 frames (a rank's in phase 24), and a cell of a 2 x 2
-# mesh (phases 21 and 24 on four cards)
+# K1's shapes on phases 21's, 24's and 26's mesh runs, held and timed in
+# phase 3 in fp32 and in bf16 (phase 26, and phase 24's bf16 pass): a
+# --mesh_model 2 shard's 6 heads of uni_12's 16 frames, one of two data
+# shards' 8 frames (a rank's in phase 24), and a cell of a 2 x 2 mesh
+# (phases 21, 24 and 26 on four cards)
 MESH_ATTENTION_SHAPES = {"N=16, H=6 (--mesh_model 2)": (16, 6, 50, 64),
                          "N=8, H=12 (two data shards)": (8, 12, 50, 64),
                          "N=8, H=6 (2 x 2 mesh)": (8, 6, 50, 64)}
@@ -547,6 +580,29 @@ NATIVE_SWEEP_WIDTHS = (320, 330, 340, 342, 418, 420, 424, 426, 428, 432)
 NATIVE_SENTINEL = 256
 NATIVE_PIL_BOUNDS = {"imagenet": (0.01, 0.08), "clip": (0.02, 0.15)}
 NATIVE_REL_L2 = 0.05
+# phases 24 and 26: --dtype bfloat16 on the mesh, each run beside an fp32
+# run of the same grid. Phase 26 holds each data-parallel mesh (CLIP data
+# 2, ResNet-50, R(2+1)D-18, PWC, RAFT, I3D + PWC) against phase 16's
+# one-device bf16 run of the same clips and flags within relative L2 this
+# share of the family's "model" ceiling
+# (tests/test_torch_i3d_sequence_parallel.py's precedent: a row does the
+# one-device bf16 arithmetic on fewer rows, where cuDNN and cuBLAS may pick
+# other kernels, and one bf16 rounding moved by them is 2^-8 of a value);
+# where a one-device run at the row's --batch_size has the rows' shapes
+# (ResNet-50, PWC, RAFT), the mesh is held to it at phase 22's fp32 mesh
+# tolerances. RAFT's 20 update iterations on random weights amplify any
+# rounding (tests/test_torch_bfloat16.py holds its bf16 graph in a
+# contracting regime for that): one bf16 rounding that cuDNN's kernel at
+# half the batch moves grows into a drift of the kind bf16 has against
+# fp32, so its mesh is held to its "e2e" ceiling of the full-batch run
+# and, exactly, to the run at the row's batch. CLIP's tensor- and
+# context-parallel cells round their partial products to bf16 before the
+# sum over the model axis (or the ring's blocks), a rounding the one-device
+# tower has not, so they are held to CLIP's "e2e" ceiling; every bf16 mesh
+# against the one-device fp32 run within its family's ceiling
+# (bf16_ceiling), as phase 16 holds the one-device bf16 run
+DTYPES = ("float32", "bfloat16")
+BF16_MESH_DP_SHARE = 0.1
 
 
 def card_line() -> str:
@@ -857,9 +913,13 @@ def cli_in_fresh_process(argvs):
 
 
 # phase 24's rank program (torchrun runs one a process): deterministic
-# cuDNN, as in the one-process run it is held to, the CLI, then this
-# process's wrapper counts and the K1/K2 input shapes (recorders around the
-# real wrappers, whose counts stay the only counts) into a file a rank
+# cuDNN, as in the one-process run it is held to, then each pass's CLI run
+# in turn, each followed by this process's wrapper counts and the K1/K2
+# input shapes and dtypes of that pass (recorders around the real
+# wrappers, whose counts stay the only counts) in a file a pass a rank. A
+# later pass joins a process group of its own on a fresh store that rank 0
+# hosts at the pass's port: a group made again on torchrun's store would
+# meet the keys the first group left there
 RANK_CLI = """
 import json, os, sys
 import torch
@@ -869,35 +929,62 @@ from video_features_tpu_torch.models.clip import extract_clip
 from video_features_tpu_torch.models.pwc import model as pwc_model
 from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
 from video_features_tpu_torch.ops.flash_attention import flash_attention
-seen = {"K1": set(), "K2": set()}
+seen = {"K1": set(), "K2": set(), "K1 dtypes": set(), "K2 dtypes": set()}
 flash, corr = extract_clip.CORES["flash"], pwc_model.local_correlation
 
 def k1(q, k, v, **kw):
     seen["K1"].add(tuple(q.shape))
+    seen["K1 dtypes"].add(str(q.dtype)[6:])
     return flash(q, k, v, **kw)
 
 def k2(f1, f2, *a, **kw):
     seen["K2"].add(tuple(f1.shape))
+    seen["K2 dtypes"].add(str(f1.dtype)[6:])
     return corr(f1, f2, *a, **kw)
 
 extract_clip.CORES["flash"], pwc_model.local_correlation = k1, k2
-cli.main(json.loads(sys.argv[1]))
-torch.cuda.synchronize()
 rank = int(os.environ["RANK"])
-with open(f"{sys.argv[2]}.rank{rank}.json", "w") as f:
-    json.dump({"rank": rank, "flash_attention": flash_attention.launches,
-               "local_correlation": local_correlation_kernel.launches,
-               "K1": sorted(seen["K1"]), "K2": sorted(seen["K2"]),
-               "peak_reserved": torch.cuda.max_memory_reserved()}, f)
+passes, ports = json.loads(sys.argv[1]), json.loads(sys.argv[3])
+for n, argv in enumerate(passes):
+    if n:
+        os.environ["MASTER_PORT"] = str(ports[n - 1])
+        os.environ.pop("TORCHELASTIC_USE_AGENT_STORE", None)
+    for got in seen.values():
+        got.clear()
+    flash_attention.launches = local_correlation_kernel.launches = 0
+    cli.main(argv)
+    torch.cuda.synchronize()
+    with open(f"{sys.argv[2]}.pass{n}.rank{rank}.json", "w") as f:
+        json.dump({"rank": rank, "flash_attention": flash_attention.launches,
+                   "local_correlation": local_correlation_kernel.launches,
+                   **{key: sorted(got) for key, got in seen.items()},
+                   "peak_reserved": torch.cuda.max_memory_reserved()}, f)
 """
 
 
-def launch_ranks(root: str, label: str, argv, visible=None):
+def free_ports(n: int) -> list:
+    """``n`` distinct TCP ports free on this host now."""
+    import socket
+
+    socks = []
+    try:
+        for _ in range(n):
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            socks.append(s)
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def launch_ranks(root: str, label: str, passes, visible=None):
     """``python -m torch.distributed.run --standalone --nproc_per_node
-    MULTIPROCESS_RANKS`` of ``RANK_CLI`` with ``argv``, in a session of its
-    own that is killed whole if it outlives ``MULTIPROCESS_TIMEOUT_S``;
-    ``visible`` sets ``CUDA_VISIBLE_DEVICES``. Returns (wall s, each rank's
-    record, the log), and fails unless every rank exited 0."""
+    MULTIPROCESS_RANKS`` of ``RANK_CLI`` over the CLI argvs ``passes``, in
+    turn in each rank, in a session of its own that is killed whole if it
+    outlives ``MULTIPROCESS_TIMEOUT_S``; ``visible`` sets
+    ``CUDA_VISIBLE_DEVICES``. Returns (wall s, each pass's records by
+    rank, the log), and fails unless every rank exited 0."""
     import signal
 
     script = os.path.join(root, "rank_cli.py")
@@ -913,7 +1000,8 @@ def launch_ranks(root: str, label: str, argv, visible=None):
     # the host's cores split between the ranks (torchrun would give each one)
     env.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1) // MULTIPROCESS_RANKS)))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-           str(MULTIPROCESS_RANKS), script, json.dumps(argv), prefix]
+           str(MULTIPROCESS_RANKS), script, json.dumps(passes), prefix,
+           json.dumps(free_ports(len(passes) - 1))]
     t0 = time.perf_counter()
     with open(log_path, "w") as log:
         proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT,
@@ -933,11 +1021,14 @@ def launch_ranks(root: str, label: str, argv, visible=None):
     for line in text.splitlines():
         if line.startswith(("distributed:", "run manifest:")):
             print(f"multi-process {label}, a rank: {line}")
-    ranks = []
-    for r in range(MULTIPROCESS_RANKS):
-        with open(f"{prefix}.rank{r}.json") as f:
-            ranks.append(json.load(f))
-    return wall, ranks, text
+    records = []
+    for n in range(len(passes)):
+        ranks = []
+        for r in range(MULTIPROCESS_RANKS):
+            with open(f"{prefix}.pass{n}.rank{r}.json") as f:
+                ranks.append(json.load(f))
+        records.append(ranks)
+    return wall, records, text
 
 
 def warm_split(ex, clips, device):
@@ -2026,11 +2117,13 @@ def hold_fused_shapes(device):
                                   "N=128 (i3d --video_batch 2)": i3d}}
 
 
-def hold_mesh_shapes(device):
-    """Phase 3, K1 at the mesh shapes of phases 21 and 24 (``MESH_ATTENTION_SHAPES``)
-    against its plain version, early, where the profiler keeps every
-    launch. Returns the records by shape."""
-    return {label: hold_flash_attention(device, shape, torch.float32, None, seed=500 + i)
+def hold_mesh_shapes(device, dtype=torch.float32):
+    """Phase 3, K1 at the mesh shapes of phases 21, 24 and (in bf16) 26
+    (``MESH_ATTENTION_SHAPES``) against its plain version at
+    ``KERNEL_ATOL[dtype]``, early, where the profiler keeps every launch.
+    Returns the records by shape."""
+    seed = 500 if dtype == torch.float32 else 550
+    return {label: hold_flash_attention(device, shape, dtype, None, seed=seed + i)
             for i, (label, shape) in enumerate(MESH_ATTENTION_SHAPES.items())}
 
 
@@ -2352,24 +2445,64 @@ def bf16_ceiling(feature_type: str, name: str):
     return kind, PARITY_CEILINGS[(family, "bfloat16", kind)]
 
 
+def bf16_tag(label: str) -> str:
+    """A phase 16 family label as its output directories name it
+    (``bf16_<tag>_<dtype>``)."""
+    return label.replace(" ", "").replace("+", "_").replace("(", "").replace(")", "")
+
+
+def hold_bf16_files(label: str, b16: dict, f32: dict, feature_types) -> None:
+    """A bf16 run's files against an fp32 run's of the same inputs and
+    grid, as phase 16 holds them: the same names, each fp32 at the fp32
+    shape and finite, its relative L2 above 0 and within its family's
+    ceiling (``bf16_ceiling``; a file belongs to the feature type its name
+    ends with, I3D's streams to ``i3d``). Prints the worst."""
+    def feature_type(name):
+        for ft in feature_types:
+            if name.endswith(f"_{ft.replace('/', '-')}.npy"):
+                return ft
+        return "i3d"
+
+    if sorted(b16) != sorted(f32) or not f32:
+        raise AssertionError(f"{label}: bf16 files {sorted(b16)} vs fp32 {sorted(f32)}")
+    drifts = []
+    for name in sorted(f32):
+        a, b = f32[name], b16[name]
+        if b.dtype != np.float32 or b.shape != a.shape or not np.isfinite(b).all():
+            raise AssertionError(f"{label} {name}: {b.dtype} {b.shape}, fp32 run {a.shape}, "
+                                 f"finite {np.isfinite(b).all()}")
+        kind, ceiling = bf16_ceiling(feature_type(name), name)
+        drift = rel_l2(b, a)
+        drifts.append((name, drift, kind, ceiling))
+        if not 0 < drift <= ceiling:
+            raise AssertionError(f"{label} {name}: rel_l2 {drift} against fp32, ceiling "
+                                 f"{ceiling} ({kind})")
+    worst = max(drifts, key=lambda d: d[1] / d[3])
+    print(f"{label}: {len(f32)} bf16 files fp32 at the fp32 shapes; rel_l2 against the fp32 run "
+          f"max {worst[1]:.3e} ({worst[0]}; ceiling {worst[3]:g}, {worst[2]}); "
+          + ", ".join(f"{n} {d:.3e}" for n, d, _, _ in drifts[:4]))
+
+
 @contextlib.contextmanager
 def kernel_inputs():
     """Yields {"K1": set, "K2": set} of the dtypes K1 and K2 get while it
-    is open: CLIP's flash core and PWC's cost volume wrapped by recorders
-    that call the real wrappers (whose launch counts stay the only
-    counts)."""
+    is open, beside K1's q shapes ("K1 shapes") and K2's pair counts ("K2
+    N"): CLIP's flash core and PWC's cost volume wrapped by recorders that
+    call the real wrappers (whose launch counts stay the only counts)."""
     from video_features_tpu_torch.models.clip import extract_clip
     from video_features_tpu_torch.models.pwc import model as pwc_model
 
-    seen = {"K1": set(), "K2": set()}
+    seen = {"K1": set(), "K2": set(), "K1 shapes": set(), "K2 N": set()}
     flash, corr = extract_clip.CORES["flash"], pwc_model.local_correlation
 
     def k1(q, k, v, **kw):
         seen["K1"].add(str(q.dtype)[6:])
+        seen["K1 shapes"].add(tuple(q.shape))
         return flash(q, k, v, **kw)
 
     def k2(f1, f2, *a, **kw):
         seen["K2"].add(str(f1.dtype)[6:])
+        seen["K2 N"].add(f1.shape[0])
         return corr(f1, f2, *a, **kw)
 
     with mock.patch.dict(extract_clip.CORES, {"flash": k1}), \
@@ -2423,7 +2556,7 @@ def run_bf16_path(root: str, device):
     launches = {"flash_attention": 0, "local_correlation": 0}
     traced_runs = []  # (label, kernel, --profile_dir, this process's launches, argv)
     for label, args, clips, want_k1, want_k2, traced in bf16_families(root):
-        tag = label.replace(" ", "").replace("+", "_").replace("(", "").replace(")", "")
+        tag = bf16_tag(label)
         feats, inputs = {}, {}
         for dtype in ("float32", "bfloat16"):
             out = os.path.join(root, f"bf16_{tag}_{dtype}")
@@ -2451,26 +2584,9 @@ def run_bf16_path(root: str, device):
         if (want_k1 and k1_in != {"bfloat16"}) or (want_k2 and k2_in != {"float32"}):
             raise AssertionError(f"bfloat16 {label}: K1 got {sorted(k1_in)}, K2 got "
                                  f"{sorted(k2_in)} (want bf16 q/k/v, fp32 cost volumes)")
-        f32, b16 = feats["float32"], feats["bfloat16"]
-        if sorted(f32) != sorted(b16) or not f32:
-            raise AssertionError(f"bfloat16 {label}: files {sorted(b16)} vs {sorted(f32)}")
-        drifts = []
-        for name in sorted(f32):
-            a, b = f32[name], b16[name]
-            if b.dtype != np.float32 or b.shape != a.shape or not np.isfinite(b).all():
-                raise AssertionError(f"bfloat16 {label} {name}: {b.dtype} {b.shape}, fp32 run "
-                                     f"{a.shape}, finite {np.isfinite(b).all()}")
-            kind, ceiling = bf16_ceiling(args[1], name)
-            drift = rel_l2(b, a)
-            drifts.append((name, drift, kind, ceiling))
-            if not 0 < drift <= ceiling:
-                raise AssertionError(f"bfloat16 {label} {name}: rel_l2 {drift} against fp32, "
-                                     f"ceiling {ceiling} ({kind})")
-        worst = max(drifts, key=lambda d: d[1] / d[3])
-        print(f"bfloat16 {label}: {len(f32)} files fp32 at the fp32 shapes; rel_l2 against "
-              f"--dtype float32 max {worst[1]:.3e} ({worst[0]}; ceiling {worst[3]:g}, "
-              f"{worst[2]}); " + ", ".join(f"{n} {d:.3e}" for n, d, _, _ in drifts[:4])
-              + f"; K1 inputs {sorted(k1_in) or '-'}, K2 inputs {sorted(k2_in) or '-'}")
+        hold_bf16_files(f"bfloat16 {label}", feats["bfloat16"], feats["float32"], [args[1]])
+        print(f"bfloat16 {label}: K1 inputs {sorted(k1_in) or '-'}, K2 inputs "
+              f"{sorted(k2_in) or '-'}")
 
         warm = {}
         for dtype in ("float32", "bfloat16"):
@@ -3783,24 +3899,6 @@ def run_native_path(root: str, device):
     return {"flash_attention": k1, "local_correlation": 0}
 
 
-@contextlib.contextmanager
-def k1_shapes():
-    """Yields the set of q shapes CLIP's flash core gets while it is open
-    (a recorder around the real wrapper, whose count stays the only
-    count; the recorder is taken at each extractor's build)."""
-    from video_features_tpu_torch.models.clip import extract_clip
-
-    seen = set()
-    flash = extract_clip.CORES["flash"]
-
-    def k1(q, k, v, **kw):
-        seen.add(tuple(q.shape))
-        return flash(q, k, v, **kw)
-
-    with mock.patch.dict(extract_clip.CORES, {"flash": k1}):
-        yield seen
-
-
 def run_parallel_path(root: str, device):
     """Phase 21: queue mode and CLIP's mesh (module docstring). Returns
     each kernel's launches in the phase."""
@@ -3820,7 +3918,7 @@ def run_parallel_path(root: str, device):
 
     def run(out, *extra, attn="flash"):
         reset_counts()
-        with k1_shapes() as shapes:
+        with kernel_inputs() as seen:
             t0 = time.perf_counter()
             cli.main(["--feature_type", "CLIP-ViT-B/32", "--extract_method", f"uni_{FRAMES}",
                       "--attn", attn, "--allow_random_init", "--on_extraction", "save_numpy",
@@ -3828,7 +3926,7 @@ def run_parallel_path(root: str, device):
                       os.path.join(root, "tmp"), *extra, "--video_paths", *clips])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        k1 = flash_attention.launches
+        k1, shapes = flash_attention.launches, seen["K1 shapes"]
         launches["flash_attention"] += k1
         launches["local_correlation"] += local_correlation_kernel.launches
         feats = read_features(os.path.join(root, out))
@@ -3969,14 +4067,21 @@ FAMILY_FLAGS = {"resnet50": ("--batch_size", str(RESNET_BATCH)), "r21d_rgb": (),
                 "raft": ("--batch_size", str(RAFT_BATCH)), "i3d": ("--flow_type", "pwc")}
 
 
+def phase_video(root: str, name: str, n: int, seed: int, **size) -> str:
+    """An earlier phase's synthetic clip in ``root``, made here with its
+    frames, seed and size when a phase runs alone."""
+    from video_features_tpu_torch.utils.synth import synth_video
+
+    path = os.path.join(root, name)
+    return path if os.path.exists(path) else synth_video(path, n_frames=n, seed=seed, **size)
+
+
 def family_inputs(root: str) -> dict:
     """Phases 5-11's clips and wavs of each family but CLIP, made here with
     the same seeds and sizes when a phase runs alone."""
-    from video_features_tpu_torch.utils.synth import synth_video, synth_wav
+    from video_features_tpu_torch.utils.synth import synth_wav
 
-    def video(name, n, seed, **size):
-        path = os.path.join(root, name)
-        return path if os.path.exists(path) else synth_video(path, n_frames=n, seed=seed, **size)
+    video = functools.partial(phase_video, root)
 
     def wav(i):
         path = os.path.join(root, f"audio{i}.wav")
@@ -4135,6 +4240,166 @@ def run_mesh_path(root: str, device):
     return launches
 
 
+def run_bf16_mesh_path(root: str, device):
+    """Phase 26: ``--dtype bfloat16`` on the mesh (module docstring).
+    Returns each kernel's launches in the phase."""
+    from video_features_tpu_torch import cli
+    from video_features_tpu_torch.config import PARITY_CEILINGS, model_family
+    from video_features_tpu_torch.ops.correlation_kernel import local_correlation_kernel
+    from video_features_tpu_torch.ops.flash_attention import flash_attention
+    from video_features_tpu_torch.parallel.sharding import row_sizes
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    count = torch.cuda.device_count()
+    print(f"bf16 mesh: {card}; {count} visible CUDA device(s)")
+    launches = {"flash_attention": 0, "local_correlation": 0}
+    idx = str(device.index or 0)
+    two = ["0", "1"] if count > 1 else [idx, idx]
+    tmp = os.path.join(root, "tmp")
+    families = {label: (args, clips) for label, args, clips, *_ in bf16_families(root)}
+    # phases 4-10's clips of these families, made here when this phase runs alone
+    for i in range(N_VIDEOS):
+        phase_video(root, f"clip{i}.mp4", 60, i)
+    phase_video(root, "resnet50.mp4", RESNET_CLIP_FRAMES, 7)
+    phase_video(root, "r21d_rgb.mp4", R21D_CLIP_FRAMES, 7)
+    phase_video(root, "pwc.mp4", PWC_CLIP_FRAMES, 5)
+    n_raft, w_raft, h_raft = RAFT_CLIP
+    phase_video(root, "raft.mp4", n_raft, 6, width=w_raft, height=h_raft)
+    phase_video(root, "i3d0.mp4", I3D_CLIP_FRAMES, 0)
+
+    def run(out, label, dtype, *extra, deterministic=False):
+        """Phase 16's CLI run of a family at ``dtype`` plus ``extra``."""
+        args, clips = families[label]
+        reset_counts()
+        was = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            with kernel_inputs() as seen:
+                t0 = time.perf_counter()
+                cli.main([*args, "--dtype", dtype, "--allow_random_init", "--on_extraction",
+                          "save_numpy", "--strict", "--tmp_path", tmp, *extra, "--output_path",
+                          os.path.join(root, out), "--video_paths", *clips])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            torch.backends.cudnn.deterministic = was
+        k1, k2 = flash_attention.launches, local_correlation_kernel.launches
+        launches["flash_attention"] += k1
+        launches["local_correlation"] += k2
+        return read_features(os.path.join(root, out)), k1, k2, seen, wall
+
+    def reference(label, dtype):
+        """Phase 16's one-device run of a family, made here when absent."""
+        out = f"bf16_{bf16_tag(label)}_{dtype}"
+        if not os.path.isdir(os.path.join(root, out)):
+            print(f"bf16 mesh: {out} absent, the one-device run made here")
+            run(out, label, dtype)
+        return read_features(os.path.join(root, out))
+
+    n_clip = len(families["CLIP"][1])
+    pwc_windows = -(-(PWC_CLIP_FRAMES - 1) // PWC_BATCH)
+    levels = len(CORR_LEVELS)
+    # the pairs a row takes of a PWC window and of an I3D stack (blocks of 8)
+    pwc_rows = [n for n in row_sizes(PWC_BATCH, 2) if n]
+    i3d_rows = [n for n in row_sizes(STACK, 2, 8) if n]
+    # (case, phase 16's family, mesh flags, K1 launches and shape, K2
+    # launches and the pair counts of the rows, the gate against the
+    # one-device bf16 run, the --batch_size of a one-device run whose
+    # forwards are the rows' or None)
+    cases = [
+        ("CLIP data 2", "CLIP", ["--device_ids", *two], LAYERS * 2 * n_clip, (8, 12, 50, 64),
+         0, None, "data", None),
+        ("CLIP --mesh_model 2", "CLIP", ["--device_ids", *two, "--mesh_model", "2"],
+         LAYERS * 2 * n_clip, (16, 6, 50, 64), 0, None, "e2e", None),
+        ("CLIP --mesh_context, data 2", "CLIP",
+         ["--device_ids", *two, "--mesh_context", "--attn", "fused"], 0, None, 0, None, "e2e",
+         None),
+        ("ResNet-50 data 2", "ResNet-50", ["--device_ids", *two], 0, None, 0, None, "data",
+         RESNET_BATCH // 2),
+        ("R(2+1)D-18 data 2", "R(2+1)D-18", ["--device_ids", *two, "--batch_size", "4"], 0,
+         None, 0, None, "data", None),
+        ("PWC data 2", "PWC", ["--device_ids", *two], 0, None,
+         levels * len(pwc_rows) * pwc_windows, set(pwc_rows), "data", PWC_BATCH // 2),
+        ("RAFT data 2", "RAFT", ["--device_ids", *two], 0, None, 0, None, "e2e",
+         RAFT_BATCH // 2),
+        ("I3D + PWC data 2", "I3D + PWC", ["--device_ids", *two], 0, None,
+         levels * len(i3d_rows) * I3D_STACKS, set(i3d_rows), "data", None),
+    ]
+    if count >= 4:
+        cases.append(("CLIP 2 x 2 on cards 0-3", "CLIP",
+                      ["--device_ids", "0", "1", "2", "3", "--mesh_model", "2"],
+                      LAYERS * 4 * n_clip, (8, 6, 50, 64), 0, None, "e2e", None))
+    else:
+        print("bf16 mesh: fewer than four CUDA devices on this host, so no 2 x 2 CLIP cell on "
+              "distinct cards was run")
+    for n, (case, label, extra, k1_want, k1_shape, k2_want, k2_n, gate, row_batch) in \
+            enumerate(cases):
+        args = families[label][0]
+        ft = args[1]
+        one, f32 = reference(label, "bfloat16"), reference(label, "float32")
+        # the mesh and its row-batch twin under deterministic cuDNN (PWC's
+        # transpose convolutions are not deterministic otherwise)
+        got, k1, k2, seen, wall = run(f"bf16_mesh_{n}", label, "bfloat16", "--sharding", "mesh",
+                                      *extra, deterministic=row_batch is not None)
+        if sorted(got) != sorted(one):
+            raise AssertionError(f"bf16 mesh {case}: files {sorted(got)}, want {sorted(one)}")
+        family, flow = model_family(ft), ft in ("pwc", "raft")
+        if gate == "e2e":
+            tol = PARITY_CEILINGS[(family, "bfloat16", "e2e")]
+        else:
+            tol = BF16_MESH_DP_SHARE * PARITY_CEILINGS[(family, "bfloat16", "model")]
+        errs = {name: rel_l2(got[name], one[name]) for name in sorted(one)}
+        err = max(errs.values())
+        # the flows also against their largest magnitude, phase 22's measure
+        largest = ("; max abs over the largest " + ", ".join(
+            f"{name} {np.abs(got[name] - one[name]).max() / np.abs(one[name]).max():.3e}"
+            for name in sorted(one))) if flow else ""
+        print(f"bf16 mesh {case} ({' '.join(extra)}; {wall:.1f} s): against the one-device "
+              f"bf16 run rel_l2 max {err:.3e} (tol {tol:g}; "
+              + ", ".join(f"{name} {e:.3e}" for name, e in list(errs.items())[:4])
+              + f"{largest}); K1 {k1} (want {k1_want}) at "
+              f"{sorted(seen['K1 shapes'])} fed {sorted(seen['K1'])}; K2 {k2} (want {k2_want}) "
+              f"at N={sorted(seen['K2 N'])} fed {sorted(seen['K2'])} [{card}]")
+        if not err <= tol:
+            raise AssertionError(f"bf16 mesh {case}: rel_l2 {errs} against the one-device "
+                                 f"bf16 run, tol {tol}")
+        if k1 != k1_want or (k1_want and (seen["K1"] != {"bfloat16"}
+                                          or seen["K1 shapes"] != {k1_shape})):
+            raise AssertionError(f"bf16 mesh {case}: K1 {k1} fed {seen['K1']} at "
+                                 f"{seen['K1 shapes']}, want {k1_want} bf16 at {k1_shape}")
+        if k2 != k2_want or (k2_want and (seen["K2"] != {"float32"} or seen["K2 N"] != k2_n)):
+            raise AssertionError(f"bf16 mesh {case}: K2 {k2} fed {seen['K2']} at N="
+                                 f"{seen['K2 N']}, want {k2_want} fp32 at N={k2_n}")
+        if row_batch is not None:
+            # a row's forwards are one device's at the row's batch: the same
+            # shapes, so the same cuDNN and cuBLAS kernels and the same bf16
+            # roundings; held as phase 22 holds fp32 meshes (the flows within
+            # FLOW_RTOL of their largest, else FAMILY_MESH_RTOL): one bf16
+            # rounding apart at a large value would be 2^-8 of it
+            twin, *_ = run(f"bf16_mesh_{n}_rows", label, "bfloat16", "--batch_size",
+                           str(row_batch), deterministic=True)
+            if sorted(twin) != sorted(got):
+                raise AssertionError(f"bf16 mesh {case}: files {sorted(twin)} at the row's "
+                                     "batch")
+            if flow:
+                diff = max(float(np.abs(got[k] - twin[k]).max() / np.abs(twin[k]).max())
+                           for k in got)
+                measure, row_tol = "max abs over the largest", FLOW_RTOL
+            else:
+                diff = max(rel_l2(got[k], twin[k]) for k in got)
+                measure, row_tol = "rel_l2", FAMILY_MESH_RTOL
+            print(f"bf16 mesh {case}: against the one-device bf16 run at --batch_size "
+                  f"{row_batch} (a row's forwards), deterministic cuDNN on both, {measure} "
+                  f"{diff:.3e} (tol {row_tol:g})")
+            if not diff <= row_tol:
+                raise AssertionError(f"bf16 mesh {case}: {measure} {diff} from the one-device "
+                                     f"run at the row's batch")
+        hold_bf16_files(f"bf16 mesh {case}", got, f32, [ft])
+    print(f"bf16 mesh: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def run_multiprocess_path(root: str, device):
     """Phase 24: ``--sharding mesh`` across launched processes (module
     docstring). Returns each kernel's launches in the phase: the ranks'
@@ -4159,23 +4424,24 @@ def run_multiprocess_path(root: str, device):
     k2_held = {(n, c, h, w) for n, hp, wp in MESH_CORRELATION_CASES.values()
                for _, c, h, w in pwc_levels(hp, wp)}
 
-    def flags(models):
+    def flags(models, dtype):
         return ["--feature_types", *models, "--extract_method", f"uni_{FRAMES}", "--attn",
                 "flash", "--flow_type", "pwc", "--allow_random_init", "--on_extraction",
-                "save_numpy", "--strict", "--sharding", "mesh", "--tmp_path", tmp]
+                "save_numpy", "--strict", "--sharding", "mesh", "--tmp_path", tmp,
+                "--dtype", dtype]
 
     def summary_of(out):
         with open(os.path.join(out, "_manifest", "summary.json")) as f:
             return json.load(f)
 
-    def one_process(label, models, ids, *extra):
+    def one_process(label, models, ids, *extra, dtype="float32"):
         """The one-process mesh of a grid, deterministic cuDNN as in the ranks."""
         out = os.path.join(root, f"multi_one_{label}")
         deterministic = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
         try:
             reset_counts()
-            cli.main([*flags(models), *extra, "--device_ids", *ids, "--output_path", out,
+            cli.main([*flags(models, dtype), *extra, "--device_ids", *ids, "--output_path", out,
                       "--video_paths", *clips])
             torch.cuda.synchronize()
         finally:
@@ -4187,58 +4453,34 @@ def run_multiprocess_path(root: str, device):
         torch.cuda.empty_cache()
         return read_features(out), summary_of(out)
 
-    def ranks_run(label, models, extra, visible, cards, one, cells):
+    def ranks_run(label, models, extra, visible, cards, ones, cells):
         """One launch of the two ranks over ``extra`` (their device flags),
-        each seeing ``cards`` cards (``visible``), against the one-process
-        run ``one``; ``cells`` is a rank's mesh cells (one data row)."""
-        out = os.path.join(root, f"multi_{label}")
-        shutil.rmtree(out, ignore_errors=True)
+        each seeing ``cards`` cards (``visible``), a pass a dtype of
+        ``ones`` in turn, each pass against its one-process run there;
+        ``cells`` is a rank's mesh cells (one data row)."""
+        outs = {dt: os.path.join(root, f"multi_{label}" + ("" if dt == "float32" else f"_{dt}"))
+                for dt in ones}
+        for out in outs.values():
+            shutil.rmtree(out, ignore_errors=True)
         free = torch.cuda.mem_get_info(device)[0] / 2**30
-        wall, ranks, log = launch_ranks(root, label, [*flags(models), *extra, "--output_path",
-                                                      out, "--video_paths", *clips], visible)
+        wall, passes, log = launch_ranks(root, label, [
+            [*flags(models, dt), *extra, "--output_path", outs[dt], "--video_paths", *clips]
+            for dt in ones], visible)
         want_backend = backend_for(False, MULTIPROCESS_RANKS, cards)
         backends = sorted({line.split("backend ")[1].split(",")[0]
                            for line in log.splitlines() if line.startswith("distributed:")})
-        got, (want, one_summary) = read_features(out), one
-        names = sorted(want)
-        errs = {n: float(np.abs(got[n] - want[n]).max()) for n in names if n in got}
-        err = max(errs.values(), default=float("inf"))
-        print(f"multi-process {label}: max_abs_err by file "
-              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
-        # one writer: the sink spans of one process only (spans-<pid>-*.jsonl,
-        # a file a model), one a video a model
-        sinks = {}
-        for path in glob.glob(os.path.join(out, "_telemetry", "spans-*.jsonl")):
-            with open(path) as f:
-                n = sum(1 for line in f if line.strip() and json.loads(line)["stage"] == "sink")
-            if n:
-                pid = os.path.basename(path).split("-")[1]
-                sinks[pid] = sinks.get(pid, 0) + n
-        summary = summary_of(out)
-        k1 = sum(r["flash_attention"] for r in ranks)
-        k2 = sum(r["local_correlation"] for r in ranks)
-        k1_shapes = {tuple(sh) for r in ranks for sh in r["K1"]}
-        k2_shapes = {tuple(sh) for r in ranks for sh in r["K2"]}
         # the least of card 0 a rank had: what was free at the launch less
-        # the other ranks' peaks where they share it
-        peaks = [r["peak_reserved"] / 2**30 for r in ranks]
+        # the other ranks' peaks where they share it (a process's peak
+        # over every pass)
+        peaks = [r["peak_reserved"] / 2**30 for r in passes[-1]]
         room = free - (sum(peaks) - min(peaks) if cards == 1 else 0.0)
-        # a uni_12 forward a video, 12 blocks a cell; 5 levels a stack a row
-        k1_want = LAYERS * cells * len(clips) if "CLIP-ViT-B/32" in models else 0
-        k2_want = len(CORR_LEVELS) if "i3d" in models else 0  # one stack
         print(f"multi-process {label}: {' '.join(models)} on {MULTIPROCESS_RANKS} ranks "
-              f"({' '.join(extra)} each), backend {backends} (the layout rule: "
-              f"{want_backend} for {MULTIPROCESS_RANKS} processes over {cards} card(s)); "
-              f"{len(got)} files; features against the one-process mesh max_abs_err {err:.3e} "
-              f"(want 0); sink spans by process id {sinks}; summary.json {summary['done']}/"
-              f"{summary['total']} done (one process {one_summary['done']}/"
-              f"{one_summary['total']}); K1 by rank {[r['flash_attention'] for r in ranks]} "
-              f"(want {k1_want} each) at {sorted(k1_shapes)}; K2 by rank "
-              f"{[r['local_correlation'] for r in ranks]} (want {k2_want} each) at N="
-              f"{sorted({sh[0] for sh in k2_shapes})}; card 0 {free:.2f} GiB free at the "
-              f"launch, the ranks' peak reserved {[round(p, 2) for p in peaks]} GiB, so a rank "
-              f"had at least {room:.2f} GiB (want >= {MULTIPROCESS_HEADROOM_GIB}); torchrun "
-              f"wall {wall:.1f} s [{card}]")
+              f"({' '.join(extra)} each), passes {list(ones)} in one launch, backend "
+              f"{backends} (the layout rule: {want_backend} for {MULTIPROCESS_RANKS} processes "
+              f"over {cards} card(s)); card 0 {free:.2f} GiB free at the launch, the ranks' "
+              f"peak reserved {[round(p, 2) for p in peaks]} GiB, so a rank had at least "
+              f"{room:.2f} GiB (want >= {MULTIPROCESS_HEADROOM_GIB}); torchrun wall "
+              f"{wall:.1f} s [{card}]")
         if room < MULTIPROCESS_HEADROOM_GIB:
             raise AssertionError(f"multi-process {label}: a rank had {room:.2f} GiB of the card, "
                                  f"under {MULTIPROCESS_HEADROOM_GIB}: too full a card for an "
@@ -4246,34 +4488,78 @@ def run_multiprocess_path(root: str, device):
         if backends != [want_backend]:
             raise AssertionError(f"multi-process {label}: backend {backends}, the layout rule "
                                  f"gives {want_backend}")
-        if sorted(got) != names or err != 0.0:
-            raise AssertionError(f"multi-process {label}: files {sorted(got)} vs {names}, "
-                                 f"err {err}")
-        if len(sinks) != 1 or sum(sinks.values()) != len(models) * len(clips):
-            raise AssertionError(f"multi-process {label}: sink spans {sinks}, want one process "
-                                 f"with {len(models) * len(clips)}")
-        if (summary["done"], summary["total"], summary["failed"]) != (
-                one_summary["done"], one_summary["total"], 0):
-            raise AssertionError(f"multi-process {label}: summary.json {summary}")
-        if any((r["flash_attention"], r["local_correlation"]) != (k1_want, k2_want)
-               for r in ranks):
-            raise AssertionError(f"multi-process {label}: K1 and K2 by rank {ranks}")
-        if not (k1_shapes <= k1_held and k2_shapes <= k2_held):
-            raise AssertionError(f"multi-process {label}: K1 at {k1_shapes - k1_held} or K2 at "
-                                 f"{k2_shapes - k2_held}, not held in phase 3")
-        launches["flash_attention"] += k1
-        launches["local_correlation"] += k2
+        files = {}
+        for (dtype, (want, one_summary)), ranks in zip(ones.items(), passes):
+            tag = f"{label} --dtype {dtype}"
+            got = files[dtype] = read_features(outs[dtype])
+            names = sorted(want)
+            errs = {n: float(np.abs(got[n] - want[n]).max()) for n in names if n in got}
+            err = max(errs.values(), default=float("inf"))
+            print(f"multi-process {tag}: max_abs_err by file "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+            # one writer: the sink spans of one process only
+            # (spans-<pid>-*.jsonl, a file a model), one a video a model
+            sinks = {}
+            for path in glob.glob(os.path.join(outs[dtype], "_telemetry", "spans-*.jsonl")):
+                with open(path) as f:
+                    n = sum(1 for line in f
+                            if line.strip() and json.loads(line)["stage"] == "sink")
+                if n:
+                    pid = os.path.basename(path).split("-")[1]
+                    sinks[pid] = sinks.get(pid, 0) + n
+            summary = summary_of(outs[dtype])
+            k1 = sum(r["flash_attention"] for r in ranks)
+            k2 = sum(r["local_correlation"] for r in ranks)
+            k1_shapes = {tuple(sh) for r in ranks for sh in r["K1"]}
+            k2_shapes = {tuple(sh) for r in ranks for sh in r["K2"]}
+            k1_dtypes = sorted({d for r in ranks for d in r["K1 dtypes"]})
+            k2_dtypes = sorted({d for r in ranks for d in r["K2 dtypes"]})
+            # a uni_12 forward a video, 12 blocks a cell; 5 levels a stack a row
+            k1_want = LAYERS * cells * len(clips) if "CLIP-ViT-B/32" in models else 0
+            k2_want = len(CORR_LEVELS) if "i3d" in models else 0  # one stack
+            print(f"multi-process {tag}: {len(got)} files; features against the one-process "
+                  f"mesh max_abs_err {err:.3e} (want 0); sink spans by process id {sinks}; "
+                  f"summary.json {summary['done']}/{summary['total']} done (one process "
+                  f"{one_summary['done']}/{one_summary['total']}); K1 by rank "
+                  f"{[r['flash_attention'] for r in ranks]} (want {k1_want} each) at "
+                  f"{sorted(k1_shapes)} fed {k1_dtypes}; K2 by rank "
+                  f"{[r['local_correlation'] for r in ranks]} (want {k2_want} each) at N="
+                  f"{sorted({sh[0] for sh in k2_shapes})} fed {k2_dtypes}")
+            if sorted(got) != names or err != 0.0:
+                raise AssertionError(f"multi-process {tag}: files {sorted(got)} vs {names}, "
+                                     f"err {err}")
+            if len(sinks) != 1 or sum(sinks.values()) != len(models) * len(clips):
+                raise AssertionError(f"multi-process {tag}: sink spans {sinks}, want one "
+                                     f"process with {len(models) * len(clips)}")
+            if (summary["done"], summary["total"], summary["failed"]) != (
+                    one_summary["done"], one_summary["total"], 0):
+                raise AssertionError(f"multi-process {tag}: summary.json {summary}")
+            if any((r["flash_attention"], r["local_correlation"]) != (k1_want, k2_want)
+                   for r in ranks):
+                raise AssertionError(f"multi-process {tag}: K1 and K2 by rank {ranks}")
+            if not (k1_shapes <= k1_held and k2_shapes <= k2_held):
+                raise AssertionError(f"multi-process {tag}: K1 at {k1_shapes - k1_held} or K2 "
+                                     f"at {k2_shapes - k2_held}, not held in phase 3")
+            if (k1_want and k1_dtypes != [dtype]) or (k2_want and k2_dtypes != ["float32"]):
+                raise AssertionError(f"multi-process {tag}: K1 fed {k1_dtypes}, K2 fed "
+                                     f"{k2_dtypes} (want {dtype} q/k/v, fp32 cost volumes)")
+            launches["flash_attention"] += k1
+            launches["local_correlation"] += k2
+        if "bfloat16" in files:
+            hold_bf16_files(f"multi-process {label}", files["bfloat16"], files["float32"],
+                            models)
 
     both = ["CLIP-ViT-B/32", "i3d"]
     idx = str(device.index or 0)
-    one = one_process("both", both, [idx, idx])
+    ones = {dt: one_process(f"both_{dt}", both, [idx, idx], dtype=dt) for dt in DTYPES}
     # both ranks on one card: gloo (NCCL runs no two ranks of one
     # communicator on one card)
-    ranks_run("gloo", both, ["--device_ids", "0"], "0" if count > 1 else None, 1, one, 1)
+    ranks_run("gloo", both, ["--device_ids", "0"], "0" if count > 1 else None, 1, ones, 1)
     if count > 1:  # a card a rank: NCCL
-        ranks_run("nccl", both, ["--device_ids", "0"], "0,1", 2, one, 1)
+        ranks_run("nccl", both, ["--device_ids", "0"], "0,1", 2, ones, 1)
     if count >= 4:  # two cards a rank: CLIP data x tensor, the model axis in each rank
-        tp = one_process("tp", ["CLIP-ViT-B/32"], [idx] * 4, "--mesh_model", "2")
+        tp = {dt: one_process(f"tp_{dt}", ["CLIP-ViT-B/32"], [idx] * 4, "--mesh_model", "2",
+                              dtype=dt) for dt in DTYPES}
         ranks_run("nccl_tp", ["CLIP-ViT-B/32"], ["--device_ids", "0", "1", "--mesh_model", "2"],
                   "0,1,2,3", 4, tp, 2)
     if count == 1:
@@ -4664,6 +4950,7 @@ def main() -> int:
     k2 = check_local_correlation(device)
     fused_shapes = hold_fused_shapes(device)
     mesh_shapes = hold_mesh_shapes(device)
+    mesh_shapes_bf16 = hold_mesh_shapes(device, torch.bfloat16)
     mesh_correlation = hold_mesh_correlation(device)
     measure_resample(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
@@ -4694,6 +4981,7 @@ def main() -> int:
             ("native host path", lambda: run_native_path(root, device)),
             ("parallel", lambda: run_parallel_path(root, device)),
             ("mesh", lambda: run_mesh_path(root, device)),
+            ("bf16 mesh", lambda: run_bf16_mesh_path(root, device)),
             ("converted weights", lambda: run_weights_path(root, device)),
             ("lint", lambda: run_lint_path(root, device)),
         ]
@@ -4710,8 +4998,8 @@ def main() -> int:
         # later phase that drives it
         later_names = ("async ingest", "device preprocess", "telemetry and preflight",
                        "bfloat16", "serve", "disk flow and output flags", "preemption",
-                       "native host path", "parallel", "mesh", "converted weights",
-                       "multi-process mesh", "lint")
+                       "native host path", "parallel", "mesh", "bf16 mesh",
+                       "converted weights", "multi-process mesh", "lint")
         later = [results[n] for n in later_names]
         k1_launches = results["CLIP"] + sum(r["flash_attention"] for r in later)
         k2_launches = results["I3D + PWC"] + sum(r["local_correlation"] for r in later)
@@ -4732,6 +5020,7 @@ def main() -> int:
             **k1,
             "fused_shapes": fused_shapes["flash_attention"],
             "mesh_shapes": mesh_shapes,
+            "mesh_shapes_bf16": mesh_shapes_bf16,
             "bf16_main_path": k1_bf16,
         },
         {

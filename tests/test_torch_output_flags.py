@@ -188,8 +188,9 @@ def small_r21d(monkeypatch):
 
 
 def test_uint8_transfer_off_equals_on(tmp_path, small_r21d, monkeypatch):
-    """Solo forwards and a fused group of two clips, each at both settings."""
-    clips = [synth_video(str(tmp_path / f"r{i}.mp4"), n_frames=32, width=64, height=48, seed=i)
+    """Solo forwards and a fused group of two one-stack clips, each at both
+    settings."""
+    clips = [synth_video(str(tmp_path / f"r{i}.mp4"), n_frames=16, width=64, height=48, seed=i)
              for i in range(2)]
     placed = []
     real = extract_r21d.place_batch
@@ -205,7 +206,7 @@ def test_uint8_transfer_off_equals_on(tmp_path, small_r21d, monkeypatch):
         out[transfer] = ex() + [ex.forward(model, ex.prepare(c)) for c in clips]
         assert placed.pop() == (np.float32 if transfer == "off" else np.uint8)
     for a, b in zip(out["on"], out["off"]):
-        assert a["r21d_rgb"].shape == (2, 512)
+        assert a["r21d_rgb"].shape == (1, 512)
         np.testing.assert_array_equal(a["r21d_rgb"], b["r21d_rgb"])
 
 
