@@ -2202,7 +2202,8 @@ def schema_errors(row, schema) -> list:
     """What in one span row breaks ``spans_schema.json`` (required keys,
     JSON types, the stage enum, minLength, minimum): the schema is draft 7
     and the card's machine has no validator package."""
-    kinds = {"string": str, "integer": int, "number": (int, float), "null": type(None)}
+    kinds = {"string": str, "integer": int, "number": (int, float), "boolean": bool,
+             "null": type(None)}
     errors = [f"missing {k}" for k in schema["required"] if k not in row]
     for key, rule in schema["properties"].items():
         if key not in row:

@@ -769,7 +769,7 @@ REFIRES = [
     ("ops/preprocess.py", "return tuple(torch.tensor(v, dtype=torch.float32", None, "GC104"),
     ("ops/preprocess.py", "return np.transpose(img, (2, 0, 1)).astype(np.float32)", None,
      "GC803"),
-    ("telemetry/exposition.py", '"compiles": (', None, "GC701"),
+    ("runtime/telemetry.py", "event.synchronize()", None, "GC104"),
     ("models/r21d/extract_r21d.py", "return stacks.astype(np.float32)", None, "GC803"),
     ("models/i3d/extract_i3d.py", "return [pil_resize(f, MIN_SIDE_SIZE).astype(np.float32)",
      None, "GC803"),

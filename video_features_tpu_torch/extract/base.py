@@ -43,9 +43,20 @@ to the path list and runs only the new indices on the warm extractor.
 Run telemetry (``runtime/telemetry.py``, ``--telemetry on``, the
 default): each stage of a video is a span (``prepare``, ``decode`` from
 the reader, ``h2d``, ``dispatch``, ``fetch``, ``sink``; the serial loop's
-``extract``), with counters (``videos_done``, ``frames_decoded``,
-``h2d_bytes``, ``retries``, ``windows_skipped``), the pipelined loop's
-queue-depth gauges and the shape keys seen. A save run drains them to
+``extract``; ``compile``, a built module's first call at a signature),
+with counters (``videos_done``, ``frames_decoded``, ``h2d_bytes``,
+``retries``, ``windows_skipped``, ``compiles``), the pipelined loop's
+queue-depth gauges and the shape keys seen. The device lane: a call
+anchors its CUDA device's clock before its first dispatch, while no other
+worker has work on the lane (``Telemetry.anchor_device``), and the pipelined and serial loops wrap
+every dispatch in one device scope (``Telemetry.device_scope``): an
+extractor that records device phases inside it (I3D's ``h2d`` /
+``preprocess`` / ``flow_net`` / ``i3d_rgb`` / ``i3d_flow`` / ``d2h`` per
+stack, with ``stage_in`` and ``launch`` host spans) gets a ``device``
+row per phase, any other one ``forward`` row per dispatch; the drain
+thread reads the rows once their events have completed, and the call
+reads what is left at its end, without a wait. The lockstep loop and a
+mesh record none. A save run drains them to
 ``<output_path>/_telemetry/``, beside the device cost ledger's
 ``cost_ledger.json`` (``telemetry/ledger.py``: each model call's flops
 and memory, measured at its first call), and ``finalize_run`` puts the
@@ -428,24 +439,25 @@ class BaseExtractor:
         ``torch.device``, or a ``parallel.sharding.Mesh``). Thread-safe:
         queue workers on one device build it once, and workers on distinct
         devices never race the cache or the ledger's hooks. On the runs
-        with a ledger the state's modules are hooked for it
+        with telemetry on the state's modules are hooked
         (``telemetry/ledger.py::instrument_state``, labelled with the
         run's ``--sharding``): the first call per (fn family, signature)
-        records its flops and memory; every call still runs the module as
-        it is."""
+        is a ``compile`` span and, with a ledger, records its flops and
+        memory; every call still runs the module as it is."""
         state = self._device_state.get(device)
         if state is None:
             with self._build_lock:
                 state = self._device_state.get(device)
                 if state is None:
                     state = self._build(device)
-                    if self.ledger is not None:
+                    if self.ledger is not None or self.telemetry.enabled:
                         from video_features_tpu_torch.parallel.sharding import is_mesh
 
                         instrument_state(
                             state, self.ledger, model=self.feature_type,
                             sharding=self.config.sharding,
                             device=device.first if is_mesh(device) else device,
+                            telemetry=self.telemetry,
                         )
                     self._device_state[device] = state
         return state
@@ -469,6 +481,9 @@ class BaseExtractor:
         if device is None:
             device = resolve_device(self.config)
         state = self.warmup(device)
+        # the device lane's clock: one wait before the call's first dispatch,
+        # unless another worker's scope or unread phase is on the lane
+        self.telemetry.anchor_device(device)
         wid = worker or str(device)
         indices = [int(i) for i in indices]
         results: List = []  # external_call: (position, feats_dict) pairs
@@ -485,6 +500,7 @@ class BaseExtractor:
             stop = e
         finally:
             self.manifest.close()
+            self.telemetry.resolve_device()
         # the stage totals reach summary.json through the metrics snapshot;
         # the printed summary stays behind --profile_dir
         self.telemetry.flush()
@@ -546,7 +562,10 @@ class BaseExtractor:
                         self._preflight_entry(entry)
                     with self.telemetry.span("extract", video=self._video_key(entry),
                                              attempt=attempt, worker=wid):
-                        feats_dict = self.extract_prepared(state, self.prepare(entry))
+                        payload = self.prepare(entry)
+                        with self.telemetry.device_scope(device, wid,
+                                                         video=self._video_key(entry)):
+                            feats_dict = self.extract_prepared(state, payload)
                 finally:
                     self._drain_decode_warnings(entry)  # decoded on this thread
                 self._sink_or_collect(feats_dict, entry, results, pos)
@@ -691,7 +710,8 @@ class BaseExtractor:
                     if inject:
                         faults.fire("dispatch")
                     with self.telemetry.span("dispatch", video=self._video_key(entry),
-                                             attempt=attempt, worker=wid):
+                                             attempt=attempt, worker=wid), \
+                            self.telemetry.device_scope(device, wid, video=self._video_key(entry)):
                         self.telemetry.count_h2d(payload)
                         feats_dict = self.extract_prepared(state, payload)
                 finally:
@@ -779,13 +799,16 @@ class BaseExtractor:
             try:
                 # one dispatch injection per group: the group is one dispatch
                 faults.fire("dispatch")
-                with self.telemetry.span("h2d", worker=wid, group_size=len(items)):
-                    for p in payloads:
-                        self.telemetry.count_h2d(p)
-                    staged = self.transfer_group(state, payloads)
-                with self.telemetry.span("dispatch", worker=wid, group_size=len(items)):
-                    handle = self.dispatch_group(state,
-                                                 staged if staged is not None else payloads)
+                with self.telemetry.device_scope(
+                        device, wid, group_size=len(items),
+                        videos=[self._video_key(e) for _, _, _, e, _ in items]):
+                    with self.telemetry.span("h2d", worker=wid, group_size=len(items)):
+                        for p in payloads:
+                            self.telemetry.count_h2d(p)
+                        staged = self.transfer_group(state, payloads)
+                    with self.telemetry.span("dispatch", worker=wid, group_size=len(items)):
+                        handle = self.dispatch_group(
+                            state, staged if staged is not None else payloads)
             except KeyboardInterrupt:
                 raise
             except Exception as exc:  # noqa: BLE001 - a fused dispatch fails together
@@ -810,7 +833,8 @@ class BaseExtractor:
                 try:
                     faults.fire("dispatch")
                     with self.telemetry.span("dispatch", video=self._video_key(entry),
-                                             attempt=attempt, worker=wid):
+                                             attempt=attempt, worker=wid), \
+                            self.telemetry.device_scope(device, wid, video=self._video_key(entry)):
                         self.telemetry.count_h2d(payload)
                         handle = self.dispatch_prepared(state, payload)
                 finally:

@@ -33,6 +33,7 @@ ends).
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
@@ -94,21 +95,26 @@ def pinned_copy(x: HostBatch) -> torch.Tensor:
     return host
 
 
-def place_batch(x: HostBatch, device: torch.device) -> torch.Tensor:
+def place_batch(x: HostBatch, device: torch.device,
+                phase: Optional[Callable[[Any], Any]] = None) -> torch.Tensor:
     """``x`` on ``device``. On a CUDA device: a pinned staging copy, then
     a non-blocking H2D on the device's copy stream; the current (compute)
     stream waits on the copy's event, and the device tensor is recorded
     on the compute stream, so the caching allocator does not hand its
     memory out while the compute stream may still read it. Call it on the
     loop thread, never in ``prepare``. On the CPU: the array itself (as a
-    tensor), no copy."""
+    tensor), no copy. ``phase``, called with the copy stream (None on the
+    CPU), gives a context manager entered around the H2D issue alone (the
+    device lane's ``h2d`` phase, ``Telemetry.device_phase``)."""
     x = _host_tensor(x)
+    around = phase if phase is not None else (lambda stream: contextlib.nullcontext())
     if device.type != "cuda":
-        return x
+        with around(None):
+            return x
     host = pinned_copy(x)
     stager = _stager(device)
     compute = torch.cuda.current_stream(device)
-    with torch.cuda.stream(stager.stream):
+    with around(stager.stream), torch.cuda.stream(stager.stream):
         dev = host.to(device, non_blocking=True)
         copied = torch.cuda.Event()
         copied.record(stager.stream)

@@ -126,6 +126,7 @@ from video_features_tpu_torch.models.raft.extract_raft import InputPadder
 from video_features_tpu_torch.models.raft.model import FP32_PARAMS as RAFT_FP32_PARAMS
 from video_features_tpu_torch.models.raft.model import RAFT, input_grid
 from video_features_tpu_torch.models.raft.model import init_weights as raft_init
+from video_features_tpu_torch.ops.correlation_kernel import load_kernel
 from video_features_tpu_torch.ops.preprocess import (
     device_resize_frames,
     dynamic_center_crop,
@@ -310,6 +311,8 @@ class ExtractI3D(BaseExtractor):
         return {kind: self._built(kind, device) for kind in kinds}
 
     def _built(self, kind: str, device: torch.device) -> torch.nn.Module:
+        if kind == "pwc":
+            load_kernel(device)  # K2's build is set-up's, not the first call's
         return cast_for_compute(self._model(kind).to(device).eval(),
                                 compute_dtype(self.config), exclude=FP32_PARAMS[kind])
 
@@ -483,44 +486,71 @@ class ExtractI3D(BaseExtractor):
         """Enqueue the stacks ``--batch_size`` at a time, the last group
         zero-padded to that size (so a fused group runs at the solo path's
         shapes), each stream's (features, logits under ``--show_pred``) on
-        their way to the host. On a mesh: ``_dispatch_stacks_sharded``."""
+        their way to the host. On a mesh: ``_dispatch_stacks_sharded``.
+
+        Inside the loop's device scope each group is timed per phase, in
+        launch order (``Telemetry.device_phase``, ``stack`` the first
+        stack's index in its video): ``h2d`` (the copy stream), then per
+        stream ``preprocess`` (the device resize and scaling, the flow
+        net's input, ``flow_chain``, or the host-preprocess chains),
+        ``flow_net``, ``i3d_rgb`` / ``i3d_flow`` and ``d2h`` (the
+        ``HostCopy`` issues); the host staging is one ``stage_in`` span."""
         if isinstance(models[self.streams[0]], Replicas):
             return self._dispatch_stacks_sharded(models, stacks)
         device = device_of(models)
         geom = self._geometry(stacks)
         if geom is not None:
             taps = {k: self._device_taps(geom[k], device) for k in ("rgb", "flow")}
+        tele = self.telemetry
         outs = []
         with torch.inference_mode():
             for g0 in range(0, len(stacks), self.stack_batch):
                 chunk = stacks[g0 : g0 + self.stack_batch]
-                x = stack_group([np.stack(f[s:e]) for f, _, s, e in chunk],
-                                pad_to=self.stack_batch)
-                if geom is not None:  # raw uint8 onto the spatial bucket
-                    x = pad_hw(x, *geom["bucket"])
-                x = place_batch(x, device)  # (B, S+1, H, W, 3); S with disk flow
-                fl = None
-                if chunk[0][1] is not None:  # disk flow: (B, S, H', W', 2)
-                    fl = place_batch(stack_group([fi[s:e] for _, fi, s, e in chunk],
-                                                 pad_to=self.stack_batch), device)
+                k = chunk[0][2] // self.step_size
+
+                def phase(name, stream=None, k=k):
+                    return tele.device_phase(name, device, stream=stream, stack=k)
+
+                with tele.scope_span("stage_in", stack=k):
+                    x = stack_group([np.stack(f[s:e]) for f, _, s, e in chunk],
+                                    pad_to=self.stack_batch)
+                    if geom is not None:  # raw uint8 onto the spatial bucket
+                        x = pad_hw(x, *geom["bucket"])
+                    # (B, S+1, H, W, 3); S with disk flow
+                    x = place_batch(x, device, phase=functools.partial(phase, "h2d"))
+                    fl = None
+                    if chunk[0][1] is not None:  # disk flow: (B, S, H', W', 2)
+                        fl = place_batch(stack_group([fi[s:e] for _, fi, s, e in chunk],
+                                                     pad_to=self.stack_batch), device,
+                                         phase=functools.partial(phase, "h2d"))
                 feats = {}
                 for stream in self.streams:
-                    if stream == "rgb" and geom is None:
-                        f, logits = models["rgb"](rgb_chain(x[:, :-1]))
-                    elif stream == "rgb":
-                        f, logits = models["rgb"](scale_to_1_1(
-                            device_resize_frames(x[:, :-1], *taps["rgb"])))
-                    elif fl is not None:
-                        f, logits = models["flow"](disk_flow_chain(fl))
-                    elif geom is None:
-                        f, logits = models["flow"](flow_chain(self.flow(models, x)))
-                    else:  # the taps put the frames on the flow net's grid
-                        flow = models[self.flow_type](device_resize_frames(x, *taps["flow"]))
-                        f, logits = models["flow"](flow_chain(flow, geom["crop"]))
-                    # the 400-class logits cross only for --show_pred
-                    feats[stream] = (HostCopy(f[: len(chunk)]),
-                                     HostCopy(logits[: len(chunk)]) if self.config.show_pred
-                                     else None)
+                    with phase("preprocess"):
+                        if stream == "rgb" and geom is None:
+                            inp = rgb_chain(x[:, :-1])
+                        elif stream == "rgb":
+                            inp = scale_to_1_1(device_resize_frames(x[:, :-1], *taps["rgb"]))
+                        elif fl is not None:
+                            inp = disk_flow_chain(fl)
+                        elif geom is None:
+                            inp = self._flow_input(x)
+                        else:  # the taps put the frames on the flow net's grid
+                            inp = device_resize_frames(x, *taps["flow"])
+                    if stream == "flow" and fl is None:
+                        with phase("flow_net"):
+                            flow = models[self.flow_type](inp)
+                        del inp
+                        with phase("preprocess"):
+                            inp = flow_chain(flow, None if geom is None else geom["crop"])
+                        del flow
+                    with phase(f"i3d_{stream}"):
+                        f, logits = models[stream](inp)
+                    del inp
+                    with phase("d2h"):
+                        # the 400-class logits cross only for --show_pred
+                        feats[stream] = (HostCopy(f[: len(chunk)]),
+                                         HostCopy(logits[: len(chunk)]) if self.config.show_pred
+                                         else None)
                 outs.append(feats)
         return outs
 

@@ -12,6 +12,8 @@ from __future__ import annotations
 from video_features_tpu_torch.models.common.flow_extract import PairwiseFlowExtractor
 from video_features_tpu_torch.models.pwc.convert import convert_state_dict, params_from_jax
 from video_features_tpu_torch.models.pwc.model import FP32_PARAMS, PWCNet, init_weights
+from video_features_tpu_torch.ops.correlation_kernel import load_kernel
+from video_features_tpu_torch.parallel.sharding import is_mesh
 
 
 class ExtractPWC(PairwiseFlowExtractor):
@@ -23,3 +25,10 @@ class ExtractPWC(PairwiseFlowExtractor):
 
     def _model(self) -> PWCNet:
         return PWCNet()
+
+    def _build(self, device):
+        """The flow net, with K2 built and loaded on a card (per device of
+        a mesh): its build is set-up's, not the first call's."""
+        if not is_mesh(device):
+            load_kernel(device)
+        return super()._build(device)

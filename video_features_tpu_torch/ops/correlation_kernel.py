@@ -148,6 +148,15 @@ def _forward_fn():
     return fn
 
 
+def load_kernel(device) -> None:
+    """Build (``nvcc``, on a checkout's first use) and load the kernel now
+    when ``device`` is a card; nothing elsewhere. The extractors call it as
+    they build PWC, so the build is set-up's model build and not part of
+    the net's first call (its ``compile`` span)."""
+    if torch.device(device).type == "cuda":
+        _forward_fn()
+
+
 # graftcheck: cuda-kernel
 def local_correlation_kernel(
     f1: torch.Tensor, f2: torch.Tensor, max_displacement: int = MAX_DISPLACEMENT

@@ -1,8 +1,9 @@
-"""Run telemetry for the extraction loops: spans, metrics, heartbeat.
+"""Run telemetry for the extraction loops: spans, a device lane, metrics,
+heartbeat.
 
 Counterpart of ``video_features_tpu/runtime/telemetry.py``, with the
-same span rows, metric names, files and ``summary.json`` block, so a
-run of either package leaves the same record for the same input:
+same metric names, files and ``summary.json`` block, and the JAX
+package's span rows plus the port's device lane:
 
 * **Spans** — one record per (video, stage) interval with monotonic
   start/end, thread id and name, worker, attempt and free attributes,
@@ -10,32 +11,55 @@ run of either package leaves the same record for the same input:
   by one shared daemon thread, so the loops never wait on disk. Stage
   names are the pipeline's: ``decode`` / ``prepare`` / ``h2d`` /
   ``dispatch`` / ``fetch`` / ``sink`` / ``extract`` (the serial loop's
-  fused stage); ``reencode``, ``compile`` and the serve stages stay in
-  ``STAGES`` so the schema (``telemetry/spans_schema.json``) is the JAX
-  package's.
+  fused stage), ``compile`` (a built module's first call at an argument
+  signature, ``telemetry/ledger.py``); ``reencode`` and the serve stages
+  as in the JAX package. The port adds ``PORT_STAGES``: ``stage_in``
+  and ``launch``, the loop thread's host work inside ``dispatch`` (a
+  stack's staging, the host side of each device phase), and ``device``.
+  The schema (``telemetry/spans_schema.json``) is the JAX package's plus
+  those stages and the attributes ``phase``, ``stack`` and ``captured``.
+* **The device lane** — :meth:`Telemetry.device_scope` (one dispatch of
+  the loop) and :meth:`Telemetry.device_phase` (a phase of it) record
+  CUDA timing events on the stream that runs the work; once the events
+  have completed, the drain thread turns each phase into one ``device``
+  row whose ``t0`` / ``t1`` are the events' times on the host's
+  ``time.monotonic()`` clock, through a per-device anchor
+  (:meth:`Telemetry.anchor_device`, one event recorded and waited on at
+  the start of a call while the lane is quiet). The rows sit in a lane
+  of their own: ``thread`` a synthetic id per worker, ``thread_name``
+  ``device <worker>``. On the CPU a phase's device interval is its host
+  interval. ``telemetry/DEVICE_LANE.md`` describes the lane, its error
+  and how to lay it over a ``--profile_dir`` trace.
 * **Metrics** — process-wide counters (videos done, frames decoded, H2D
-  bytes, retries), gauges (the pipelined loop's queue depths) and
-  log-bucketed stage-latency histograms, snapshotted atomically to
-  ``_telemetry/metrics-*.json`` at every drain, so a crashed run still
-  reports its throughput.
+  bytes, retries, first calls), gauges (the pipelined loop's queue
+  depths) and log-bucketed stage-latency histograms, snapshotted
+  atomically to ``_telemetry/metrics-*.json`` at every drain, so a
+  crashed run still reports its throughput.
 * **Heartbeat** — a periodic progress line on stderr (videos/s, decode
   fps, ETA).
 
 ``python -m video_features_tpu_torch.telemetry export`` turns a spans
 file into Chrome-trace JSON, and ``report`` prints :func:`overlap_report`:
 how much of the run's wall time host decode/prepare overlapped device
-dispatch/fetch.
+work. :func:`utilization_report`, :func:`overlap_report`'s device side
+and the export's ``--device-lanes`` read the device lane
+(:func:`_device_intervals`), and a process's host ``h2d`` / ``dispatch``
+/ ``fetch`` spans only where it left no ``device`` row.
 
-Spans are host wall time. Nothing here reads a tensor or waits on the
-device: a ``dispatch`` span times the launch, a ``fetch`` span the wait
-on the D2H event, and :meth:`Telemetry.count_h2d` reads ``.nbytes`` of
-the host payload, so wrapping a region in a span does not change when
-the card runs. Module-level state is written under ``_STATE_LOCK``, and
-the drain thread is shared by every :class:`Telemetry` in the process.
+Host spans are host wall time. Nothing here reads a tensor, and the one
+wait on the device is the anchor's, at the start of a call, before its
+first dispatch: a ``dispatch`` span times the launch, a ``fetch`` span
+the wait on the D2H event, the device lane's events are read only once
+``query()`` says they have completed, and :meth:`Telemetry.count_h2d`
+reads ``.nbytes`` of the host payload. While a ``--profile_dir``
+profiler session is on, each span is also a ``record_function`` range
+in the profiler's trace. Module-level state is written under
+``_STATE_LOCK``, and the drain thread is shared by every
+:class:`Telemetry` in the process.
 
 The JAX package's recompile watch (``RecompileWatch`` and its helpers)
-is left out: it reads XLA's compile log, and eager PyTorch compiles no
-shape.
+is left out: it reads XLA's compile log; the port's ``compile`` spans
+come from the first call of each built module at each signature.
 """
 
 from __future__ import annotations
@@ -51,11 +75,22 @@ import threading
 import time
 import uuid
 import weakref
+import zlib
 from collections import deque
+import contextlib
 from contextlib import contextmanager
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
+from video_features_tpu_torch.utils import profiling
 from video_features_tpu_torch.utils.profiling import StageTimer
+
+# the port's stages beyond the JAX package's: the device lane's rows, and
+# the loop thread's host work inside ``dispatch``
+PORT_STAGES = (
+    "device",    # one device phase of a dispatch, on the CUDA events' clock
+    "stage_in",  # host staging of one stack: stacking, padding, pinned copy, H2D issue
+    "launch",    # the host side of one device phase (its ``phase`` attribute)
+)
 
 STAGES = (
     "decode", "reencode", "prepare", "h2d",
@@ -63,7 +98,7 @@ STAGES = (
     "request",  # serve mode: one request's lifetime, parent of its group's stages
     "admission",   # serve mode: parse + preflight + queue admit of one request
     "queue_wait",  # serve mode: admission -> group dispatch (the queueing delay)
-)
+) + PORT_STAGES
 
 # Host-side ingest stages vs device dispatch/fetch stages, for the
 # overlap-efficiency report. ``extract`` (the serial loop's fused
@@ -83,6 +118,9 @@ HIST_BOUNDS: Tuple[float, ...] = (
 )
 
 _DRAIN_INTERVAL_S = 0.5
+# one encoder for every spans line (``json.dumps`` with ``default`` builds
+# one a call)
+_ROW_ENCODER = json.JSONEncoder(default=str)
 # Bounded retention when there is no file sink (external calls): enough
 # for overlap math over a timed pass, small enough to never matter for
 # memory.
@@ -156,6 +194,7 @@ def _drain_loop() -> None:
         time.sleep(_DRAIN_INTERVAL_S)
         for tele in list(_TARGETS):
             try:
+                tele.resolve_device()
                 tele.flush()
                 tele.maybe_heartbeat()
             except Exception:  # noqa: BLE001 - observability must never kill the run
@@ -349,6 +388,138 @@ class SpanToken:
         self._tele._finish_row(self._row, self._t0)
 
 
+# -- the device lane ------------------------------------------------------
+
+# synthetic tid base for the device lanes (the rows of the device lane and
+# the export's mirrored lanes): far above any real thread ident's low bits
+# so lanes never collide with OS thread ids
+_DEVICE_LANE_TID_BASE = 1 << 22
+
+
+def device_lane_tid(worker: str) -> int:
+    """The synthetic ``thread`` id of ``worker``'s device lane: the same
+    worker gets the same lane in every run."""
+    return _DEVICE_LANE_TID_BASE + (zlib.crc32(str(worker).encode()) & 0xFFFFF)
+
+
+def _cuda_event():
+    """A CUDA timing event (one seam, so the tests can count and fake
+    them)."""
+    import torch
+
+    return torch.cuda.Event(enable_timing=True)
+
+
+def _cuda_stream(device):
+    import torch
+
+    return torch.cuda.current_stream(device)
+
+
+def _device_key(device) -> str:
+    """A CUDA device's name with its index (``cuda`` alone is the current
+    device)."""
+    if device.index is None:
+        import torch
+
+        return f"cuda:{torch.cuda.current_device()}"
+    return str(device)
+
+
+class _Mark:
+    """A phase boundary: a CUDA timing event recorded on a stream, or on
+    the CPU a host time, and once read its time on the host clock (``t``),
+    when its event goes back to the lane's pool. Contiguous phases on one
+    stream share one: an earlier phase's end is the next one's start."""
+
+    __slots__ = ("event", "t")
+
+    def __init__(self, event, t: Optional[float] = None) -> None:
+        self.event = event
+        self.t = t
+
+
+class _Lane:
+    """One CUDA device's anchor (an event waited on at the start of a call,
+    and the host time just after the wait), the wait's length (the
+    anchor's error bound), its pool of free timing events, and how many
+    device scopes are open on it."""
+
+    __slots__ = ("anchor", "t_anchor", "error_s", "pool", "scopes")
+
+    def __init__(self) -> None:
+        self.anchor = None
+        self.t_anchor = 0.0
+        self.error_s = 0.0
+        self.pool: deque = deque()
+        self.scopes = 0
+
+
+class _Scope:
+    """One dispatch's device scope on the loop thread: the lane (None on
+    the CPU), the stream its phases run on unless they name another, the
+    rows' attributes (``attrs``, with ``worker``; ``base``, a device row's
+    fields but its phase and times), its own start mark (a ``forward``
+    row's, if no phase is recorded), the phases recorded, and the tail:
+    (stream, end mark) of the last phase closed, which the next phase on
+    that stream shares as its start. A host span opened in the scope
+    (:meth:`Telemetry.scope_span`) clears the tail, so the host's time in
+    it is a gap of the lane wherever the stream ran dry."""
+
+    __slots__ = ("device", "lane", "stream", "attrs", "base", "start", "phases", "tail")
+
+    def __init__(self, device, lane: Optional[_Lane], stream, attrs: Dict[str, Any],
+                 run: str) -> None:
+        self.device = device
+        self.lane = lane
+        self.stream = stream
+        self.attrs = attrs
+        worker = str(attrs["worker"])
+        self.base: Dict[str, Any] = {
+            "span": "", "seq": 0, "parent": None, "stage": "device", "phase": None,
+            "video": None, "pid": os.getpid(), "run": run,
+            "thread": device_lane_tid(worker), "thread_name": f"device {worker}", **attrs}
+        self.start: Optional[_Mark] = None
+        self.phases = 0
+        self.tail: Optional[Tuple[Any, _Mark]] = None
+
+
+class _Phase:
+    """The context of :meth:`Telemetry.device_phase` (a class, not a
+    generator: the loop thread enters one for each phase of each stack)."""
+
+    __slots__ = ("tele", "scope", "phase", "stream", "attrs", "launch", "start")
+
+    def __init__(self, tele: "Telemetry", scope: _Scope, phase: str, stream,
+                 attrs: Dict[str, Any]) -> None:
+        self.tele, self.scope, self.phase, self.stream = tele, scope, phase, stream
+        self.attrs = attrs
+
+    def __enter__(self) -> None:
+        tele, scope = self.tele, self.scope
+        self.launch = tele._open_span("launch", dict(scope.attrs, phase=self.phase, **self.attrs))
+        tail = scope.tail
+        try:
+            self.start = (tail[1] if tail is not None and tail[0] == self.stream
+                          else tele._mark(scope.lane, self.stream))
+        except Exception:  # noqa: BLE001 - observability must never kill the run
+            self.start = None
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        tele, scope = self.tele, self.scope
+        scope.tail = None
+        if self.start is not None:
+            try:
+                end = tele._mark(scope.lane, self.stream)
+                tele._pending.append((scope, self.phase, self.attrs, self.start, end))
+                scope.phases += 1
+                scope.tail = (self.stream, end)
+            except Exception:  # noqa: BLE001 - observability must never kill the run
+                pass
+        tele._close_span(*self.launch, exc)
+        return False
+
+
 class Telemetry:
     """Per-run span recorder + metrics registry + heartbeat.
 
@@ -386,6 +557,15 @@ class Telemetry:
         self._mem: deque = deque(maxlen=_MEM_RETAIN_SPANS)
         self._buckets: set = set()
         self._local = threading.local()
+        # the device lane: one _Lane per CUDA device; the phases whose
+        # events have not been read yet, (scope, phase, attrs, start, end),
+        # appended by the loop threads and read by resolve_device (one
+        # reader at a time: _resolve_lock); _dev_lock guards the lanes'
+        # anchors and open scopes
+        self._dev_lock = threading.Lock()
+        self._resolve_lock = threading.Lock()
+        self._lanes: Dict[str, _Lane] = {}
+        self._pending: deque = deque()
         self._path: Optional[str] = None
         self._metrics_path: Optional[str] = None
         self._file: Optional[io.TextIOBase] = None
@@ -437,8 +617,9 @@ class Telemetry:
             row.update(extra)
         return row
 
-    def _finish_row(self, row: Dict[str, Any], t0: float) -> None:
-        t1 = time.monotonic()
+    def _finish_row(self, row: Dict[str, Any], t0: float, t1: Optional[float] = None) -> None:
+        if t1 is None:
+            t1 = time.monotonic()
         row["t0"] = t0
         row["t1"] = t1
         dt = t1 - t0
@@ -461,27 +642,51 @@ class Telemetry:
         the mutable row (callers may add attributes) and, on an escaping
         exception, stamps the span id onto the exception as
         ``telemetry_span`` (innermost span wins) so manifest failure
-        records link to the timeline."""
+        records link to the timeline. While a ``--profile_dir`` profiler
+        session is on (``utils/profiling.py::device_trace``) the span is
+        also a ``torch.profiler.record_function`` range named ``stage``,
+        so the trace holds it on the profiler's clock; otherwise that
+        costs one flag check."""
         if not self.enabled:
             with self.timer.stage(stage):
                 yield None
             return
-        row = self._new_row(stage, video, extra)
-        stack = self._stack()
-        stack.append(row)
-        t0 = time.monotonic()
+        opened = self._open_span(stage, dict(extra, video=video))
+        exc = None
         try:
-            yield row
-        except BaseException as exc:
-            if not hasattr(exc, "telemetry_span"):
-                try:
-                    exc.telemetry_span = row["span"]
-                except Exception:  # noqa: BLE001 - exceptions with __slots__
-                    pass
+            yield opened[0]
+        except BaseException as e:
+            exc = e
             raise
         finally:
-            stack.pop()
-            self._finish_row(row, t0)
+            self._close_span(*opened, exc)
+
+    def _open_span(self, stage: str, extra: Dict[str, Any]) -> tuple:
+        """Open a span on this thread (``extra`` holds its ``video``):
+        (row, t0, the profiler's range or None)."""
+        row = self._new_row(stage, extra.pop("video", None), extra)
+        self._stack().append(row)
+        ranged = None
+        if profiling.session_active():
+            import torch
+
+            ranged = torch.profiler.record_function(stage)
+            ranged.__enter__()
+        return row, time.monotonic(), ranged
+
+    def _close_span(self, row: Dict[str, Any], t0: float, ranged,
+                    exc: Optional[BaseException]) -> None:
+        """Close a span of :meth:`_open_span`; an escaping exception gets
+        its id as ``telemetry_span`` (the innermost span wins)."""
+        if exc is not None and not hasattr(exc, "telemetry_span"):
+            try:
+                exc.telemetry_span = row["span"]
+            except Exception:  # noqa: BLE001 - exceptions with __slots__
+                pass
+        self._stack().pop()
+        self._finish_row(row, t0)
+        if ranged is not None:
+            ranged.__exit__(None, None, None)
 
     def begin(self, stage: str, video: Optional[str] = None, **extra: Any) -> Optional[SpanToken]:
         """Non-lexical span open; pair with ``token.finish()``. The span
@@ -493,12 +698,199 @@ class Telemetry:
         row = self._new_row(stage, video, extra)
         return SpanToken(self, row, time.monotonic())
 
-    def point(self, stage: str, **extra: Any) -> None:
-        """Zero-duration event span (compile events)."""
-        if not self.enabled:
+    # -- the device lane -------------------------------------------------
+
+    def anchor_device(self, device) -> None:
+        """At the start of a call on a CUDA ``device``, before its first
+        dispatch: record one timing event on the device's current stream
+        and wait for it, and take the host clock just after. The device
+        lane's times are that host time plus each event's elapsed time
+        from the anchor; the wait's length bounds the anchor's error. The
+        lane's first call anchors it; a later one takes a new anchor only
+        while the lane is quiet (no device scope open on it and none of
+        its phases unread), so a worker never waits on another's work on
+        a shared card. Nothing on the CPU, with telemetry off, or for a
+        mesh."""
+        if not self.enabled or getattr(device, "type", None) != "cuda":
             return
-        row = self._new_row(stage, None, extra)
-        self._finish_row(row, time.monotonic())
+        self.resolve_device()
+        key = _device_key(device)
+        try:
+            # with no reader in flight and no scope opening: the lane's
+            # unread phases are all in _pending, and a scope opened later
+            # records its events after the anchor
+            with self._resolve_lock, self._dev_lock:
+                lane = self._lanes.get(key)
+                if lane is None:
+                    lane = self._lanes[key] = _Lane()
+                elif lane.anchor is not None and (
+                        lane.scopes or any(item[0].lane is lane for item in list(self._pending))):
+                    return
+                event = _cuda_event()
+                t_a = time.monotonic()
+                event.record(_cuda_stream(device))
+            # graftcheck: host-sync — the device lane's anchor: one wait at
+            # the start of a call, before its first dispatch, while the
+            # lane has no work of this process in flight; no warm stack
+            # waits here
+            event.synchronize()
+            t_b = time.monotonic()
+        except Exception:  # noqa: BLE001 - observability must never kill the run
+            return
+        with self._resolve_lock:
+            lane.anchor, lane.t_anchor, lane.error_s = event, t_b, t_b - t_a
+
+    def device_anchors(self) -> Dict[str, Dict[str, float]]:
+        """Each CUDA device's anchor: its host time (``t``) and the wait
+        that bounds its error (``error_s``)."""
+        with self._dev_lock:
+            return {k: {"t": lane.t_anchor, "error_s": lane.error_s}
+                    for k, lane in self._lanes.items() if lane.anchor is not None}
+
+    @staticmethod
+    def _mark(lane: Optional[_Lane], stream) -> _Mark:
+        """A new boundary, recorded now on ``stream`` (the host clock on
+        the CPU)."""
+        if lane is None:
+            return _Mark(None, time.monotonic())
+        try:
+            event = lane.pool.pop()
+        except IndexError:
+            event = _cuda_event()
+        event.record(stream)
+        return _Mark(event)
+
+    @contextmanager
+    def device_scope(self, device, worker: str, **attrs: Any) -> Iterator[None]:
+        """One dispatch of the loop on ``device``: the device phases
+        recorded inside it on this thread (:meth:`device_phase`) carry
+        ``attrs`` (``video``, or a group's ``videos``) and ``worker``. If
+        none is recorded, the whole dispatch becomes one ``forward`` row,
+        from an event recorded on the current stream at entry to one at
+        exit. No rows and no events with telemetry off, on a mesh (a
+        device with no ``type``), or on a CUDA device not anchored by
+        :meth:`anchor_device`."""
+        scope = self._open_scope(device, worker, attrs) if self.enabled else None
+        if scope is None:
+            yield
+            return
+        prev = getattr(self._local, "scope", None)
+        self._local.scope = scope
+        try:
+            yield
+        finally:
+            self._local.scope = prev
+            self._close_scope(scope)
+
+    def _open_scope(self, device, worker: str, attrs: Dict[str, Any]) -> Optional[_Scope]:
+        kind = getattr(device, "type", None)
+        if kind == "cpu":
+            lane, stream = None, None
+        elif kind == "cuda":
+            lane = self._lanes.get(_device_key(device))
+            if lane is None or lane.anchor is None:
+                return None
+            stream = _cuda_stream(device)
+        else:
+            return None
+        scope = _Scope(device, lane, stream, dict(attrs, worker=worker), self.run_id)
+        if lane is not None:
+            with self._dev_lock:
+                lane.scopes += 1
+        try:
+            scope.start = self._mark(lane, stream)
+        except Exception:  # noqa: BLE001 - observability must never kill the run
+            self._close_scope(scope)
+            return None
+        return scope
+
+    def _close_scope(self, scope: _Scope) -> None:
+        lane = scope.lane
+        try:
+            if scope.phases == 0 and scope.start is not None:
+                self._pending.append((scope, "forward", {}, scope.start,
+                                      self._mark(lane, scope.stream)))
+            elif lane is not None and scope.start is not None:
+                lane.pool.append(scope.start.event)  # a start no row reads
+        except Exception:  # noqa: BLE001 - observability must never kill the run
+            pass
+        if lane is not None:
+            with self._dev_lock:
+                lane.scopes -= 1
+
+    def device_phase(self, phase: str, device, stream=None, **attrs: Any):
+        """One phase of the dispatch in this thread's device scope, as a
+        context: a timing event on ``stream`` (by default the scope's) before
+        the phase's launches and one after, read later into one ``device``
+        row (``phase``, the scope's attributes and ``attrs``, e.g.
+        ``stack``). A phase that follows another on the same stream shares
+        that one's end event as its start, unless a :meth:`scope_span`
+        opened between. The host side is a ``launch`` span on this thread.
+        Outside a device scope, or on another device than the scope's,
+        nothing is recorded."""
+        scope = getattr(self._local, "scope", None)
+        if scope is None or getattr(device, "type", None) != scope.device.type:
+            return contextlib.nullcontext()
+        return _Phase(self, scope, phase, scope.stream if stream is None else stream, attrs)
+
+    def scope_span(self, stage: str, **extra: Any):
+        """:meth:`span` on this thread with the attributes of its device
+        scope (``video`` or ``videos``, ``worker``), if one is open, and
+        ``extra``: the loop thread's ``stage_in`` spans. The next device
+        phase records its own start, so the span's host time shows on the
+        lane wherever the stream ran dry."""
+        scope = getattr(self._local, "scope", None)
+        attrs: Dict[str, Any] = {}
+        if scope is not None:
+            scope.tail = None
+            attrs.update(scope.attrs)
+        attrs.update(extra)
+        return self.span(stage, **attrs)
+
+    def resolve_device(self) -> int:
+        """Turn every queued phase whose end event has completed
+        (``query()``; nothing waits) into its ``device`` row, its times on
+        the host clock through the lane's anchor; returns how many. The
+        drain thread calls it before each flush, the loop at the end of a
+        call, and :meth:`spans` and :meth:`close` before they read, so
+        the loop threads build no device row."""
+        done = []
+        with self._resolve_lock:
+            pending = self._pending
+            items = [pending.popleft() for _ in range(len(pending))]
+            keep = []
+            for item in items:
+                scope, phase, attrs, start, end = item
+                lane = scope.lane
+                try:
+                    if end.t is None and not end.event.query():
+                        keep.append(item)
+                        continue
+                    done.append((scope, phase, attrs, self._read(lane, start),
+                                 self._read(lane, end)))
+                except Exception:  # noqa: BLE001 - an unreadable event drops its row
+                    pass
+            pending.extendleft(reversed(keep))
+        for scope, phase, attrs, t0, t1 in done:
+            row = dict(scope.base, phase=phase, **attrs)
+            with self._lock:
+                self._seq += 1
+                seq = self._seq
+            row["span"], row["seq"] = f"{self.run_id}.{seq}", seq
+            self._finish_row(row, t0, t1)
+        return len(done)
+
+    @staticmethod
+    def _read(lane: Optional[_Lane], mark: _Mark) -> float:
+        """``mark``'s host time; its first read turns the event's elapsed
+        time from the anchor into that and hands the event back to the
+        pool (a mark's later readers take the time). Call with
+        ``_resolve_lock`` held."""
+        if mark.t is None:
+            mark.t = lane.t_anchor + lane.anchor.elapsed_time(mark.event) * 1e-3
+            lane.pool.append(mark.event)
+            mark.event = None
+        return mark.t
 
     # -- registry hooks -------------------------------------------------
 
@@ -540,8 +932,7 @@ class Telemetry:
             if self._file is None:
                 self._file = open(self._path, "a", encoding="utf-8")
             f = self._file
-            for r in rows:
-                f.write(json.dumps(r, default=str) + "\n")
+            f.write("".join(_ROW_ENCODER.encode(r) + "\n" for r in rows))
             f.flush()
         if self._metrics_path is not None:
             from video_features_tpu_torch.io.sink import atomic_write_json
@@ -599,8 +990,9 @@ class Telemetry:
 
     def spans(self) -> List[Dict[str, Any]]:
         """All spans recorded so far (memory mode only reflects the
-        bounded retention window). Flushes first so the file is
-        complete."""
+        bounded retention window). Reads the device phases that have
+        completed and flushes first, so the file is complete."""
+        self.resolve_device()
         self.flush()
         if self._path is not None:
             return read_spans(self._path)
@@ -612,6 +1004,7 @@ class Telemetry:
         if self._closed:
             return
         self._closed = True
+        self.resolve_device()
         self.flush()
         with self._flush_lock:
             if self._file is not None:
@@ -684,10 +1077,35 @@ def _merged(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
     return [(a, b) for a, b in out]
 
 
+def _device_intervals(rows: Sequence[Dict[str, Any]]) -> Dict[int, Dict[str, list]]:
+    """pid -> device lane -> (t0, t1) intervals of device work, each lane's
+    in the order of its rows. A process that left ``device`` rows (the
+    device lane: CUDA events on the host's clock) is read from them alone,
+    by their ``worker``. A process without them (span files from before
+    the device lane, a mesh, the lockstep loop) is read from its host
+    ``h2d``/``dispatch``/``fetch`` spans, whose union then stands in for
+    the device's busy time. Rows with no interval or a negative one are
+    skipped."""
+    lane: Dict[int, Dict[str, list]] = {}
+    host: Dict[int, Dict[str, list]] = {}
+    for r in rows:
+        t0, t1 = r.get("t0"), r.get("t1")
+        if t0 is None or t1 is None or t1 < t0:
+            continue
+        stage = r.get("stage")
+        into = lane if stage == "device" else host if stage in DEVICE_STAGES else None
+        if into is not None:
+            into.setdefault(int(r.get("pid", 0)), {}).setdefault(
+                _device_of_row(r), []).append((float(t0), float(t1)))
+    return {pid: lane.get(pid) or host[pid] for pid in list(lane) + list(host)}
+
+
 def overlap_report(rows: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
     """Overlap efficiency from span intervals: how much of the run's
     wall time had host ingest (decode/reencode/prepare) running
-    concurrently with device work (h2d/dispatch/fetch).
+    concurrently with device work (:func:`_device_intervals`: the device
+    lane's rows, or the h2d/dispatch/fetch spans of a process without
+    them).
 
     ``overlap_efficiency`` is overlap seconds / wall seconds — the
     headline the async-ingest PR is judged on. ``overlap_of_device``
@@ -697,16 +1115,14 @@ def overlap_report(rows: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
     per-pid and summed."""
     by_pid: Dict[int, Tuple[list, list]] = {}
     for r in rows:
-        stage = r.get("stage")
         t0, t1 = r.get("t0"), r.get("t1")
         if t0 is None or t1 is None or t1 < t0:
             continue
-        pid = int(r.get("pid", 0))
-        h, d = by_pid.setdefault(pid, ([], []))
-        if stage in HOST_STAGES:
+        h, _ = by_pid.setdefault(int(r.get("pid", 0)), ([], []))
+        if r.get("stage") in HOST_STAGES:
             h.append((float(t0), float(t1)))
-        elif stage in DEVICE_STAGES:
-            d.append((float(t0), float(t1)))
+    for pid, lanes in _device_intervals(rows).items():
+        by_pid[pid][1].extend(iv for intervals in lanes.values() for iv in intervals)
     wall = host_busy = dev_busy = overlap = 0.0
     for h, d in by_pid.values():
         host, dev = _merged(h), _merged(d)
@@ -729,42 +1145,41 @@ def overlap_report(rows: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
 
 
 def _device_of_row(r: Dict[str, Any]) -> str:
-    """The device lane a span belongs to: the pipelined loop stamps
-    device spans with ``worker=str(device)`` (extract/base.py); spans
-    missing it (the serial loop, old files) share one per-pid lane."""
+    """The device lane a span belongs to: the loops stamp device spans and
+    the device lane's rows with ``worker`` (``str(device)`` unless queue
+    mode names it; extract/base.py); spans missing it (old files) share
+    one per-pid lane."""
     w = r.get("worker")
     return str(w) if w else f"pid{int(r.get('pid', 0))}"
 
 
 def utilization_report(rows: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
-    """Per-device busy/idle accounting over the device stages
-    (h2d/dispatch/fetch) — the per-device refinement of
-    :func:`overlap_report`. Busy time is the merged union of one
-    device's span intervals; wall time is per-pid (monotonic clocks
-    never compare across processes), taken over ALL stage spans so a
-    device idle while the host decodes counts as idle.
+    """Per-device busy/idle accounting — the per-device refinement of
+    :func:`overlap_report`. Busy time is the merged union of one device's
+    intervals of device work (:func:`_device_intervals`: the device
+    lane's rows, or for a process without them its h2d/dispatch/fetch
+    spans); wall time is per-pid (monotonic clocks never compare across
+    processes), taken over ALL rows so a device idle while the host
+    decodes counts as idle.
 
     ``device_utilization`` is the headline fraction in summary.json:
     total device-busy seconds / total device-lane wall seconds (each
     pid's wall counted once per device it drove). 0.0 when no device
-    spans exist (serial loop, --telemetry off)."""
-    # pid -> (wall intervals over every stage, device -> intervals)
-    by_pid: Dict[int, Tuple[list, Dict[str, list]]] = {}
+    work was recorded (--telemetry off)."""
+    walls: Dict[int, list] = {}
     for r in rows:
         t0, t1 = r.get("t0"), r.get("t1")
         if t0 is None or t1 is None or t1 < t0:
             continue
-        pid = int(r.get("pid", 0))
-        walls, devs = by_pid.setdefault(pid, ([], {}))
-        walls.append((float(t0), float(t1)))
-        if r.get("stage") in DEVICE_STAGES:
-            devs.setdefault(_device_of_row(r), []).append((float(t0), float(t1)))
+        walls.setdefault(int(r.get("pid", 0)), []).append((float(t0), float(t1)))
+    lanes = _device_intervals(rows)
     devices: Dict[str, Dict[str, Any]] = {}
     busy_total = wall_total = 0.0
-    for walls, devs in by_pid.values():
+    for pid, pid_walls in walls.items():
+        devs = lanes.get(pid)
         if not devs:
             continue
-        merged_wall = _merged(walls)
+        merged_wall = _merged(pid_walls)
         pid_wall = (merged_wall[-1][1] - merged_wall[0][0]) if merged_wall else 0.0
         for name, intervals in devs.items():
             merged = _merged(intervals)
@@ -857,11 +1272,6 @@ def request_trace_rows(
     return sorted(selected.values(), key=lambda r: (r.get("t0") or 0.0, r.get("seq", 0)))
 
 
-# synthetic tid base for the per-device Perfetto lanes: far above any
-# real thread ident so lanes never collide with OS thread ids
-_DEVICE_LANE_TID_BASE = 1 << 22
-
-
 def spans_to_chrome_trace(
     rows: Sequence[Dict[str, Any]], device_lanes: bool = False
 ) -> Dict[str, Any]:
@@ -870,12 +1280,16 @@ def spans_to_chrome_trace(
     ``ts``/``dur`` rebased to the earliest span, plus thread_name
     metadata so lanes are labelled decode-*/worker threads.
 
-    ``device_lanes=True`` (``telemetry export --device-lanes``)
-    additionally mirrors every device-stage span (h2d/dispatch/fetch)
-    into one synthetic ``device <name>`` lane per device, so the
-    busy/idle timeline :func:`utilization_report` summarizes is visible
-    as a row per chip rather than scattered across dispatcher threads."""
+    The device lane's rows are drawn in their own lane, ``device
+    <worker>``, as their ``thread`` and ``thread_name`` say. For a process
+    that left none (span files from before the device lane, a mesh),
+    ``device_lanes=True`` (``telemetry export --device-lanes``) mirrors
+    every device-stage span (h2d/dispatch/fetch) into one synthetic
+    ``device <name>`` lane per device instead, so the busy/idle timeline
+    :func:`utilization_report` summarizes is visible as a row per chip
+    rather than scattered across dispatcher threads."""
     events: List[Dict[str, Any]] = []
+    with_lane = {int(r.get("pid", 0)) for r in rows if r.get("stage") == "device"}
     t_base = min(
         (float(r["t0"]) for r in rows if r.get("t0") is not None),
         default=0.0,
@@ -911,7 +1325,7 @@ def spans_to_chrome_trace(
             "args": args,
         }
         events.append(ev)
-        if device_lanes and r.get("stage") in DEVICE_STAGES:
+        if device_lanes and r.get("stage") in DEVICE_STAGES and pid not in with_lane:
             dev = _device_of_row(r)
             lane_key = (pid, dev)
             lane_tid = device_tids.get(lane_key)

@@ -4,8 +4,10 @@
 Counterpart of ``video_features_tpu/telemetry/__init__.py``. The
 recording engine lives in :mod:`video_features_tpu_torch.runtime.telemetry`
 (it is part of the hot path); this package is the read side: the span
-JSONL schema (``spans_schema.json``, byte-equal to the JAX package's) and
-the CLI consumers in ``__main__.py``. The engine's public names are
+JSONL schema (``spans_schema.json``: the JAX package's, plus the device
+lane's stages ``device``, ``stage_in`` and ``launch`` and the attributes
+``phase``, ``stack`` and ``captured``) and the CLI consumers in
+``__main__.py``. The engine's public names are
 re-exported here so consumers can import one module. The serve daemon's
 Prometheus text (``GET /metrics``) is rendered by ``exposition.py``, and
 the device cost ledger (each model call's flops and memory, the resident
@@ -20,6 +22,7 @@ import os
 from video_features_tpu_torch.runtime.telemetry import (  # noqa: F401
     DEVICE_STAGES,
     HOST_STAGES,
+    PORT_STAGES,
     STAGES,
     MetricsRegistry,
     SloTracker,

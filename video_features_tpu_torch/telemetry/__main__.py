@@ -6,7 +6,10 @@ for the span files a run leaves under ``<output>/_telemetry/``.
 - ``export SPANS... [-o trace.json] [--device-lanes]`` — Chrome-trace /
   Perfetto JSON. Arguments are spans-*.jsonl files, a ``_telemetry``
   directory, or the run's output root (the ``_telemetry`` subdir is found
-  either way). Open the result in Perfetto or chrome://tracing.
+  either way). Open the result in Perfetto or chrome://tracing. The
+  device lane's rows are drawn as a ``device <worker>`` lane; with
+  ``--device-lanes`` a run without them (older files, a mesh) gets its
+  device-stage spans mirrored into such lanes instead.
 - ``report PATHS... [--json]`` — the overlap-efficiency summary (the same
   math as the ``overlap`` block of ``summary.json``): host-busy vs
   device-busy vs overlapped wall time, from the span intervals.
@@ -133,8 +136,9 @@ def main(argv: List[str]) -> int:
     p_export.add_argument("-o", "--output", default=None,
                           help="trace JSON path (default: stdout)")
     p_export.add_argument("--device-lanes", action="store_true",
-                          help="mirror device-stage spans (h2d/dispatch/"
-                               "fetch) into one Perfetto lane per device")
+                          help="for a run without device-lane rows, mirror its "
+                               "device-stage spans (h2d/dispatch/fetch) into "
+                               "one Perfetto lane per device")
     p_report = sub.add_parser("report", help="overlap-efficiency summary")
     p_report.add_argument("paths", nargs="+",
                           help="spans-*.jsonl files, a _telemetry dir, or an output root")

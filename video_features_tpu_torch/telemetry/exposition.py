@@ -68,13 +68,12 @@ _PLAIN_COUNTERS = {
         "Videos fully extracted and committed by the sink (resume-safe "
         "completions, not attempts)."
     ),
-    # graftcheck: GC701 — no producer on purpose: eager PyTorch compiles
-    # nothing, and the exposition keeps the JAX package's schema so one
-    # dashboard reads both packages (runtime/telemetry.py leaves the
-    # recompile watch out, as STAGES keeps "compile")
+    # the JAX package's family, produced in the port by the first call of
+    # a built module at each argument signature (telemetry/ledger.py)
     "compiles": (
-        "XLA compilations observed by RecompileWatch — growth after "
-        "warmup means a shape leaked past bucketing."
+        "First calls of a built module at a new argument signature, each "
+        "a compile span — growth after warmup means a shape leaked past "
+        "bucketing."
     ),
     "retries": (
         "Per-video extraction retries after a retryable worker failure "

@@ -26,7 +26,11 @@ Three pieces:
   one family per key. A forward pre-hook and an always-called forward
   hook on each module measure the first call per argument signature
   while it runs, under a process-wide capture lock; attribute access,
-  ``state_dict`` keys and execution stay as they are. What a capture
+  ``state_dict`` keys and execution stay as they are. The same hooks time
+  each first call per signature as a ``compile`` span of the run's
+  telemetry, with or without a ledger (``_attach``): eager PyTorch
+  compiles no graph, but a first call pays cuDNN's plan choice, a
+  kernel's first load and the allocator's growth. What a capture
   records:
 
   - ``memory.argument_bytes``: the parameters and buffers of every
@@ -396,16 +400,18 @@ def _module_bytes(modules: Sequence[Any]) -> int:
 
 def instrument_state(
     state: Any,
-    ledger: CostLedger,
+    ledger: Optional[CostLedger],
     model: str,
     sharding: str = "queue",
     device: Any = None,
+    telemetry: Any = None,
 ) -> Any:
     """Hook an extractor's built state so that every module's first call
-    per argument signature records its facts into ``ledger`` (module
-    docstring). Returns ``state`` itself: the hooks leave attribute access,
-    ``state_dict`` keys and execution as they are. A state with no module
-    passes through untouched."""
+    per argument signature is timed as a ``compile`` span of
+    ``telemetry`` (when it is on) and, with a ``ledger``, records its facts
+    there (module docstring). Returns ``state`` itself: the hooks leave
+    attribute access, ``state_dict`` keys and execution as they are. A
+    state with no module passes through untouched."""
     families = _state_modules(state)
     if not families:
         return state
@@ -415,16 +421,26 @@ def instrument_state(
         first = next(iter(families.values()))
         device = next((p.device for p in first.parameters()), torch.device("cpu"))
     device = torch.device(device)
-    weight_bytes = _module_bytes(list(families.values()))
+    weight_bytes = _module_bytes(list(families.values())) if ledger is not None else 0
     for family, module in families.items():
-        _attach(module, ledger, model, family, sharding, device, weight_bytes)
+        _attach(module, ledger, model, family, sharding, device, weight_bytes, telemetry)
     return state
 
 
-def _attach(module: Any, ledger: CostLedger, model: str, family: str, sharding: str,
-            device: Any, weight_bytes: int) -> None:
-    seen: set = set()
+def _attach(module: Any, ledger: Optional[CostLedger], model: str, family: str, sharding: str,
+            device: Any, weight_bytes: int, telemetry: Any = None) -> None:
+    """The module's two hooks. The first call at a signature not seen
+    before is a first call: with telemetry on it is a ``compile`` span
+    (``fn`` the family, ``bucket`` the signature's bucket, ``n`` the
+    family's first calls so far, ``captured`` when the ledger's capture
+    ran inside it, so the capture's cost shows) and one ``compiles`` tick;
+    with a ledger it is captured, unless another thread's capture is in
+    flight: that signature is captured at a later call, outside any
+    ``compile`` span."""
+    timed: set = set()
+    captured: set = set()
     lock = threading.Lock()
+    tele = telemetry if telemetry is not None and telemetry.enabled else None
 
     def pre(mod, args, kwargs):
         if getattr(_TLS, "capture", None) is not None:
@@ -434,14 +450,23 @@ def _attach(module: Any, ledger: CostLedger, model: str, family: str, sharding: 
         except Exception:  # noqa: BLE001 - signature failure: skip capture
             return None
         with lock:
-            if sig in seen:
-                return None
-            seen.add(sig)
+            first = tele is not None and sig not in timed
+            timed.add(sig)
+            n = len(timed)
+            capture = ledger is not None and sig not in captured
+            captured.add(sig)
+        if first:
+            tele.metrics.inc("compiles")
+            _TLS.first_calls = getattr(_TLS, "first_calls", {})
+            _TLS.first_calls[id(mod)] = tele.begin(
+                "compile", fn=family, bucket=bucket_of(args, kwargs), n=n)
+        if not capture:
+            return None
         # another thread's capture in flight: try again at a later call
         # rather than block a dispatch on it
         if not _CAPTURE_LOCK.acquire(blocking=False):
             with lock:
-                seen.discard(sig)
+                captured.discard(sig)
             return None
         try:
             _TLS.capture = _Capture(mod, device, weight_bytes, args, kwargs)
@@ -451,19 +476,23 @@ def _attach(module: Any, ledger: CostLedger, model: str, family: str, sharding: 
         return None
 
     def post(mod, args, kwargs, output):
+        token = getattr(_TLS, "first_calls", {}).pop(id(mod), None)
         cap = getattr(_TLS, "capture", None)
-        if cap is None or cap.module is not mod:
-            return None
-        _TLS.capture = None
-        try:
-            analysis = cap.finish(output)
-            if analysis:
-                ledger.record(model, family, bucket_of(args, kwargs), sharding,
-                              device.type, analysis)
-        except Exception:  # noqa: BLE001 - observability must never kill dispatch
-            pass
-        finally:
-            _CAPTURE_LOCK.release()
+        if cap is not None and cap.module is mod:
+            _TLS.capture = None
+            try:
+                analysis = cap.finish(output)
+                if analysis:
+                    ledger.record(model, family, bucket_of(args, kwargs), sharding,
+                                  device.type, analysis)
+            except Exception:  # noqa: BLE001 - observability must never kill dispatch
+                pass
+            finally:
+                _CAPTURE_LOCK.release()
+            if token is not None:
+                token.finish(captured=True)
+        if token is not None:
+            token.finish()  # a no-op after the captured finish
         return None
 
     module.register_forward_pre_hook(pre, with_kwargs=True)

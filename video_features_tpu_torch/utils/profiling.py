@@ -42,6 +42,13 @@ def _start() -> Any:
     return prof
 
 
+def session_active() -> bool:
+    """Whether a ``device_trace`` session is on: one read of a flag, made
+    by every telemetry span (``runtime/telemetry.py``), which then enters a
+    ``record_function`` range."""
+    return _trace_session is not None
+
+
 @contextmanager
 def device_trace(profile_dir: Optional[str]) -> Iterator[None]:
     """A refcounted ``torch.profiler`` session over a region; a no-op when
